@@ -130,15 +130,47 @@ def csr_of(A):
         return coo.coalesce().to_sparse_csr()
 
 
-def phase_device():
+def prepare() -> str:
+    """Make the checkout's port importable; '' or why it cannot run here."""
+    try:
+        import torch
+    except ImportError:
+        return "torch is not installed"
+    if not torch.cuda.is_available():
+        return "no CUDA device; this script runs on the card"
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        return "run from the root of a checkout (src/repro_torch is missing)"
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return ""
+
+
+def card():
+    """The card's name and nvidia-smi's 'name, power.limit' line."""
     import torch
-    name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    line = smi.stdout.strip().splitlines()[0]
+    return torch.cuda.get_device_name(0), smi.stdout.strip().splitlines()[0]
+
+
+def ex23(gen):
+    """The paper's problem on the card: tridiag(-1, 2, -1) at n = 2^21
+    and a float64 right-hand side drawn from ``gen``."""
+    import torch
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    b = torch.randn(N_EX23, generator=gen, device=gen.device,
+                    dtype=torch.float64)
+    return tridiagonal_laplacian(N_EX23), b
+
+
+def phase_device():
+    import torch
+    name, line = card()
     say("device", name=repr(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
     print(line, flush=True)
@@ -301,13 +333,12 @@ def phase_main_path(records):
     """
     import torch
     from repro_torch.core.krylov import (SolverOptions, pipecg, pipecg_multi,
-                                         pipecr, tridiagonal_laplacian)
+                                         pipecr)
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    A = tridiagonal_laplacian(N_EX23)
-    b = torch.randn(N_EX23, generator=gen, device=dev, dtype=torch.float64)
+    A, b = ex23(gen)
     B = torch.randn(8, N_EX23, generator=gen, device=dev, dtype=torch.float64)
     half = lambda z: 0.5 * z  # noqa: E731  an opaque callable M
     cb_iters = 100
@@ -431,23 +462,11 @@ def phase_model():
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
+    why = prepare()
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
         return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    src = ROOT / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: run from the root of a checkout (src/repro_torch "
-              "is missing)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(src))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    import torch
 
     name, _ = phase_device()
     phase_build()

@@ -46,7 +46,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rt_spmv_dia": [_I, _I, _P, _I, _L, _I, _P, _P, _P, _P],
     "rt_pipecg_spmv_fused": [_I, _I, _P, _I, _L, _I,
-                             _P, _L, _I, _P, _P,
+                             _P, _P, _P,
                              _P, _P, _P, _P,
                              _P, _P, _P, _P, _I, _L,
                              _P, _P,
@@ -84,12 +84,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:12]}.so"
 
 
-def build(verbose: bool = False) -> Tuple[Path, str]:
+def build() -> Tuple[Path, str]:
     """Compile csrc/ into the shared library unless it is already built.
 
     One ``nvcc`` process per source, all started together, then one link.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
-    per kernel).  Returns the library path and the compilers' output.
+    Returns the library path and the compilers' output.
     """
     so = library_path()
     if so.exists():
@@ -97,13 +96,12 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
     nvcc = _nvcc()
-    extra = ("-Xptxas", "-v") if verbose else ()
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     procs = []
     log = []
     try:
         for src in srcs:
-            cmd = [nvcc, *ARCH, *FLAGS, *extra, "-c", str(src),
+            cmd = [nvcc, *ARCH, *FLAGS, "-c", str(src),
                    "-o", str(tmp / (src.stem + ".o"))]
             procs.append((src, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -26,11 +26,10 @@
 //   tile; neighbouring threads read neighbouring rows and L1/L2 catch the
 //   reuse.  Every thread evaluates a row's chain with the same operations
 //   in the same order, so u' feeding w' equals the stored u'.
-// * No padded copies.  Rows outside [0, n) come from optional strips
-//   (k, 2h) to the left and right (null: zero), and the operator (bands,
-//   diag^-1) is readable on rows [-op_ext, n + op_ext) with row stride
-//   ldb (op_ext = 0: zero outside).  rows >= n_valid are masked out of
-//   the partials.  That is the sharded per-rank sweep's interface too.
+// * No padded copies.  Rows of u and p outside [0, n) come from optional
+//   strips (k, 2h) to the left and right (null: zero); the operator is
+//   zero outside [0, n).  Rows >= n_valid are masked out of the partials.
+//   That is the sharded per-rank sweep's interface too.
 // * Outputs go to fresh buffers: u and p are read with a +-2h halo across
 //   CTAs, so updating them in place would race with a neighbour's reads.
 // * Cross-block sums: per-CTA partials (k, n_blocks, 6), then a fixed-order
@@ -45,8 +44,8 @@ namespace rt {
 
 template <typename T, typename S> struct SweepArgs {
   Offsets offs;
-  long long n, ldb, n_valid;
-  int op_ext, h2, nblk;
+  long long n, n_valid;
+  int h2, nblk;
   const S *bands, *invd, *csum;
   const T *x;
   const S *r, *u, *p;
@@ -74,11 +73,10 @@ template <typename T, typename S> struct Row {
   T alpha, beta;
 
   __device__ T band(int b, long long m) const {
-    return (m >= -a.op_ext && m < a.n + a.op_ext) ? up<T>(a.bands[b * a.ldb + m])
-                                                  : T(0);
+    return (m >= 0 && m < a.n) ? up<T>(a.bands[b * a.n + m]) : T(0);
   }
   __device__ T invd(long long m) const {
-    return (m >= -a.op_ext && m < a.n + a.op_ext) ? up<T>(a.invd[m]) : T(0);
+    return (m >= 0 && m < a.n) ? up<T>(a.invd[m]) : T(0);
   }
   __device__ T u(long long m) const {
     return vec_at<T, S>(a.u, a.u_lo, a.u_hi, j, m, a.n, a.h2);
@@ -146,7 +144,7 @@ __global__ void pipecg_spmv_fused_kernel(const SweepArgs<T, S> a) {
 
 extern "C" int rt_pipecg_spmv_fused(
     int acc, int sto, const int *offsets, int nb, long long n, int k,
-    const void *bands, long long ldb, int op_ext, const void *inv_diag,
+    const void *bands, const void *inv_diag,
     const void *csum, const void *x, const void *r, const void *u,
     const void *p, const void *u_lo, const void *u_hi, const void *p_lo,
     const void *p_hi, int h2, long long n_valid, const void *alpha,
@@ -154,7 +152,7 @@ extern "C" int rt_pipecg_spmv_fused(
     int nblk, void *red, void *stream) {
   using namespace rt;
   if (nb < 1 || nb > kMaxBands || n < 1 || k < 1 || k > 65535 ||
-      nblk != blocks_for(n) || op_ext < 0 || h2 < 0)
+      nblk != blocks_for(n) || h2 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Offsets offs{};
   offs.nb = nb;
@@ -167,9 +165,7 @@ extern "C" int rt_pipecg_spmv_fused(
     SweepArgs<T, S> a{};
     a.offs = offs;
     a.n = n;
-    a.ldb = ldb;
     a.n_valid = n_valid;
-    a.op_ext = op_ext;
     a.h2 = h2;
     a.nblk = nblk;
     a.bands = static_cast<const S *>(bands);

@@ -104,7 +104,7 @@ def pipecg_spmv_fused(offsets: Sequence[int], bands, inv_diag, csum,
     with torch.cuda.device(x.device):
         rc = _b.lib().rt_pipecg_spmv_fused(
             _b.dtype_code(name, x), _b.dtype_code(name, r), offs, nb, n, k,
-            P(bands), n, 0, P(inv_diag), P(csum),
+            P(bands), P(inv_diag), P(csum),
             P(x), P(r), P(u), P(p),
             None, None, None, None, 2 * h, n,
             P(alpha), P(beta), P(xo), P(ro), P(uo), P(po),

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every ``repro_torch`` module and must find
 neither ``jax`` nor ``repro`` in ``sys.modules``; an AST scan of the
-package and of ``chip_smoke.py`` finds no import of either.
+package and of the port's two scripts at the root (``chip_smoke.py``,
+``torch_pipecg_breakdown.py``) finds no import of either.
 """
 import ast
 import json
@@ -16,7 +17,8 @@ import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "torch_pipecg_breakdown.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where one fused PIPECG iteration of the PyTorch port spends its time.
+
+    python3 torch_pipecg_breakdown.py
+
+Run from the root of a checkout on one NVIDIA GPU (exits with 2 without
+one).  Solves ex23 (chip_smoke.py's problem: the tridiagonal Laplacian at
+n = 2,097,152, float64) for 200 iterations with ``pipecg(engine="fused")``
+and reports
+
+* the host-clock time per iteration of a synchronised solve (best of 3),
+  and of one solve with ``torch.profiler`` attached;
+* from the profiler's device events, the device time per iteration by
+  group: the sweep kernel and its fixed-order reduce, ``torch.where``
+  (the masked freeze), the scalar recurrence and bookkeeping ops; and the
+  device's idle share of the profiled wall time.
+
+Prints one JSON object as its last line.  Where the profiler's averages
+show no device time, the groups read "not measured".
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import chip_smoke as smoke
+
+ITERS = 200
+GROUPS = (
+    ("sweep kernel", ("pipecg_spmv_fused_kernel",)),
+    ("sweep reduce", ("reduce_rows_kernel",)),
+    ("spmv kernel", ("spmv_dia_kernel",)),
+    ("torch.where (freeze)", ("where",)),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for label, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return label
+    return "other elementwise/scalar ops"
+
+
+def main() -> int:
+    why = smoke.prepare()
+    if why:
+        print(f"torch_pipecg_breakdown: {why}", file=sys.stderr)
+        return 2
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.krylov import SolverOptions, pipecg
+
+    _, card = smoke.card()
+    A, b = smoke.ex23(torch.Generator(device="cuda").manual_seed(0))
+    opts = SolverOptions(engine="fused", maxiter=ITERS)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipecg(A, b, options=opts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    solve()  # build + warm up
+    wall = min(solve() for _ in range(3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = solve()
+    groups, kernels = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            g = _group(ev.key)
+            groups[g] = groups.get(g, 0.0) + us
+            kernels[ev.key[:100]] = (us / ITERS, ev.count / ITERS)
+    busy_us = sum(groups.values())
+    per_iter = {g: us / ITERS for g, us in sorted(groups.items())}
+    result = {
+        "card": card, "n": smoke.N_EX23, "iters": ITERS,
+        "wall_ms_per_iter": wall / ITERS * 1e3,
+        "wall_ms_per_iter_profiled": wall_prof / ITERS * 1e3,
+        "device_us_per_iter": per_iter if busy_us else "not measured",
+        "device_busy_us_per_iter": busy_us / ITERS if busy_us
+        else "not measured",
+        "device_idle_share": 1.0 - busy_us * 1e-6 / wall_prof if busy_us
+        else "not measured",
+        "top_kernels_us_and_launches_per_iter": sorted(
+            kernels.items(), key=lambda kv: -kv[1][0])[:10],
+    }
+    for g, us in per_iter.items():
+        print(f"{g:32s} {us:10.3f} us/iter")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
