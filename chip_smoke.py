@@ -11,15 +11,27 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
 3. kernels: each CUDA kernel against its plain torch version at the main
    path's shapes (ex23's n = 2,097,152 tridiagonal, float64; the 5-band
    ``laplacian_2d(1448, 1448)``; k = 1 and 8; float32; float32 with bf16
-   storage), with its CUDA-event time (median of 25), the plain version's
-   and, for the SpMV, ``torch.sparse`` CSR's, and its bound;
+   storage; the per-rank halo sweep at the 4-rank local size 524,288 with
+   real neighbour strips and operator rows, and 4 such slices summed
+   against the one-device sweep; ``fused_dots`` at m = 3 and 30), with its
+   CUDA-event time (median of 25), the plain version's, the library
+   call's where one computes the same function (``torch.sparse`` CSR mv,
+   ``torch.mv``), and its bound;
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
    solves, ``pipecr``, and a callable-M solve on the update-kernel fallback;
-5. model: ``asymptotic_speedup`` as in examples/quickstart.py and a
+5. ranks: ex23 on 4 ranks of one process group, all on this card
+   (``distributed_solve(pipecg, engine="sharded_fused", maxiter=5000)``,
+   gloo with host-staged strips on one card, NCCL with one card per
+   rank), its launch counts, split-phase order and history held against
+   the one-device fused solve; 200-iteration pipecr, Jacobi,
+   ``pipecg_multi`` (k=4), inline ``cg``/``pipecg`` and a 2-rank solve
+   against theirs; the same solve under injected Exponential noise, whose
+   history must equal the quiet one bit for bit;
+6. model: ``asymptotic_speedup`` as in examples/quickstart.py and a
    ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card;
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises: the script exits non-zero and prints no result when a
 kernel does not build, does not launch or disagrees, when no CUDA device
@@ -35,7 +47,13 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
+# the device every phase runs on
+DEVICE = "cuda"
+# kernels of the one-device path (phase 4); the rank path's come in phase 5
+ONE_DEVICE = ("spmv_dia", "pipecg_spmv_fused", "pipecg_fused")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): memory 3.35 TB/s;
 # float64 and float32 outside the tensor cores
@@ -44,6 +62,8 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 N_EX23 = 2_097_152
 MAXITER = 5000
 CHECK_ITERS = 200
+RANKS = 4
+NOISE_SCALE = 1e-4   # seconds per unit draw: Exponential(1) waits, 100 us mean
 
 
 class SmokeFailure(RuntimeError):
@@ -165,7 +185,7 @@ def ex23(gen):
     from repro_torch.core.krylov import tridiagonal_laplacian
     b = torch.randn(N_EX23, generator=gen, device=gen.device,
                     dtype=torch.float64)
-    return tridiagonal_laplacian(N_EX23), b
+    return tridiagonal_laplacian(N_EX23, device=gen.device), b
 
 
 def phase_device():
@@ -198,11 +218,11 @@ def phase_kernels():
         pipecg_spmv_fused, pipecg_spmv_fused_plain)
     from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
-    tri = tridiagonal_laplacian(N_EX23)
-    lap = laplacian_2d(1448, 1448)
+    tri = tridiagonal_laplacian(N_EX23, device=dev)
+    lap = laplacian_2d(1448, 1448, device=dev)
     records = {}
 
     def randn(shape, dt):
@@ -322,7 +342,164 @@ def phase_kernels():
                 replaces="src/repro/kernels/pipecg_fused.py:63",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    halo_kernel(records, gen, tri, lap)
+    halo_slices_sum_to_sweep(gen, tri)
+    dots_kernel(records, gen)
     return records
+
+
+def rank_operands(A, P, q, x, r, u, p, sto):
+    """Rank q of P's sweep operands cut from global (k, n) vectors: the
+    operator rows [lo - h, hi + h) and the u/p strips [lo - 2h, lo) and
+    [hi, hi + 2h), zero beyond the matrix, as the halo exchange gives them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.checksum import dia_column_checksum
+    h, n = A.halo, A.n
+    lo, hi = q * n // P, (q + 1) * n // P
+    bands = F.pad(A.bands, (h, h))[:, lo:hi + 2 * h]
+    invd = F.pad(1.0 / A.diagonal(), (h, h))[lo:hi + 2 * h]
+    csum = dia_column_checksum(A.offsets, bands, halo=h)
+    wide = [F.pad(v, (2 * h, 2 * h)) for v in (u, p)]
+    strips = []
+    for v in wide:
+        strips += [v[:, lo:lo + 2 * h], v[:, hi + 2 * h:hi + 4 * h]]
+    cut = [v[:, lo:hi] for v in (x, r, u, p)]
+    ops_ = [bands.to(sto), invd.to(sto), csum.to(sto), cut[0],
+            *(v.to(sto) for v in cut[1:]), *(s.to(sto) for s in strips)]
+    return [t.contiguous() for t in ops_], slice(lo, hi)
+
+
+def halo_kernel(records, gen, tri, lap):
+    """#3: the per-rank sweep on an interior rank (real strips, real
+    neighbour operator rows) against its plain version."""
+    import torch
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        pipecg_spmv_halo, pipecg_spmv_halo_plain)
+    from repro_torch.kernels.spmv_dia import spmv_dia_plain
+    dev = tri.device
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    cases = [(tri, "tridiag", RANKS, 1, f64, f64),
+             (tri, "tridiag", RANKS, 8, f64, f64),
+             (tri, "tridiag", 1, 1, f64, f64),
+             (tri, "tridiag", 1, 8, f64, f64),
+             (tri, "tridiag", RANKS, 1, f32, bf16),
+             (lap, "lap2d", RANKS, 1, f64, f64)]
+    for A, label, P, k, acc, sto in cases:
+        x, r, u, p = (torch.randn((k, A.n), generator=gen, device=dev,
+                                  dtype=f64).to(acc) for _ in range(4))
+        a = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
+        b = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
+        q = min(1, P - 1)
+        opnds, _ = rank_operands(A, P, q, x, r, u, p, sto)
+        args = (A.offsets, *opnds, a, b)
+        got = pipecg_spmv_halo(*args)
+        want = pipecg_spmv_halo_plain(*args)
+        torch.cuda.synchronize()
+        vec_tol = {f64: 1e-12, f32: 1e-5}[acc]
+        for i, (g, w) in enumerate(zip(got[:4], want[:4])):
+            tol = 2.0 ** -7 if g.dtype == bf16 else vec_tol
+            gap = float(((g.double() - w.double()).abs()
+                         / w.double().abs().clamp(min=1.0)).max())
+            check(gap <= tol, f"pipecg_spmv_halo {label} out{i}: {gap}")
+        # the partials against the sum of their terms' magnitudes, the
+        # terms taken over the rank's rows from the plain version's vectors
+        h = A.halo
+        r2, u2 = want[1].to(acc), want[2].to(acc)
+        u_ext = torch.cat([torch.zeros((k, h), dtype=acc, device=dev), u2,
+                           torch.zeros((k, h), dtype=acc, device=dev)], -1)
+        w2 = spmv_dia_plain(A.offsets, opnds[0].to(acc), u_ext)[:, h:-h]
+        c = opnds[2].to(acc)
+        mags = torch.stack(
+            [t.abs().sum(-1) for t in (r2 * u2, w2 * u2, r2 * r2, r2 * w2,
+                                       w2 * w2)]
+            + [w2.abs().sum(-1) + (c * u2).abs().sum(-1)], -1)
+        rel = float(((got[4] - want[4]).abs() / mags).max())
+        red_tol = 1e-3 if sto == bf16 else {f64: 1e-10, f32: 1e-5}[acc]
+        check(rel <= red_tol, f"halo partials {label}: {rel}")
+        err = max_err(got, want)
+        ms = time_ms(lambda: pipecg_spmv_halo(*args))
+        plain_ms = time_ms(lambda: pipecg_spmv_halo_plain(*args))
+        n = x.shape[-1] // P
+        flops = k * n * (4 * len(A.offsets) + 22)
+        b_ms, b_by = bound(nbytes(*opnds, a, b, *got), flops, acc)
+        say("kernel", name="pipecg_spmv_halo", shape=label, ranks=P,
+            n_local=n, h=h, k=k, accum=str(acc)[6:], storage=str(sto)[6:],
+            max_abs_err=f"{err:.3e}", partial_rel=f"{rel:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}")
+        if (label, P, k, acc) == ("tridiag", RANKS, 1, f64):
+            records["pipecg_spmv_halo"] = dict(
+                name="pipecg_spmv_halo", route="cuda",
+                source="src/repro_torch/kernels/csrc/pipecg_spmv_fused.cu",
+                replaces="src/repro/kernels/pipecg_spmv_fused.py:252",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def halo_slices_sum_to_sweep(gen, A):
+    """4 ranks' sweeps on slices of one global state: their vectors equal
+    the one-device sweep's rows bit for bit, their partials sum to its row."""
+    import torch
+    from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
+                                                       pipecg_spmv_halo)
+    dev, f64 = A.device, torch.float64
+    x, r, u, p = (torch.randn((1, A.n), generator=gen, device=dev,
+                              dtype=f64) for _ in range(4))
+    a = torch.rand(1, generator=gen, device=dev, dtype=f64)
+    b = torch.rand(1, generator=gen, device=dev, dtype=f64)
+    invd = (1.0 / A.diagonal()).contiguous()
+    whole = pipecg_spmv_fused(A.offsets, A.bands, invd, A.column_checksum(),
+                              x, r, u, p, a, b)
+    total = torch.zeros_like(whole[4])
+    for q in range(RANKS):
+        opnds, rows = rank_operands(A, RANKS, q, x, r, u, p, f64)
+        got = pipecg_spmv_halo(A.offsets, *opnds, a, b)
+        for i, (g, w) in enumerate(zip(got[:4], whole[:4])):
+            check(torch.equal(g, w[:, rows]), f"rank {q} out{i} differs")
+        total = total + got[4]
+    torch.cuda.synchronize()
+    rel = float(((total - whole[4]).abs()
+                 / whole[4].abs().clamp(min=1.0)).max())
+    check(rel <= 1e-10, f"rank partials sum off by {rel}")
+    say("kernel", check="4 rank slices == one-device sweep", n=A.n,
+        vectors="bit-equal", partials_rel=f"{rel:.3e}")
+
+
+def dots_kernel(records, gen):
+    """#7: fused_dots against its plain version and torch.mv."""
+    import torch
+    from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
+    dev, f64 = gen.device, torch.float64
+    for m, n in ((3, N_EX23 // RANKS), (30, N_EX23)):
+        V = torch.randn((m, n), generator=gen, device=dev, dtype=f64)
+        z = torch.randn(n, generator=gen, device=dev, dtype=f64)
+        got = fused_dots(V, z)
+        want = fused_dots_plain(V, z)
+        lib = torch.mv(V, z)
+        torch.cuda.synchronize()
+        mags = (V * z).abs().sum(-1)
+        rel = float(((got - want).abs() / mags).max())
+        check(rel <= 1e-12, f"fused_dots m={m}: {rel}")
+        check(float(((lib - want).abs() / mags).max()) <= 1e-12,
+              "torch.mv yardstick disagrees")
+        err = max_err([got], [want])
+        ms = time_ms(lambda: fused_dots(V, z))
+        plain_ms = time_ms(lambda: fused_dots_plain(V, z))
+        lib_ms = time_ms(lambda: torch.mv(V, z))
+        b_ms, b_by = bound(nbytes(V, z, got), 2.0 * m * n, f64)
+        say("kernel", name="fused_dots", m=m, n=n, dtype="float64",
+            max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}")
+        if m == 3:
+            records["fused_dots"] = dict(
+                name="fused_dots", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_dots.cu",
+                replaces="src/repro/kernels/fused_dots.py:32",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def phase_main_path(records):
@@ -336,7 +513,7 @@ def phase_main_path(records):
                                          pipecr)
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     A, b = ex23(gen)
     B = torch.randn(8, N_EX23, generator=gen, device=dev, dtype=torch.float64)
@@ -370,8 +547,8 @@ def phase_main_path(records):
         maxiter=cb_iters, M=half)))
     counts = ops.launch_counts()
     say("main", launches=json.dumps(counts, separators=(",", ":")))
-    for name, rec in records.items():
-        rec["launches"] = counts[name]
+    for name in ONE_DEVICE:
+        records[name]["launches"] = counts[name]
         check(counts[name] > 0, f"{name} never launched on the main path")
 
     check(d_main["pipecg_spmv_fused"] == MAXITER,
@@ -429,6 +606,154 @@ def phase_main_path(records):
         ms_per_iter=f"{dt_cb / cb_iters * 1e3:.4f}")
 
 
+def wall(per_rank, i: int) -> float:
+    """Wall seconds of case i: the slowest rank's."""
+    return max(outcomes[i]["seconds"] for outcomes in per_rank)
+
+
+def phase_ranks(records):
+    """ex23 on RANKS ranks of one group on this card, against one device.
+
+    Every rank runs ``ranks.solve_cases`` (the launch counts are reset
+    just before each solve and read just after it, in the rank); the
+    one-device counterparts run here afterwards.
+    """
+    import torch
+    from repro_torch.core.krylov import (SolverOptions, cg, pipecg,
+                                         pipecg_multi, pipecr,
+                                         tridiagonal_laplacian)
+    from repro_torch.core.perfmodel import Exponential, asymptotic_speedup
+    from repro_torch.distributed import ranks
+
+    cpu = torch.Generator().manual_seed(2)
+    A = tridiagonal_laplacian(N_EX23, device="cpu")
+    b = torch.randn(N_EX23, generator=cpu, dtype=torch.float64)
+    B = torch.randn((4, N_EX23), generator=cpu, dtype=torch.float64)
+    sharded = dict(engine="sharded_fused")
+    it = CHECK_ITERS
+    cases = {
+        "main": ("pipecg", b, dict(sharded, maxiter=MAXITER), None),
+        "quiet": ("pipecg", b, dict(sharded, maxiter=it), None),
+        "noisy": ("pipecg", b, dict(sharded, maxiter=it),
+                  (Exponential(1.0), NOISE_SCALE, 0)),
+        "pipecr": ("pipecr", b, dict(sharded, maxiter=it), None),
+        "jacobi": ("pipecg", b, dict(sharded, maxiter=it, M="jacobi"), None),
+        "multi": ("pipecg_multi", B, dict(sharded, maxiter=it), None),
+        "cg inline": ("cg", b, dict(maxiter=it), None),
+        "pipecg inline": ("pipecg", b, dict(maxiter=it), None),
+    }
+    names = list(cases)
+    spec = [dict(solver=sv, A=A, b=rhs, kw=kw, noise=nz)
+            for sv, rhs, kw, nz in cases.values()]
+    backend = ranks.backend_for(RANKS, DEVICE)
+    t0 = time.perf_counter()
+    out = ranks.run(ranks.solve_cases, RANKS, spec, DEVICE, device=DEVICE)
+    say("ranks", ranks=RANKS, backend=backend, cards=torch.cuda.device_count(),
+        spawn_and_solves_s=f"{time.perf_counter() - t0:.1f}")
+    # the 200-iteration solve on fewer ranks: what one rank alone costs
+    few = {P: ranks.run(ranks.solve_cases, P, spec[1:2], DEVICE,
+                        device=DEVICE) for P in (1, 2)}
+
+    # the main path's launches: the 5000-iterate solve, summed over ranks
+    for name in ("pipecg_spmv_halo", "fused_dots"):
+        records[name]["launches"] = sum(o[0]["launches"][name] for o in out)
+        check(records[name]["launches"] > 0,
+              f"{name} never launched on the rank path")
+    for i, name in enumerate(names):
+        summed = {k: sum(o[i]["launches"][k] for o in out)
+                  for k in out[0][i]["launches"]}
+        say("ranks", case=repr(name), launches_summed_over_ranks=json.dumps(
+            summed, separators=(",", ":")))
+    for rank, outcomes in enumerate(out):
+        for name, o in zip(names, outcomes):
+            if cases[name][2].get("engine"):
+                check(o["order_ok"] is True,
+                      f"rank {rank} {name}: split-phase order broken")
+            check(o["launches"]["pipecg_spmv_fused"] == 0,
+                  f"rank {rank} {name}: the one-device sweep ran")
+            ref = out[0][names.index(name)]
+            check(all(np.array_equal(o[k], ref[k]) for k in
+                      ("x", "res_history", "iters")),
+                  f"rank {rank} {name}: ranks disagree")
+        main = outcomes[0]
+        check(main["launches"]["pipecg_spmv_halo"] == MAXITER,
+              f"rank {rank}: {main['launches']['pipecg_spmv_halo']} sweeps")
+        check(main["launches"]["fused_dots"] == 3,
+              f"rank {rank}: init multi-dots {main['launches']}")
+    res = {name: out[0][i] for i, name in enumerate(names)}
+    say("ranks", solve="pipecg sharded_fused", n=N_EX23, ranks=RANKS,
+        maxiter=MAXITER, seconds=f"{wall(out, 0):.3f}",
+        ms_per_iter=f"{wall(out, 0) / MAXITER * 1e3:.4f}",
+        launches=json.dumps(out[0][0]["launches"], separators=(",", ":")),
+        order="issue(i)<halo(i+1)<wait(i)<launch(i+1) on every rank")
+    # host time per iteration between the recorded events, mean of ranks
+    seg = {k: np.mean([o[0]["segments"][k] for o in out]) * 1e6
+           for k in out[0][0]["segments"]}
+    say("ranks", host_us_per_iter=" ".join(f"{k}={v:.1f}"
+                                           for k, v in seg.items()))
+
+    dev = torch.device(DEVICE)
+    Ad, bd, Bd = (tridiagonal_laplacian(N_EX23, device=dev), b.to(dev),
+                  B.to(dev))
+    fused = lambda **kw: SolverOptions(engine="fused", **kw)  # noqa: E731
+    one = pipecg(Ad, bd, options=fused(maxiter=MAXITER))
+    h_main = torch.from_numpy(res["main"]["res_history"])
+    gap = hist_close(one.res_history[:it], h_main[:it])
+    full_gap = float(((h_main - one.res_history.cpu()).abs()
+                      / one.res_history.cpu()).max())
+    xs = torch.from_numpy(res["main"]["x"])
+    x_gap = float((xs - one.x.cpu()).abs().max() / one.x.cpu().abs().max())
+    check(x_gap <= 1e-8, f"gathered x off by {x_gap}")
+    say("ranks", check="4 ranks vs one-device fused", iters=it,
+        max_rel_gap=f"{gap:.3e}", all_iters_max_rel_gap=f"{full_gap:.3e}",
+        x_rel_gap=f"{x_gap:.3e}")
+    singles = {
+        "pipecr": pipecr(Ad, bd, options=fused(maxiter=it)).res_history,
+        "jacobi": pipecg(Ad, bd, options=fused(maxiter=it, M="jacobi")
+                         ).res_history,
+        "multi": pipecg_multi(Ad, Bd, maxiter=it, engine="fused"
+                              ).res_history,
+        "cg inline": cg(Ad, bd, options=SolverOptions(maxiter=it)
+                        ).res_history,
+        "pipecg inline": pipecg(Ad, bd, options=SolverOptions(maxiter=it)
+                                ).res_history,
+    }
+    for name, want in singles.items():
+        gap = hist_close(want, torch.from_numpy(res[name]["res_history"]))
+        say("ranks", check=f"{name} 4 ranks vs one device", iters=it,
+            max_rel_gap=f"{gap:.3e}",
+            ms_per_iter=f"{wall(out, names.index(name)) / it * 1e3:.4f}")
+    for P, per_rank in few.items():
+        gap = hist_close(one.res_history[:it],
+                         torch.from_numpy(per_rank[0][0]["res_history"]))
+        seg = " ".join(f"{k}={v * 1e6:.1f}"
+                       for k, v in per_rank[0][0]["segments"].items())
+        say("ranks", check=f"{P} rank(s) vs one device", iters=it,
+            max_rel_gap=f"{gap:.3e}",
+            ms_per_iter=f"{wall(per_rank, 0) / it * 1e3:.4f}",
+            host_us_per_iter_rank0=seg)
+
+    qi, ni = names.index("quiet"), names.index("noisy")
+    for rank, outcomes in enumerate(out):
+        q, nz = outcomes[qi], outcomes[ni]
+        check(np.array_equal(q["res_history"], nz["res_history"])
+              and np.array_equal(q["x"], nz["x"]),
+              f"rank {rank}: noise changed the solve")
+        draws = np.random.default_rng((0, rank)).exponential(
+            1.0, size=it) * NOISE_SCALE
+        check(np.array_equal(nz["waits"], draws),
+              f"rank {rank}: waits are not the (0, {rank}) substream")
+    quiet_s, noisy_s = wall(out, qi), wall(out, ni)
+    mean_wait = np.mean([o[ni]["waits"].mean() for o in out])
+    speedup = asymptotic_speedup(Exponential(1.0), RANKS)
+    say("ranks", noise=f"Exponential(1) x {NOISE_SCALE} s", iters=it,
+        history="bit-equal to quiet", quiet_s=f"{quiet_s:.4f}",
+        noisy_s=f"{noisy_s:.4f}",
+        added_us_per_iter=f"{(noisy_s - quiet_s) / it * 1e6:.1f}",
+        mean_wait_per_rank_us=f"{mean_wait * 1e6:.1f}",
+        asymptotic_speedup_P4=f"{speedup:.4f}")
+
+
 def phase_model():
     import torch
     from repro_torch.core.perfmodel import (Exponential, LogNormal, Uniform,
@@ -472,8 +797,10 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     phase_main_path(records)
+    phase_ranks(records)
     phase_model()
-    order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_fused")
+    order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
+             "pipecg_fused", "fused_dots")
     print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

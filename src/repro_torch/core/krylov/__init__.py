@@ -1,12 +1,24 @@
-"""The paper's solvers: classical + pipelined CG/CR on one device."""
+"""The paper's solvers: classical + pipelined CG/CR on one device or on
+the ranks of a process group (``distributed_solve``)."""
 from repro_torch.core.krylov.abft import DetectionReport  # noqa: F401
-from repro_torch.core.krylov.base import SolveResult, local_dot  # noqa: F401
+from repro_torch.core.krylov.base import (  # noqa: F401
+    SolveResult,
+    local_dot,
+    make_allreduce_dot,
+)
 from repro_torch.core.krylov.cg import (  # noqa: F401
     cg,
     cr,
     pipecg,
     pipecg_multi,
     pipecr,
+)
+from repro_torch.core.krylov.distributed import (  # noqa: F401
+    dia_matvec_local,
+    distributed_solve,
+    halo_exchange,
+    halo_exchange_cols,
+    sharded_pipecg_solve,
 )
 from repro_torch.core.krylov.engine import (  # noqa: F401
     ENGINES,

@@ -1,4 +1,10 @@
-"""Common solver machinery: result container, local dot, matvec coercion."""
+"""Common solver machinery: result container, dots, matvec coercion.
+
+The global reduction is a ``dot``: the local one is a plain sum of
+products; the distributed one finishes it with an all-reduce over a
+process group.  That is the paper's split between "local computation" and
+"global synchronization".
+"""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
@@ -26,6 +32,19 @@ class SolveResult(NamedTuple):
 def local_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Single-device inner product (the paper's "local computation")."""
     return torch.sum(a * b)
+
+
+def make_allreduce_dot(group=None) -> Callable:
+    """Distributed inner product: local dot + all-reduce over ``group``.
+
+    Blocking: the sum is waited for where it is issued, as the inline
+    solvers consume it at once.
+    """
+    from repro_torch.distributed import comm
+
+    def adot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(torch.sum(a * b), group)
+    return adot
 
 
 def as_matvec(A) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -1,0 +1,433 @@
+"""Many-rank Krylov solves over a ``torch.distributed`` process group.
+
+The paper's computational model, on P ranks of one group (a 1-D chain):
+
+  local computation   = per-rank DIA SpMV + AXPYs
+  halo exchange       = send/recv of edge strips with the chain neighbours
+  global sync         = all-reduce for every inner product
+
+``distributed_solve(..., engine=None)`` runs any solver that takes a
+``dot=`` (cg / cr / pipecg / pipecr) on this rank's rows with a halo
+matvec and an all-reduce dot: every reduction is waited for where it is
+issued.  ``engine="sharded_fused"`` runs PIPECG/PIPECR as one halo sweep
+kernel per rank per iteration (kernels/pipecg_spmv_fused.py::
+pipecg_spmv_halo) that emits a PARTIAL (k, 6) row, and the all-reduce that
+finishes it is split-phase (distributed/overlap.py): issued at the end of
+iteration i and waited for in iteration i+1 after that iteration's halo
+exchange, before the kernel that needs alpha and beta.  That window is the
+MPI_Iallreduce/MPI_Wait overlap the paper is about.
+
+Where the JAX package takes a mesh, this one takes a process ``group``
+(None: the default group).  Each rank slices its rows of the global ``A``
+and ``b``; the result's ``x`` is the global vector (one all-gather per
+solve); ``iters``, ``res_norm`` and the histories are the same on every
+rank.  ``noise=`` (a NoiseHook, core/noise/injection.py) sleeps a sampled
+wait once per iteration on every rank: after each SpMV on the inline path,
+between the kernel launch and the issue of the reduction on the sharded
+path, so the stall sits on the critical path.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.krylov.base import SolveResult, make_allreduce_dot
+from repro_torch.core.krylov.operators import DiaMatrix
+from repro_torch.core.krylov.options import SolverOptions, as_policy
+from repro_torch.distributed import comm
+from repro_torch.distributed.overlap import SplitPhaseReduce
+
+# solver name -> inner product of its sharded body (CR is CG in the A-norm)
+_SHARDED_IP = {"pipecg": "id", "pipecg_multi": "id", "pipecr": "A"}
+# solvers with a sharded body family of their own (ShardedFusedEngine._BODIES)
+_SHARDED_FAMILY = {"pipecg_l": "pipecg_l", "pipebicgstab": "pipebicgstab"}
+
+
+def halo_exchange_cols(x: torch.Tensor, halo: int, group=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(left, right) strips of width ``halo`` along the LAST axis.
+
+    Works for any leading shape: vectors (n,), right-hand-side batches
+    (k, n) and band stacks (n_bands, n) exchange their edge columns with
+    the chain neighbours; the chain's end ranks receive zeros (the zero
+    extension of the DIA bands at the matrix boundary).
+    """
+    rank, world = comm.rank_and_size(group)
+    shape = x.shape[:-1] + (halo,)
+    left = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    right = torch.zeros_like(left)
+    if world == 1 or halo == 0:
+        return left, right
+    staged = comm.host_staged(x.device, group)
+    sends, recvs = [], []
+    if rank > 0:
+        buf_l = comm.wire_buffer(shape, x, staged)
+        sends.append((rank - 1, comm.to_wire(x[..., :halo], staged)))
+        recvs.append((rank - 1, buf_l))
+    if rank < world - 1:
+        buf_r = comm.wire_buffer(shape, x, staged)
+        sends.append((rank + 1, comm.to_wire(x[..., -halo:], staged)))
+        recvs.append((rank + 1, buf_r))
+    comm.exchange(sends, recvs, group)
+    if rank > 0:
+        left = buf_l.to(x.device)
+    if rank < world - 1:
+        right = buf_r.to(x.device)
+    return left, right
+
+
+def halo_exchange(x_local: torch.Tensor, halo: int, group=None):
+    """1-D vector variant of :func:`halo_exchange_cols` (same semantics)."""
+    return halo_exchange_cols(x_local, halo, group)
+
+
+def dia_matvec_local(offsets: Sequence[int], bands_local, x_local,
+                     group=None, use_kernel: bool = False) -> torch.Tensor:
+    """This rank's rows of ``A x`` with a halo exchange, in plain torch.
+
+    bands_local (n_bands, n_local); x_local (n_local,) or (k, n_local).
+    """
+    if use_kernel:
+        raise NotImplementedError(
+            "use_kernel=True needs an SpMV kernel that reads neighbour "
+            "strips; the ported spmv_dia reads zeros outside its rows "
+            "(ROADMAP.md queue 2, item 1)")
+    halo = max(abs(int(o)) for o in offsets)
+    left, right = halo_exchange(x_local, halo, group)
+    x_ext = torch.cat([left, x_local, right], dim=-1)
+    n_local = x_local.shape[-1]
+    y = torch.zeros_like(x_local)
+    for k, off in enumerate(offsets):
+        y = y + bands_local[k] * x_ext[..., halo + off:halo + off + n_local]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Sharded fused engine: halo sweep kernel + split-phase all-reduce
+# ---------------------------------------------------------------------------
+
+def _local_partials(r, u, w, csum):
+    """This rank's (k, 6) row [<r,u>, <w,u>, <r,r>, <r,w>, <w,w>,
+    1^T w - c^T u] through the multi-dot kernel (kernels/fused_dots.py).
+
+    ``csum`` is this rank's slice of the GLOBAL column checksum c = A^T 1,
+    so the all-reduced last entry is 1^T (A u) - c^T u.
+    """
+    from repro_torch.kernels import ops as kops
+
+    rows = []
+    for rj, uj, wj in zip(r, u, w):
+        rw = torch.stack([rj, wj])
+        d_u = kops.fused_dots(rw, uj)          # <r,u>, <w,u>
+        d_r = kops.fused_dots(rw, rj)          # <r,r>, <w,r> = <r,w>
+        d_w = kops.fused_dots(wj[None], wj)    # <w,w>
+        chk = (torch.sum(wj) - torch.sum(csum * uj))[None]
+        rows.append(torch.cat([d_u, d_r, d_w, chk]))
+    return torch.stack(rows)
+
+
+def _frz(mask, nv, ov):
+    """``ov`` where the per-system flag ``mask`` (k,) is set, else ``nv``."""
+    m = mask.reshape(mask.shape + (1,) * (nv.dim() - mask.dim()))
+    return torch.where(m, ov, nv)
+
+
+def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
+                         group=None, ip: str = "id", M=None,
+                         maxiter: int = 100, tol: float = 0.0, noise=None,
+                         x0=None, carried=None, with_state: bool = False,
+                         precision=None, recorder=None) -> SolveResult:
+    """Per-rank PIPECG/PIPECR body of the ShardedFusedEngine.
+
+    Each iteration is one halo sweep (``kops.pipecg_spmv_halo_step``) plus
+    one all-reduce of its (k, 6) partial row (the five Krylov partials and
+    the ABFT checksum partial ``1^T w' - c^T u'``), in this order:
+
+    1. the halo exchange of u and p (needs only the carried vectors);
+    2. the wait for the reduction issued at the end of the last iteration;
+    3. the alpha/beta recurrence on its result;
+    4. the kernel;
+    5. ``noise`` (if any), then the issue of this iteration's reduction.
+
+    ``recorder`` (an overlap.OrderRecorder) logs that order.  The history
+    comes out shifted by one, since the reduction consumed at iteration i
+    was issued at i-1; a final wait supplies ``||r_maxiter||`` and the
+    history is rolled into the local solvers' alignment
+    (hist[i] = ||r_{i+1}||), the checksum column with it as
+    ``detect_history``.
+
+    ``M`` is None or "jacobi" (preconditioned in the kernel).  A bf16/fp8
+    ``precision`` stores r, u, p and the operator narrow; x, the rows and
+    the recurrences stay at b's dtype.  The int8 wire and the warm-start
+    hooks are not ported yet and raise.
+    """
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.checksum import dia_column_checksum
+
+    if x0 is not None or carried is not None or with_state:
+        raise NotImplementedError(
+            "x0= / carried= / with_state= (elastic warm start) come with "
+            "the fault-recovery slice (ROADMAP.md queue 1, item 11)")
+    policy = as_policy(precision)
+    if policy.wire != "fp32" or policy.wire_gram != "fp32":
+        raise NotImplementedError(
+            "the int8 halo/Gram wire comes with the mixed-precision wire "
+            "slice (ROADMAP.md queue 1, item 10)")
+    rank, _ = comm.rank_and_size(group)
+    halo = max(abs(int(o)) for o in offsets)
+    batched = b_local.dim() == 2
+    B = b_local if batched else b_local[None]
+    k_rhs, n_local = B.shape
+    dt = B.dtype
+    if n_local < 2 * halo:
+        raise ValueError(
+            f"sharded_fused engine: local shard of {n_local} rows is "
+            f"narrower than the 2*halo={2 * halo} stencil reach")
+    if M is None:
+        invd = torch.ones((n_local,), dtype=dt, device=B.device)
+    elif isinstance(M, str) and M == "jacobi":
+        invd = (1.0 / bands_local[list(offsets).index(0)]).to(dt)
+    else:
+        raise ValueError(
+            "sharded_fused engine preconditions in-kernel: M must be None "
+            f"or 'jacobi', got {M!r}")
+
+    # loop-invariant operator extension: one exchange per solve
+    bl, br = halo_exchange_cols(bands_local, halo, group)
+    bands_ext = torch.cat([bl, bands_local, br], dim=-1)
+    il, ir = halo_exchange_cols(invd, halo, group)
+    invd_ext = torch.cat([il, invd, ir], dim=-1)
+    # this rank's slice of the GLOBAL c = A^T 1, from the full-precision
+    # operator (every contributing band value is in the extended bands)
+    csum = dia_column_checksum(offsets, bands_ext, halo=halo).to(dt)
+    sdt = policy.storage_dtype
+    sto = dt if sdt is None else sdt
+    # the kernel streams the operator, diag^-1 and c at the storage dtype
+    bands_s, invd_s, csum_s = (t.to(sto).contiguous()
+                               for t in (bands_ext, invd_ext, csum))
+
+    x = torch.zeros_like(B)
+    r = B
+    u = invd * r
+    p = torch.zeros_like(B)
+    w = dia_matvec_local(offsets, bands_local, u, group)
+    red = _local_partials(r, u, w, csum)
+    r, u, p = r.to(sto), u.to(sto), p.to(sto)
+    tol2 = torch.as_tensor(tol, dtype=dt, device=B.device) ** 2 \
+        * comm.all_reduce(torch.sum(B * B, dim=-1), group)
+
+    reducer = SplitPhaseReduce(group, recorder)
+    pending = reducer.issue(red, iteration=-1)
+    one = torch.ones((k_rhs,), dtype=dt, device=B.device)
+    gamma_prev, alpha_prev = one, one
+    done = torch.zeros((k_rhs,), dtype=torch.bool, device=B.device)
+    iters = torch.zeros((k_rhs,), dtype=torch.int32, device=B.device)
+    hist, chk_hist = [], []
+    for i in range(maxiter):
+        # 1. halo strips for THIS iteration's sweep: carried vectors only
+        ul, ur = halo_exchange_cols(u, 2 * halo, group)
+        pl, pr = halo_exchange_cols(p, 2 * halo, group)
+        if recorder is not None:
+            recorder("halo", i)
+        # 2. finish the reduction issued LAST iteration; its only
+        # consumers are the scalar recurrences below
+        red_sum = pending.wait()
+        gamma, delta = ((red_sum[:, 0], red_sum[:, 1]) if ip == "id"
+                        else (red_sum[:, 3], red_sum[:, 4]))
+        rr = red_sum[:, 2]
+        chk = red_sum[:, 5]
+        if i == 0:
+            beta = torch.zeros_like(gamma)
+            alpha = gamma / delta
+        else:
+            beta = gamma / gamma_prev
+            alpha = gamma / (delta - beta * gamma / alpha_prev)
+        x2, r2, u2, p2, red_new = kops.pipecg_spmv_halo_step(
+            offsets, bands_s, invd_s, csum_s, x, r, u, p, ul, ur, pl, pr,
+            alpha, beta)
+        if recorder is not None:
+            recorder("launch", i)
+        if noise is not None:
+            noise(rank)   # the stall delays this rank's contribution
+
+        mask = done
+        if not policy.is_default:
+            # low-precision breakdown guard: freeze AT the last good
+            # iterate instead of propagating NaN
+            bad = ~(torch.isfinite(gamma) & torch.isfinite(alpha)
+                    & torch.isfinite(rr))
+            mask = mask | bad
+        done = mask | (rr <= tol2)
+        x, r, u, p = (_frz(mask, nv, ov) for nv, ov in
+                      ((x2, x), (r2, r), (u2, u), (p2, p)))
+        red = _frz(mask, red_new, red)
+        gamma_prev = _frz(mask, gamma, gamma_prev)
+        alpha_prev = _frz(mask, alpha, alpha_prev)
+        iters = iters + (~done).to(torch.int32)
+        pending = reducer.issue(red, iteration=i)
+        hist.append(torch.sqrt(torch.clamp(rr, min=0.0)))
+        chk_hist.append(chk)
+
+    red_fin = pending.wait()
+    res = torch.sqrt(torch.clamp(red_fin[:, 2], min=0.0))
+    if maxiter:
+        # roll the shifted history into hist[i] = ||r_{i+1}||
+        hist = torch.stack(hist[1:] + [res])          # (maxiter, k)
+        chk_hist = torch.stack(chk_hist[1:] + [red_fin[:, 5]])
+    else:
+        hist = chk_hist = torch.zeros((0, k_rhs), dtype=dt, device=B.device)
+    if batched:
+        return SolveResult(x=x, iters=iters, res_norm=res,
+                           res_history=hist.T, detect_history=chk_hist.T)
+    return SolveResult(x=x[0], iters=iters[0], res_norm=res[0],
+                       res_history=hist[:, 0], detect_history=chk_hist[:, 0])
+
+
+def _rows(n: int, group) -> slice:
+    """This rank's contiguous block of the n rows (even split)."""
+    rank, world = comm.rank_and_size(group)
+    if n % world:
+        raise ValueError(f"{n} rows do not shard evenly over {world} ranks")
+    m = n // world
+    return slice(rank * m, (rank + 1) * m)
+
+
+def _gather_x(res: SolveResult, group) -> SolveResult:
+    """The result with ``x`` gathered into the global vector."""
+    return res._replace(x=comm.all_gather_cols(res.x, group))
+
+
+def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
+                              recorder=None, **solver_kw) -> SolveResult:
+    """The ShardedFusedEngine path: the 1-D DIA body on a chain of ranks."""
+    name = getattr(solver, "__name__", str(solver))
+    family = "pipecg" if name in _SHARDED_IP else _SHARDED_FAMILY.get(name)
+    if family is None:
+        raise ValueError(
+            "engine='sharded_fused' supports pipecg / pipecg_multi / "
+            f"pipecr; got solver {name!r}")
+    fmt = "bsr" if getattr(A, "format", None) == "bsr" else "dia"
+    body = eng.body(family, fmt)   # raises for the bodies not ported yet
+    if not isinstance(A, DiaMatrix):
+        raise ValueError(
+            "engine='sharded_fused' needs a DiaMatrix operator; got "
+            f"{type(A).__name__}")
+    M = solver_kw.pop("M", None)
+    maxiter = solver_kw.pop("maxiter", 100)
+    tol = solver_kw.pop("tol", 0.0)
+    if int(solver_kw.pop("l", 1)) != 1:
+        raise NotImplementedError(
+            "pipeline depth l > 1 needs the depth-l body (ROADMAP.md "
+            "queue 1, item 8)")
+    precision = solver_kw.pop("precision", None)
+    warm = {kw: solver_kw.pop(kw) for kw in ("x0", "carried", "with_state")
+            if kw in solver_kw}
+    if solver_kw:
+        raise TypeError("unsupported kwargs for the sharded_fused path: "
+                        f"{sorted(solver_kw)}")
+    sl = _rows(A.n, group)
+    res = body(A.offsets, A.bands[:, sl].contiguous(),
+               b[..., sl].contiguous(), group=group, ip=_SHARDED_IP[name],
+               M=M, maxiter=maxiter, tol=tol, noise=noise,
+               precision=precision, recorder=recorder, **warm)
+    return _gather_x(res, group)
+
+
+def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
+                      group=None, *, use_kernel: bool = False, noise=None,
+                      engine=None, options=None, recorder=None,
+                      **solver_kw) -> SolveResult:
+    """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi) with the
+    rows of ``A`` and ``b`` split over the ranks of ``group``.
+
+    Every rank of the group calls it with the same global ``A`` and ``b``
+    and gets the same result, ``x`` global.  ``engine=None`` keeps the
+    historical per-op iteration (any solver taking ``dot=``);
+    ``"sharded_fused"`` (or a ShardedFusedEngine) runs pipecg /
+    pipecg_multi / pipecr as one halo sweep per rank per iteration with a
+    split-phase all-reduce (:func:`sharded_pipecg_solve`), whose order
+    ``recorder`` logs.  ``options`` (a SolverOptions) bundles engine,
+    maxiter/tol, M, depth, noise and precision; it cannot be mixed with
+    the loose spellings.  ``precision`` needs the sharded engine.  A 2-D
+    process grid (``group`` given as a pair) is not ported yet.
+    """
+    from repro_torch.core.krylov.engine import ShardedFusedEngine, get_engine
+
+    if isinstance(group, (tuple, list)):
+        raise NotImplementedError(
+            "2-D process grids come with the 2-D/BSR slice (ROADMAP.md "
+            "queue 1, item 9); pass one process group (a 1-D chain)")
+    if options is not None:
+        if not isinstance(options, SolverOptions):
+            raise TypeError(
+                "options= must be a SolverOptions; got "
+                f"{type(options).__name__}")
+        clashes = [kw for kw in ("maxiter", "tol", "M", "l", "precision")
+                   if kw in solver_kw]
+        if engine is not None or noise is not None or clashes:
+            loose = [kw for kw, v in
+                     (("engine", engine), ("noise", noise)) if v is not None]
+            raise TypeError(
+                "pass the solve configuration either as options= or as "
+                "loose kwargs, not both (options= given alongside "
+                f"{sorted(loose + clashes)})")
+        engine = options.engine
+        noise = options.noise
+        solver_kw.update(maxiter=options.maxiter, tol=options.tol)
+        if options.M is not None:
+            solver_kw["M"] = options.M
+        if options.depth != 1:
+            solver_kw["l"] = options.depth
+        if not options.precision.is_default:
+            solver_kw["precision"] = options.precision
+        if options.rr or options.rr_tau:
+            raise ValueError(
+                "rr= / rr_tau= (residual replacement) are local-solver "
+                "options; the sharded bodies re-glue via x0= restarts")
+
+    eng = get_engine(engine)
+    if isinstance(eng, ShardedFusedEngine):
+        return _distributed_engine_solve(solver, A, b, group, eng,
+                                         noise=noise, recorder=recorder,
+                                         **solver_kw)
+    if eng is not None:
+        raise ValueError(
+            "distributed_solve supports engine=None (historical inline "
+            "path) or 'sharded_fused'; single-device engines compute "
+            f"local reductions and cannot shard (got {eng.name!r})")
+    if recorder is not None:
+        raise ValueError(
+            "recorder= logs the sharded body's split-phase order; the "
+            "inline path waits for every reduction where it is issued")
+    for kw in ("x0", "carried", "with_state"):
+        if kw in solver_kw:
+            raise ValueError(
+                f"{kw}= (elastic warm start) needs engine='sharded_fused'; "
+                "the historical inline path cannot resume carried state")
+    if not as_policy(solver_kw.pop("precision", None)).is_default:
+        raise ValueError(
+            "mixed-precision policies (storage demotion / int8 wire) are "
+            "implemented by the sharded kernel bodies: use "
+            "engine='sharded_fused'; the historical inline path runs at "
+            "the solve dtype only")
+
+    rank, _ = comm.rank_and_size(group)
+    sl = _rows(A.n, group)
+    bands_local = A.bands[:, sl].contiguous()
+    b_local = b[..., sl].contiguous()
+    offsets = A.offsets
+
+    def mv(v):
+        y = dia_matvec_local(offsets, bands_local, v, group,
+                             use_kernel=use_kernel)
+        if noise is not None:
+            noise(rank)
+        return y
+
+    opts = SolverOptions(**{("depth" if k == "l" else k): solver_kw.pop(k)
+                            for k in ("maxiter", "tol", "M", "l")
+                            if k in solver_kw})
+    res = solver(mv, b_local, dot=make_allreduce_dot(group), options=opts,
+                 **solver_kw)
+    return _gather_x(res, group)

@@ -8,8 +8,10 @@
   update-only kernel (kernels/pipecg_fused.py) with explicit operator /
   preconditioner applications.  Operator applications outside the sweep
   go through the DIA SpMV kernel (kernels/spmv_dia.py).
-* ``ShardedFusedEngine`` — registered so the name resolves, but the
-  distributed solve it belongs to is not ported yet: it raises.
+* ``ShardedFusedEngine`` — the per-rank halo sweep with a split-phase
+  all-reduce.  Its reductions are PARTIAL per rank, so it runs only under
+  ``distributed_solve(..., engine="sharded_fused")``
+  (core/krylov/distributed.py); the local solver entry points reject it.
 
 Loop invariants (diag^-1, the ABFT column sums ``c = A^T 1``, the resolved
 preconditioner) are computed once per solve by :meth:`Engine.prepare` and
@@ -104,6 +106,10 @@ class Engine:
     name = "abstract"
 
     def spmv(self, A, x):
+        raise NotImplementedError
+
+    def dots(self, V, z):
+        """All inner products <V[j], z> of V (m, n) and z (n,)."""
         raise NotImplementedError
 
     def precond(self, A, M, r):
@@ -213,6 +219,10 @@ class FusedEngine(Engine):
             return kops.spmv_dia_step(A.offsets, A.bands, x)
         return A.matvec(x) if hasattr(A, "matvec") else A(x)
 
+    def dots(self, V, z):
+        from repro_torch.kernels import ops as kops
+        return kops.fused_dots(V, z)
+
     def prepare(self, A, M, dtype):
         _reject_bsr(A)
         if not sweep_ok(A, M):
@@ -266,14 +276,52 @@ class FusedEngine(Engine):
 
 @register_engine
 class ShardedFusedEngine(Engine):
-    """Distributed single-sweep engine: not ported yet, so it raises."""
+    """Distributed single-sweep engine (halo sweep + split-phase all-reduce).
+
+    Unlike the single-device engines it does not plug into the local
+    solver loop: its reductions are PARTIAL per rank and need the group to
+    finish them, so it runs only under
+    ``distributed_solve(..., engine="sharded_fused")``, which calls the
+    per-rank body that :meth:`body` names on every rank.  Requesting it on a local solver raises
+    with a pointer to the right entry point.
+    """
 
     name = "sharded_fused"
 
     def _reject(self, *_args, **_kw):
-        raise NotImplementedError(
-            "engine='sharded_fused' runs the per-rank halo sweep under "
-            "distributed_solve, which this package does not have yet "
-            "(ROADMAP.md queue 1, item 5 and queue 2, item 4)")
+        raise ValueError(
+            "engine='sharded_fused' computes per-rank partial reductions "
+            "and must run on a process group: use "
+            "distributed_solve(pipecg | pipecg_multi | pipecr, A, b, group, "
+            "engine='sharded_fused') instead of the local solver entry")
 
-    spmv = prepare = pipecg_init = pipecg_iter = _reject
+    spmv = dots = prepare = pipecg_init = pipecg_iter = _reject
+
+    # table-driven dispatch: (solver family, operator format) -> the name
+    # of the per-rank body in core/krylov/distributed.py.  Only the 1-D
+    # DIA PIPECG/PIPECR body is ported; the others raise with their
+    # ROADMAP.md items.
+    _BODIES = {
+        ("pipecg", "dia"): "sharded_pipecg_solve",
+    }
+    _LATER = {
+        ("pipecg", "bsr"): "queue 1, item 9",
+        ("pipecg_l", "dia"): "queue 1, item 8",
+        ("pipebicgstab", "dia"): "queue 1, item 7",
+    }
+
+    def body(self, family: str, fmt: str = "dia"):
+        """Per-rank solve body for a (solver family, operator format)."""
+        from repro_torch.core.krylov import distributed
+        key = (family, fmt)
+        if key in self._LATER:
+            raise NotImplementedError(
+                f"the sharded {family!r} body for format {fmt!r} is not "
+                f"ported yet (ROADMAP.md {self._LATER[key]})")
+        try:
+            return getattr(distributed, self._BODIES[key])
+        except KeyError:
+            raise ValueError(
+                f"no sharded body for solver family {family!r} with "
+                f"operator format {fmt!r}; supported: {sorted(self._BODIES)}"
+            ) from None

@@ -1,0 +1,116 @@
+"""Split-phase reductions: issue an all-reduce now, wait for it later.
+
+MPI's MPI_Iallreduce/MPI_Wait pair, over ``torch.distributed.all_reduce
+(async_op=True)``.  The pipelined solvers move the CONSUMER of a
+reduction past independent work: the row issued at the end of iteration i
+is waited for in iteration i+1, after that iteration's halo exchange and
+before its kernel launch, which needs alpha and beta.
+
+The JAX package proves the overlap from compiled HLO (one all-reduce per
+loop body, independent of the halo permutes).  Eager PyTorch has no HLO;
+here ``OrderRecorder`` logs, per iteration, the order of the four events
+``issue``, ``halo``, ``wait`` and ``launch`` with their host times, and
+``split_phase_ok`` checks ``issue(i) < halo(i+1) < wait(i) < launch(i+1)``
+with exactly one reduction issued per iteration.  Iteration -1 is the
+solve's set-up, whose row the first iteration waits for.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import comm
+
+EVENTS = ("issue", "halo", "wait", "launch")
+
+
+class OrderRecorder:
+    """Appends ``(event, iteration, host seconds)`` as events happen."""
+
+    def __init__(self):
+        self.events: List[Tuple[str, int, float]] = []
+
+    def __call__(self, event: str, iteration: int) -> None:
+        self.events.append((event, int(iteration), time.perf_counter()))
+
+    def segments(self) -> Dict[str, float]:
+        """Mean host seconds per iteration between consecutive events.
+
+        ``halo``: from the last issue to the end of the strip exchange;
+        ``wait``: then to the reduction's result; ``launch``: then through
+        the recurrence to the kernel's launch; ``issue``: then through the
+        freeze (and any noise) to the next issue.  Iteration 0 is left
+        out (it waits for the set-up row).
+        """
+        at = {ev[:2]: ev[2] for ev in self.events}
+        iters = sorted({i for e, i in at if e == "launch" and i > 0})
+        out = dict(halo=0.0, wait=0.0, launch=0.0, issue=0.0)
+        for i in iters:
+            out["halo"] += at[("halo", i)] - at[("issue", i - 1)]
+            out["wait"] += at[("wait", i - 1)] - at[("halo", i)]
+            out["launch"] += at[("launch", i)] - at[("wait", i - 1)]
+            out["issue"] += at[("issue", i)] - at[("launch", i)]
+        return {k: v / max(len(iters), 1) for k, v in out.items()}
+
+
+def split_phase_ok(events, iterations: int) -> bool:
+    """True when the log shows the split-phase order for every iteration.
+
+    ``events`` holds ``(event, iteration, ...)`` in order.  For i in
+    [-1, iterations - 1): one ``issue(i)``, then ``halo(i+1)``, then
+    ``wait(i)``, then ``launch(i+1)``; and one ``issue`` and one ``wait``
+    for the last iteration's row.
+    """
+    pos = {}
+    for at, ev in enumerate(events):
+        key = tuple(ev[:2])
+        if key in pos or key[0] not in EVENTS:
+            return False          # an event twice, or an unknown one
+        pos[key] = at
+    if len(events) != 4 * iterations + 2:
+        return False
+    for i in range(-1, iterations - 1):
+        keys = [("issue", i), ("halo", i + 1), ("wait", i),
+                ("launch", i + 1)]
+        if any(k not in pos for k in keys):
+            return False
+        at = [pos[k] for k in keys]
+        if at != sorted(at):
+            return False
+    last = iterations - 1
+    return (("issue", last) in pos and ("wait", last) in pos
+            and pos[("issue", last)] < pos[("wait", last)])
+
+
+class Pending:
+    """A reduction in flight; ``wait()`` returns the summed tensor."""
+
+    def __init__(self, work, buf: torch.Tensor, device: torch.device,
+                 iteration: int, record):
+        self._work, self._buf, self._device = work, buf, device
+        self._iteration, self._record = iteration, record
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        if self._record is not None:
+            self._record("wait", self._iteration)
+        return self._buf.to(self._device)
+
+
+class SplitPhaseReduce:
+    """Issues sum all-reduces over ``group`` that are waited for later."""
+
+    def __init__(self, group=None, record: Optional[OrderRecorder] = None):
+        self.group = group
+        self.record = record
+
+    def issue(self, t: torch.Tensor, iteration: int) -> Pending:
+        """Start summing a copy of ``t``; ``t`` itself is left unchanged."""
+        buf = comm.to_wire(t, comm.host_staged(t.device, self.group))
+        work = dist.all_reduce(buf, group=self.group, async_op=True)
+        if self.record is not None:
+            self.record("issue", iteration)
+        return Pending(work, buf, t.device, iteration, self.record)

@@ -1,0 +1,146 @@
+"""Start P ranks of one process group: the counterpart of building a mesh.
+
+``run(fn, world, *args)`` spawns ``world`` processes, joins them into one
+``torch.distributed`` group through a ``FileStore`` in a fresh temporary
+directory (no fixed port, so concurrent runs cannot collide), calls
+``fn(rank, world, *args)`` on each and returns the results in rank order.
+``fn`` must be importable by the children: a module-level function of an
+installed module (``solve_cases`` below) or of the script that calls
+``run`` from under ``if __name__ == "__main__"``.
+
+Backend: NCCL when every rank has its own card, gloo when ranks share a
+card (NCCL refuses two ranks on one device) or run on the CPU.  The
+choice follows the device count, never a retry after an error.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import tempfile
+import time
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+#: seconds a rank waits on a peer before its collective fails
+TIMEOUT_S = 300
+
+
+def backend_for(world: int, device) -> str:
+    """'nccl' when each of ``world`` ranks gets its own card, else 'gloo'."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.device_count() >= world \
+            and dist.is_nccl_available():
+        return "nccl"
+    return "gloo"
+
+
+def _rank_main(rank: int, fn: Callable, world: int, backend: str,
+               device: str, tmp: str, args: tuple) -> None:
+    kw = {}
+    if torch.device(device).type == "cuda":
+        card = rank % torch.cuda.device_count()
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", card)
+    else:
+        torch.set_num_threads(1)   # P ranks share the host's cores
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+                            **kw)
+    try:
+        out = fn(rank, world, *args)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(fn: Callable, world: int, *args, device="cuda") -> List[Any]:
+    """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks.
+
+    ``device`` (the card unless the caller asks for ``"cpu"``) picks the backend (:func:`backend_for`) and, for CUDA, each
+    rank's current card (rank modulo the card count); the CUDA kernels are
+    built here first, so the ranks do not each compile them.  A failing
+    rank raises here.
+    """
+    backend = backend_for(world, device)
+    if torch.device(device).type == "cuda":
+        from repro_torch.kernels import build
+        build.build()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        mp.spawn(_rank_main, args=(fn, world, backend, str(device), tmp,
+                                   args), nprocs=world, join=True)
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def _numpy(v):
+    return None if v is None else v.detach().cpu().numpy()
+
+
+def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
+                device: str = "cuda") -> List[Dict[str, Any]]:
+    """Rank body: run ``distributed_solve`` once per case, report as numpy.
+
+    A case is a dict with ``solver`` (a name in ``core.krylov``), ``A`` (a
+    ``DiaMatrix``) and ``b`` (a tensor), both global and moved to
+    ``device`` here, ``kw`` (keyword arguments of ``distributed_solve``)
+    and optionally ``noise``, the ``(dist, scale, seed)`` of a
+    ``NoiseHook`` built on this rank.  Each outcome holds the result's
+    fields, the kernel launches and the wall seconds of the solve (ranks
+    start together; the card is synchronised around it) and this rank's
+    injected waits; a sharded solve adds its split-phase order check and
+    the mean host seconds per iteration between its events
+    (``OrderRecorder.segments``; None for the inline path).
+    """
+    from repro_torch.core import krylov
+    from repro_torch.core.krylov.distributed import distributed_solve
+    from repro_torch.core.krylov.operators import DiaMatrix
+    from repro_torch.core.noise import NoiseHook
+    from repro_torch.distributed.overlap import OrderRecorder, split_phase_ok
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    outcomes = []
+    for case in cases:
+        A = case["A"]
+        A = DiaMatrix(offsets=A.offsets, bands=A.bands.to(dev),
+                      grid_shape=A.grid_shape)
+        b = case["b"].to(dev)
+        kw = dict(case.get("kw", {}))
+        noise = case.get("noise")
+        hook = None if noise is None else NoiseHook(*noise)
+        sharded = kw.get("engine") == "sharded_fused"
+        rec = OrderRecorder() if sharded else None
+        solver = getattr(krylov, case["solver"])
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = distributed_solve(solver, A, b, noise=hook, recorder=rec, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        outcomes.append(dict(
+            x=_numpy(res.x), iters=_numpy(res.iters),
+            res_norm=_numpy(res.res_norm),
+            res_history=_numpy(res.res_history),
+            detect_history=_numpy(res.detect_history),
+            launches=launches, seconds=seconds,
+            order_ok=(split_phase_ok(rec.events, res.res_history.shape[-1])
+                      if rec is not None else None),
+            segments=rec.segments() if rec is not None else None,
+            waits=(np.zeros(0) if hook is None else hook.shard_waits(rank))))
+    return outcomes

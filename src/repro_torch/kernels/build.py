@@ -46,12 +46,13 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rt_spmv_dia": [_I, _I, _P, _I, _L, _I, _P, _P, _P, _P],
     "rt_pipecg_spmv_fused": [_I, _I, _P, _I, _L, _I,
-                             _P, _P, _P,
+                             _P, _P, _I, _P,
                              _P, _P, _P, _P,
                              _P, _P, _P, _P, _I, _L,
                              _P, _P,
                              _P, _P, _P, _P, _P, _I, _P, _P],
     "rt_pipecg_fused": [_I, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "rt_fused_dots": [_I, _P, _P, _L, _I, _P, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

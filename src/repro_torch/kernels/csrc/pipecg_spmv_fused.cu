@@ -1,8 +1,9 @@
 // One whole Jacobi-preconditioned PIPECG iteration in one sweep.
 //
-// Replaces the Pallas TPU kernel
-// repro/kernels/pipecg_spmv_fused.py::pipecg_spmv_fused (its _sweep /
-// _kernel).  Per right-hand side j and row i it computes
+// Replaces the Pallas TPU kernels
+// repro/kernels/pipecg_spmv_fused.py::pipecg_spmv_fused and its per-rank
+// form ::pipecg_spmv_halo, which share one _sweep / _kernel there as they
+// share this kernel here.  Per right-hand side j and row i it computes
 //
 //   p' = u + beta p          s' = A p'          q' = diag^-1 s'
 //   x' = x + alpha p'        r' = r - alpha s'  u' = u - alpha q'
@@ -27,9 +28,16 @@
 //   reuse.  Every thread evaluates a row's chain with the same operations
 //   in the same order, so u' feeding w' equals the stored u'.
 // * No padded copies.  Rows of u and p outside [0, n) come from optional
-//   strips (k, 2h) to the left and right (null: zero); the operator is
-//   zero outside [0, n).  Rows >= n_valid are masked out of the partials.
-//   That is the sharded per-rank sweep's interface too.
+//   strips (k, 2h) to the left and right (null: zero).  The operator
+//   (bands and diag^-1) holds rows [-oext, n + oext), row m at column
+//   m + oext of an (n_bands, n + 2 oext) array, and is zero beyond them:
+//   the single-device sweep passes oext = 0, the per-rank halo sweep
+//   (repro/kernels/pipecg_spmv_fused.py::pipecg_spmv_halo) oext = h with
+//   the neighbours' operator rows.  The extension is a template flag
+//   (Ext): the kernel is bound by instructions, not bytes, so the
+//   oext = 0 instantiation keeps the plain [0, n) operator indexing and
+//   the one-device sweep evaluates none of the extension's bounds and
+//   offsets.  Rows >= n_valid are masked out of the partials.
 // * Outputs go to fresh buffers: u and p are read with a +-2h halo across
 //   CTAs, so updating them in place would race with a neighbour's reads.
 // * Cross-block sums: per-CTA partials (k, n_blocks, 6), then a fixed-order
@@ -45,7 +53,8 @@ namespace rt {
 template <typename T, typename S> struct SweepArgs {
   Offsets offs;
   long long n, n_valid;
-  int h2, nblk;
+  long long ldo;  // operator row stride, n + 2 oext
+  int oext, h2, nblk;
   const S *bands, *invd, *csum;
   const T *x;
   const S *r, *u, *p;
@@ -67,16 +76,24 @@ __device__ __forceinline__ T vec_at(const S *v, const S *lo, const S *hi,
   return (hi != nullptr && m < n + h2) ? up<T>(hi[j * h2 + (m - n)]) : T(0);
 }
 
-template <typename T, typename S> struct Row {
+template <typename T, typename S, bool Ext> struct Row {
   const SweepArgs<T, S> &a;
   long long j;
   T alpha, beta;
 
+  // operator row m lives at column m + oext; Ext = false: oext = 0
+  __device__ bool op_row(long long m) const {
+    if constexpr (Ext) return m >= -a.oext && m < a.n + a.oext;
+    else return m >= 0 && m < a.n;
+  }
   __device__ T band(int b, long long m) const {
-    return (m >= 0 && m < a.n) ? up<T>(a.bands[b * a.n + m]) : T(0);
+    if constexpr (Ext)
+      return op_row(m) ? up<T>(a.bands[b * a.ldo + m + a.oext]) : T(0);
+    else return op_row(m) ? up<T>(a.bands[b * a.n + m]) : T(0);
   }
   __device__ T invd(long long m) const {
-    return (m >= 0 && m < a.n) ? up<T>(a.invd[m]) : T(0);
+    if constexpr (Ext) return op_row(m) ? up<T>(a.invd[m + a.oext]) : T(0);
+    else return op_row(m) ? up<T>(a.invd[m]) : T(0);
   }
   __device__ T u(long long m) const {
     return vec_at<T, S>(a.u, a.u_lo, a.u_hi, j, m, a.n, a.h2);
@@ -94,12 +111,12 @@ template <typename T, typename S> struct Row {
   }
 };
 
-template <typename T, typename S>
+template <typename T, typename S, bool Ext>
 __global__ void pipecg_spmv_fused_kernel(const SweepArgs<T, S> a) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const long long j = blockIdx.y;
-  const Row<T, S> row{a, j, a.alpha[j], a.beta[j]};
+  const Row<T, S, Ext> row{a, j, a.alpha[j], a.beta[j]};
   // ru, wu, rr, rw, ww, sum w', sum c u'
   T v[7];
 #pragma unroll
@@ -144,7 +161,7 @@ __global__ void pipecg_spmv_fused_kernel(const SweepArgs<T, S> a) {
 
 extern "C" int rt_pipecg_spmv_fused(
     int acc, int sto, const int *offsets, int nb, long long n, int k,
-    const void *bands, const void *inv_diag,
+    const void *bands, const void *inv_diag, int oext,
     const void *csum, const void *x, const void *r, const void *u,
     const void *p, const void *u_lo, const void *u_hi, const void *p_lo,
     const void *p_hi, int h2, long long n_valid, const void *alpha,
@@ -152,7 +169,7 @@ extern "C" int rt_pipecg_spmv_fused(
     int nblk, void *red, void *stream) {
   using namespace rt;
   if (nb < 1 || nb > kMaxBands || n < 1 || k < 1 || k > 65535 ||
-      nblk != blocks_for(n) || h2 < 0)
+      nblk != blocks_for(n) || h2 < 0 || oext < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Offsets offs{};
   offs.nb = nb;
@@ -166,6 +183,8 @@ extern "C" int rt_pipecg_spmv_fused(
     a.offs = offs;
     a.n = n;
     a.n_valid = n_valid;
+    a.ldo = n + 2LL * oext;
+    a.oext = oext;
     a.h2 = h2;
     a.nblk = nblk;
     a.bands = static_cast<const S *>(bands);
@@ -186,7 +205,10 @@ extern "C" int rt_pipecg_spmv_fused(
     a.uo = static_cast<S *>(uo);
     a.po = static_cast<S *>(po);
     a.partials = static_cast<T *>(partials);
-    pipecg_spmv_fused_kernel<T, S><<<grid, kBlock, 0, st>>>(a);
+    if (oext > 0)
+      pipecg_spmv_fused_kernel<T, S, true><<<grid, kBlock, 0, st>>>(a);
+    else
+      pipecg_spmv_fused_kernel<T, S, false><<<grid, kBlock, 0, st>>>(a);
     reduce_rows_kernel<T, 6><<<k, kBlock, 0, st>>>(
         static_cast<const T *>(partials), static_cast<T *>(red), nblk);
     return 0;

@@ -12,15 +12,19 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.fused_dots import fused_dots as _fused_dots
 from repro_torch.kernels.pipecg_fused import pipecg_fused
-from repro_torch.kernels.pipecg_spmv_fused import pipecg_spmv_fused
+from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
+                                                   pipecg_spmv_halo)
 from repro_torch.kernels.spmv_dia import spmv_dia
 
 #: every kernel wrapper of the package, by kernel name
 KERNELS = {
     "spmv_dia": spmv_dia,
     "pipecg_spmv_fused": pipecg_spmv_fused,
+    "pipecg_spmv_halo": pipecg_spmv_halo,
     "pipecg_fused": pipecg_fused,
+    "fused_dots": _fused_dots,
 }
 
 
@@ -49,6 +53,11 @@ def spmv_dia_step(offsets: Sequence[int], bands, x) -> torch.Tensor:
     return spmv_dia(tuple(offsets), bands, x.contiguous())
 
 
+def fused_dots(V, z) -> torch.Tensor:
+    """One-pass multi-dot ``V @ z`` for V (m, n), z (n,) (kernel-backed)."""
+    return _fused_dots(V.contiguous(), z.contiguous())
+
+
 def pipecg_spmv_fused_step(offsets: Sequence[int], bands, inv_diag, csum,
                            x, r, u, p, alpha, beta
                            ) -> Tuple[torch.Tensor, ...]:
@@ -57,6 +66,24 @@ def pipecg_spmv_fused_step(offsets: Sequence[int], bands, inv_diag, csum,
     (x2, r2, u2, p2), (a, b) = _batch(x, (x, r, u, p), alpha, beta)
     outs = pipecg_spmv_fused(tuple(offsets), bands, inv_diag, csum,
                              x2, r2, u2, p2, a, b)
+    if squeeze:
+        outs = tuple(o[0] for o in outs)
+    return outs
+
+
+def pipecg_spmv_halo_step(offsets: Sequence[int], bands_ext, invd_ext, csum,
+                          x, r, u, p, u_lo, u_hi, p_lo, p_hi, alpha, beta
+                          ) -> Tuple[torch.Tensor, ...]:
+    """One rank's single-sweep PIPECG iteration with neighbour strips.
+
+    Vectors (n,) or (k, n) local rows, strips (2h,) or (k, 2h); returns
+    (x', r', u', p', red) with red this rank's PARTIAL reduction row.
+    """
+    squeeze = x.dim() == 1
+    vecs, (a, b) = _batch(x, (x, r, u, p, u_lo, u_hi, p_lo, p_hi),
+                          alpha, beta)
+    outs = pipecg_spmv_halo(tuple(offsets), bands_ext, invd_ext, csum,
+                            *vecs, a, b)
     if squeeze:
         outs = tuple(o[0] for o in outs)
     return outs

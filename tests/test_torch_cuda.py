@@ -8,15 +8,19 @@ on a machine that has only the port's requirements:
 
 Vectors must agree bit for bit (the kernels round as the plain versions
 do); the reduction partials, summed in another order, to 1e-10 (float64)
-and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes.
+and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes, as
+``fused_dots``'s coefficients to 1e-12 and 1e-5.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.checksum import dia_column_checksum
+from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
 from repro_torch.kernels.pipecg_fused import pipecg_fused, pipecg_fused_plain
 from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
-                                                   pipecg_spmv_fused_plain)
+                                                   pipecg_spmv_fused_plain,
+                                                   pipecg_spmv_halo,
+                                                   pipecg_spmv_halo_plain)
 from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
 
 
@@ -88,3 +92,60 @@ def test_fused_solve_on_card_matches_naive(cuda):
     naive = pipecg(A, b, options=SolverOptions(engine="naive", maxiter=60))
     torch.testing.assert_close(fused.res_history, naive.res_history,
                                rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.bfloat16)])
+def test_halo_kernel_matches_plain_on_card(cuda, acc, sto):
+    """An interior rank's sweep with random neighbour strips and a random
+    operator extension (every band entry random, so a row read from the
+    wrong place changes the result)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    offsets = (-3, -1, 0, 2)
+    h, k, n = 3, 3, 4000
+
+    def rnd(*shape, dt=acc):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=torch.float64).to(dt)
+
+    bands = rnd(len(offsets), n + 2 * h, dt=torch.float64)
+    bands[offsets.index(0)] = bands[offsets.index(0)].abs() + 2.0
+    invd = (1.0 / bands[offsets.index(0)]).to(sto)
+    bands = bands.to(sto)
+    csum = dia_column_checksum(offsets, bands, halo=h)
+    x = rnd(k, n)
+    r, u, p = (rnd(k, n, dt=sto) for _ in range(3))
+    strips = [rnd(k, 2 * h, dt=sto) for _ in range(4)]
+    a = torch.rand(k, generator=g, device=cuda, dtype=acc)
+    b = torch.rand(k, generator=g, device=cuda, dtype=acc)
+    args = (offsets, bands, invd, csum, x, r, u, p, *strips, a, b)
+    got = pipecg_spmv_halo(*args)
+    want = pipecg_spmv_halo_plain(*args)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got[:4], want[:4]):
+        assert torch.equal(gv, wv)
+    rel = float(((got[4] - want[4]).abs()
+                 / want[4].abs().clamp(min=1.0)).max())
+    assert rel <= (1e-10 if acc == torch.float64 else 1e-3)
+    # the extension is read: zeroing it changes the partials
+    cut = bands.clone()
+    cut[:, :h] = 0
+    cut[:, -h:] = 0
+    moved = pipecg_spmv_halo(offsets, cut, *args[2:])[4]
+    assert not torch.allclose(moved, got[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_fused_dots_matches_plain_on_card(cuda, dt):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for m, n in ((1, 1), (3, 5000), (30, 70001)):
+        V = torch.randn(m, n, generator=g, device=cuda, dtype=dt)
+        z = torch.randn(n, generator=g, device=cuda, dtype=dt)
+        got = fused_dots(V, z)
+        want = fused_dots_plain(V, z)
+        torch.cuda.synchronize()
+        mags = (V * z).abs().sum(-1)
+        tol = 1e-12 if dt == torch.float64 else 1e-5
+        assert bool(((got - want).abs() <= tol * mags + 1e-30).all())

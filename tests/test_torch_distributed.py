@@ -1,0 +1,337 @@
+"""The port's many-rank solves against the JAX package, on gloo CPU ranks.
+
+One spawn per world size (1, 2, 4 ranks, ``repro_torch.distributed.ranks``)
+runs every case of ``CASES`` through ``distributed_solve``; the parent
+holds each rank's result against the JAX package's single-device solve of
+the same numpy inputs (``engine="naive"`` or the inline path: the Pallas
+kernels do not run under this JAX, ROADMAP.md queue 3, H1).  The halo
+sweep runs as its plain version here; tests/test_torch_cuda.py and
+chip_smoke.py hold the kernel against it on the card.
+
+Tolerances: residual histories to rtol 1e-10 above a 1e-10 relative floor
+over at most 80 iterations (ROADMAP.md queue 3, H6; 12 with bf16 storage,
+held against the port's single-device bf16 solve), ``x`` to 1e-10 of its
+largest entry, ``iters`` exactly; every rank returns the same result.
+"""
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import jax.numpy as jnp
+import repro.core.krylov as jk
+from repro.core.noise.injection import NoiseHook as JNoiseHook
+from repro.core.perfmodel.distributions import Exponential as JExponential
+from repro_torch import convert
+from repro_torch.core.krylov import (PrecisionPolicy, SolverOptions, cg,
+                                     distributed_solve, pipecg, pipecg_multi,
+                                     pipecr)
+from repro_torch.core.krylov.engine import get_engine
+from repro_torch.core.noise import NoiseHook, sample_np, scale_distribution
+from repro_torch.core.noise.traces import EmpiricalDistribution
+from repro_torch.core.perfmodel import Exponential, LogNormal, Uniform
+from repro_torch.distributed import ranks
+from repro_torch.distributed.overlap import split_phase_ok
+
+SCALE = 1e-5   # seconds per unit noise draw: 10 us mean waits
+
+
+def _spd_tridiag(n, seed):
+    """Symmetric tridiagonal SPD with a varying diagonal (Jacobi matters)."""
+    rng = np.random.default_rng(seed)
+    off = -rng.uniform(0.5, 1.0, n)
+    lo = np.concatenate([[0.0], off[:-1]])
+    hi = np.concatenate([off[:-1], [0.0]])
+    main = np.abs(lo) + np.abs(hi) + rng.uniform(1e-3, 2e-2, n)
+    return jk.DiaMatrix(offsets=(-1, 0, 1),
+                        bands=jnp.asarray(np.stack([lo, main, hi])))
+
+
+OPS = {"ex23": jk.tridiagonal_laplacian(4096),
+       "lap2d": jk.laplacian_2d(16, 16),
+       "spd": _spd_tridiag(512, seed=3)}
+RHS = {"ex23": np.random.default_rng(0).standard_normal(4096),
+       "lap2d": np.random.default_rng(1).standard_normal(256),
+       "spd": np.random.default_rng(2).standard_normal(512),
+       "multi": np.random.default_rng(3).standard_normal((3, 4096))}
+SHARDED = dict(engine="sharded_fused")
+
+# name: (solver, operator, rhs, distributed_solve kwargs, noise?)
+CASES = {
+    "pipecg": ("pipecg", "ex23", "ex23", dict(SHARDED, maxiter=80), False),
+    "pipecr": ("pipecr", "ex23", "ex23", dict(SHARDED, maxiter=80), False),
+    "pipecg-jacobi": ("pipecg", "spd", "spd",
+                      dict(SHARDED, maxiter=60, M="jacobi"), False),
+    "pipecg-lap2d": ("pipecg", "lap2d", "lap2d", dict(SHARDED, maxiter=20),
+                     False),
+    "pipecg-tol": ("pipecg", "spd", "spd",
+                   dict(SHARDED, maxiter=80, tol=3e-2), False),
+    "pipecg_multi": ("pipecg_multi", "ex23", "multi",
+                     dict(SHARDED, maxiter=60), False),
+    "pipecg-bf16": ("pipecg", "ex23", "ex23",
+                    dict(SHARDED, maxiter=12, precision="bf16"), False),
+    "pipecg-noise": ("pipecg", "ex23", "ex23", dict(SHARDED, maxiter=80),
+                     True),
+    "cg-inline": ("cg", "ex23", "ex23", dict(maxiter=80), False),
+    "cr-inline": ("cr", "lap2d", "lap2d", dict(maxiter=20), False),
+    "pipecg-inline": ("pipecg", "ex23", "ex23", dict(maxiter=80), False),
+    "pipecr-inline": ("pipecr", "lap2d", "lap2d", dict(maxiter=20), False),
+    "cg-inline-noise": ("cg", "ex23", "ex23", dict(maxiter=80), True),
+}
+NAMES = list(CASES)
+
+
+def _port_op(name):
+    A = OPS[name]
+    return convert.dia_from_numpy(A.offsets, np.asarray(A.bands),
+                                  grid_shape=A.grid_shape, device="cpu")
+
+
+def _cases():
+    out = []
+    for solver, op, rhs, kw, noisy in CASES.values():
+        out.append(dict(solver=solver, A=_port_op(op),
+                        b=torch.from_numpy(RHS[rhs].copy()), kw=kw,
+                        noise=(Exponential(1.0), SCALE, 0) if noisy
+                        else None))
+    return out
+
+
+def _reference(name):
+    """The JAX package's single-device solve of the case (numpy result)."""
+    solver, op, rhs, kw, _ = CASES[name]
+    A, b = OPS[op], jnp.asarray(RHS[rhs])
+    it = kw["maxiter"]
+    if solver == "pipecg_multi":
+        return jk.pipecg_multi(A, b, maxiter=it, engine="naive")
+    if kw.get("precision"):
+        # the JAX fused path reaches Pallas; the port's single-device bf16
+        # sweep is held against the reference sweep in test_torch_solvers
+        return pipecg(_port_op(op), torch.from_numpy(RHS[rhs].copy()),
+                      options=SolverOptions(maxiter=it, engine="fused",
+                                            precision=kw["precision"]))
+    opts = dict(maxiter=it, tol=kw.get("tol", 0.0), M=kw.get("M"))
+    if kw.get("engine"):
+        opts["engine"] = "naive"
+    return getattr(jk, solver)(A, b, options=jk.SolverOptions(**opts))
+
+
+@pytest.fixture(scope="module")
+def references():
+    return {name: _reference(name) for name in NAMES}
+
+
+@pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
+def runs(request):
+    world = request.param
+    return world, ranks.run(ranks.solve_cases, world, _cases(), "cpu",
+                            device="cpu")
+
+
+def _np(v):
+    return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _hist_close(want, got, rtol=1e-10, floor_rel=1e-10):
+    hw, hg = _np(want), _np(got)
+    assert hw.shape == hg.shape
+    mask = hw > floor_rel * max(hw.max(), 1.0)
+    assert mask.sum() > 0
+    np.testing.assert_allclose(hg[mask], hw[mask], rtol=rtol)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_distributed_solve_matches_reference(runs, references, name):
+    world, per_rank = runs
+    i = NAMES.index(name)
+    got = per_rank[0][i]
+    want = references[name]
+    if CASES[name][3].get("tol"):
+        # the split-phase body sees ||r_i|| one iteration late, so it
+        # freezes one iteration after the local solver does (as the JAX
+        # package's sharded body does), on the state one step further on
+        lag = int(want.iters) + 1
+        assert int(got["iters"]) == lag < CASES[name][3]["maxiter"]
+        _hist_close(_np(want.res_history)[:lag - 1],
+                    got["res_history"][:lag - 1])
+        solver, op, rhs, kw, _ = CASES[name]
+        want = jk.pipecg(OPS[op], jnp.asarray(RHS[rhs]),
+                         options=jk.SolverOptions(maxiter=lag + 1,
+                                                  engine="naive"))
+    else:
+        _hist_close(want.res_history, got["res_history"])
+        np.testing.assert_array_equal(got["iters"], _np(want.iters))
+    xw = _np(want.x)
+    assert got["x"].shape == xw.shape
+    np.testing.assert_allclose(got["x"], xw, rtol=0,
+                               atol=1e-10 * np.abs(xw).max())
+    for other in per_rank[1:]:
+        for key in ("x", "iters", "res_norm", "res_history"):
+            np.testing.assert_array_equal(other[i][key], got[key])
+    assert sum(got["launches"].values()) == 0   # plain versions on the CPU
+
+
+@pytest.mark.parametrize("name", [n for n in NAMES
+                                  if CASES[n][3].get("engine")])
+def test_sharded_split_phase_order_and_detector(runs, name):
+    """H5: issue(i) < halo(i+1) < wait(i) < launch(i+1), one all-reduce
+    per iteration, on every rank; the ABFT checksum column stays at
+    rounding level (a corrupted sweep moves it by O(1))."""
+    _, per_rank = runs
+    i = NAMES.index(name)
+    for outcome in per_rank:
+        assert outcome[i]["order_ok"] is True
+        det = outcome[i]["detect_history"]
+        assert det.shape == outcome[i]["res_history"].shape
+        assert np.abs(det).max() < 1e-9
+
+
+def test_noise_only_delays(runs):
+    """The noisy solve equals the quiet one bit for bit; every rank's
+    waits are the draws of its substream (seed 0, shard = rank)."""
+    world, per_rank = runs
+    # sharded: one wait per iteration; inline cg: one per SpMV
+    for quiet, noisy, extra in (("pipecg", "pipecg-noise", 0),
+                                ("cg-inline", "cg-inline-noise", 2)):
+        qi, ni = NAMES.index(quiet), NAMES.index(noisy)
+        for rank, outcome in enumerate(per_rank):
+            q, nz = outcome[qi], outcome[ni]
+            for key in ("x", "res_history"):
+                np.testing.assert_array_equal(nz[key], q[key])
+            waits = nz["waits"]
+            draws = np.random.default_rng((0, rank)).exponential(
+                1.0, size=waits.shape) * SCALE
+            np.testing.assert_array_equal(waits, draws)
+            assert waits.size == CASES[noisy][3]["maxiter"] + extra
+        assert world == len(per_rank)
+
+
+# -- in-process pieces ---------------------------------------------------------
+
+@pytest.mark.parametrize("dist_name", ["exponential", "uniform", "lognormal",
+                                       "trace"])
+def test_noise_hook_draws_equal_the_jax_hook(dist_name):
+    from repro.core.noise.traces import EmpiricalDistribution as JEmp
+    from repro.core.perfmodel.distributions import LogNormal as JLogNormal
+    from repro.core.perfmodel.distributions import Uniform as JUniform
+    trace = np.random.default_rng(5).exponential(1.0, 64)
+    ours, theirs = {
+        "exponential": (Exponential(2.0), JExponential(2.0)),
+        "uniform": (Uniform(0.5, 1.5), JUniform(0.5, 1.5)),
+        "lognormal": (LogNormal(0.1, 0.5), JLogNormal(0.1, 0.5)),
+        "trace": (EmpiricalDistribution.from_samples(trace),
+                  JEmp.from_samples(trace)),
+    }[dist_name]
+    a, b = NoiseHook(ours, scale=1e-3, seed=7), JNoiseHook(theirs, scale=1e-3,
+                                                           seed=7)
+    for shard in (0, 3, 1):
+        got = [a.sample(shard) for _ in range(5)]
+        want = [b.sample(shard) for _ in range(5)]
+        assert got == want
+        np.testing.assert_array_equal(a.shard_waits(shard),
+                                      b.shard_waits(shard))
+
+
+def test_sampling_fallback_and_scaling():
+    from repro_torch.core.perfmodel import Gamma
+    rng = np.random.default_rng(0)
+    draws = sample_np(Gamma(2.0, 1.0), rng, (2000,))
+    assert draws.dtype == np.float64 and abs(draws.mean() - 2.0) < 0.15
+    assert scale_distribution(Exponential(2.0), 0.5) == Exponential(4.0)
+    emp = EmpiricalDistribution.from_samples([3.0, 1.0, 2.0])
+    np.testing.assert_allclose(
+        emp.quantile(torch.tensor([0.0, 0.5, 1.0])).numpy(), [1.0, 2.0, 3.0])
+    assert float(emp.cdf(torch.tensor(2.0))) == pytest.approx(2 / 3)
+    with pytest.raises(TypeError):
+        scale_distribution(Gamma(2.0, 1.0), 2.0)
+
+
+def test_split_phase_ok_rejects_wrong_orders():
+    good = [("issue", -1)]
+    for i in range(3):
+        good += [("halo", i), ("wait", i - 1), ("launch", i), ("issue", i)]
+    good.append(("wait", 2))
+    assert split_phase_ok(good, 3)
+    late_halo = list(good)
+    late_halo[1], late_halo[2] = late_halo[2], late_halo[1]   # wait first
+    assert not split_phase_ok(late_halo, 3)
+    early_launch = list(good)
+    early_launch[2], early_launch[3] = early_launch[3], early_launch[2]
+    assert not split_phase_ok(early_launch, 3)
+    assert not split_phase_ok(good + [("issue", 5)], 3)   # a second reduce
+    assert not split_phase_ok(good[:-1], 3)
+
+
+@pytest.fixture
+def one_rank(tmp_path):
+    """A one-rank gloo group in this process (errors raise before any
+    communication is needed, or need only this rank)."""
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_unsupported_options_raise(one_rank):
+    T = _port_op("ex23")
+    b = torch.from_numpy(RHS["ex23"].copy())
+    cases = [
+        (NotImplementedError, "item 8", dict(engine="sharded_fused", l=2)),
+        (NotImplementedError, "item 10",
+         dict(engine="sharded_fused", precision="bf16_int8wire")),
+        (NotImplementedError, "item 11",
+         dict(engine="sharded_fused", x0=torch.zeros(4096))),
+        (NotImplementedError, "item 11",
+         dict(engine="sharded_fused", with_state=True)),
+        (ValueError, "M must be None",
+         dict(engine="sharded_fused", M=lambda z: z)),
+        (ValueError, "engine=None", dict(engine="fused")),
+        (ValueError, "warm start", dict(x0=torch.zeros(4096))),
+        (ValueError, "engine='sharded_fused'", dict(precision="bf16")),
+        (ValueError, "recorder", dict(recorder=[])),
+        (TypeError, "unsupported kwargs",
+         dict(engine="sharded_fused", block=256)),
+        (TypeError, "not both", dict(engine="sharded_fused",
+                                     options=SolverOptions(maxiter=3))),
+        (ValueError, "rr_tau", dict(options=SolverOptions(maxiter=3,
+                                                          rr_tau=1.0))),
+        (NotImplementedError, "item 9", dict(group=(None, None))),
+    ]
+    for exc, match, kw in cases:
+        with pytest.raises(exc, match=match):
+            distributed_solve(pipecg, T, b, maxiter=3, **kw) \
+                if "options" not in kw else \
+                distributed_solve(pipecg, T, b, **kw)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        distributed_solve(cg, T, b, maxiter=3, use_kernel=True)
+    with pytest.raises(ValueError, match="supports pipecg"):
+        distributed_solve(cg, T, b, engine="sharded_fused", maxiter=3)
+    for family, item in (("pipecg_l", "item 8"), ("pipebicgstab", "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            get_engine("sharded_fused").body(family)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        get_engine("sharded_fused").body("pipecg", "bsr")
+    with pytest.raises(ValueError, match="distributed_solve"):
+        get_engine("sharded_fused").dots(b[None], b)
+
+
+def test_one_rank_solves_in_process(one_rank):
+    """A one-rank group is the single-device solve: halo strips are zero,
+    the all-reduce is the identity."""
+    T = _port_op("lap2d")
+    b = torch.from_numpy(RHS["lap2d"].copy())
+    want = pipecg(T, b, options=SolverOptions(maxiter=15, engine="naive"))
+    got = distributed_solve(pipecg, T, b, engine="sharded_fused",
+                            maxiter=15)
+    _hist_close(want.res_history, got.res_history)
+    opts = SolverOptions(maxiter=15, engine="sharded_fused",
+                         precision=PrecisionPolicy())
+    again = distributed_solve(pipecg, T, b, options=opts)
+    assert torch.equal(again.res_history, got.res_history)
+    multi = distributed_solve(pipecg_multi, T, torch.stack([b, 2 * b]),
+                              engine="sharded_fused", maxiter=15)
+    assert tuple(multi.x.shape) == (2, 256)
+    _hist_close(got.res_history, multi.res_history[0], rtol=1e-13)
+    inline = distributed_solve(pipecr, T, b, maxiter=15)
+    _hist_close(pipecr(T, b, options=SolverOptions(maxiter=15)).res_history,
+                inline.res_history, rtol=1e-14)

@@ -2,8 +2,9 @@
 
 A fresh interpreter imports every ``repro_torch`` module and must find
 neither ``jax`` nor ``repro`` in ``sys.modules``; an AST scan of the
-package and of the port's two scripts at the root (``chip_smoke.py``,
-``torch_pipecg_breakdown.py``) finds no import of either.
+package and of the port's scripts at the root (``chip_smoke.py``,
+``torch_pipecg_breakdown.py``, ``torch_sweep_time.py``) finds no import
+of either.
 """
 import ast
 import json
@@ -18,7 +19,8 @@ import repro_torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "torch_pipecg_breakdown.py"]
+                                       ROOT / "torch_pipecg_breakdown.py",
+                                       ROOT / "torch_sweep_time.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -33,8 +35,16 @@ def _module_names():
 
 def test_every_module_imports_without_jax_or_reference():
     names = _module_names()
-    assert "repro_torch.core.krylov.cg" in names
-    assert "repro_torch.kernels.pipecg_spmv_fused" in names
+    assert {"repro_torch.core.krylov.cg",
+            "repro_torch.core.krylov.distributed",
+            "repro_torch.core.noise.injection",
+            "repro_torch.core.noise.sampling",
+            "repro_torch.core.noise.traces",
+            "repro_torch.distributed.comm",
+            "repro_torch.distributed.overlap",
+            "repro_torch.distributed.ranks",
+            "repro_torch.kernels.fused_dots",
+            "repro_torch.kernels.pipecg_spmv_fused"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -65,4 +75,4 @@ def test_kernel_sources_are_in_the_package():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
-        "pipecg_fused.cu"}
+        "pipecg_fused.cu", "fused_dots.cu"}

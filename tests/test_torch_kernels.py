@@ -2,7 +2,10 @@
 
 On the CPU each wrapper takes its plain torch version, which is held
 against ``repro/kernels/ref.py`` on the same numpy inputs (float64, rtol
-and atol 1e-12).  tests/test_torch_cuda.py holds the CUDA kernels against
+and atol 1e-12; the halo sweep's rank slices 1e-13 against the global
+sweep, and its partial rows to 1e-12 of their terms' magnitudes), and
+``fused_dots`` against the JAX package's Pallas kernel run in interpret
+mode.  tests/test_torch_cuda.py holds the CUDA kernels against
 the plain versions on the card.
 """
 import jax.numpy as jnp
@@ -14,9 +17,11 @@ from repro.core.krylov import operators as jops
 from repro.kernels import ref
 from repro.kernels.checksum import dia_column_checksum as j_checksum
 from repro_torch import convert
+from repro_torch.core.krylov.engine import get_engine
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.checksum import dia_column_checksum
-from repro_torch.kernels.pipecg_spmv_fused import pipecg_spmv_fused_plain
+from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused_plain,
+                                                   pipecg_spmv_halo_plain)
 from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
 
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -162,4 +167,177 @@ def test_build_is_lazy_and_names_sm90a():
     assert "arch=compute_90a,code=sm_90a" in build.ARCH
     assert build.library_path().parent == build.BUILD_DIR
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "pipecg_fused.cu", "pipecg_spmv_fused.cu", "spmv_dia.cu"]
+        "fused_dots.cu", "pipecg_fused.cu", "pipecg_spmv_fused.cu",
+        "spmv_dia.cu"]
+
+
+# -- the per-rank halo sweep --------------------------------------------------
+
+def _rank_operands(A, P, q, vecs, invd):
+    """Rank q's operands cut from the global arrays, with real strips.
+
+    The operator rows [lo - h, hi + h) and the u/p rows [lo - 2h, lo) and
+    [hi, hi + 2h), zero beyond the matrix, as the halo exchange gives them.
+    """
+    h, n = A.halo, A.n
+    lo, hi = q * n // P, (q + 1) * n // P
+    bands = np.pad(np.asarray(A.bands), ((0, 0), (h, h)))[:, lo:hi + 2 * h]
+    invd_e = np.pad(invd, (h, h))[lo:hi + 2 * h]
+    x, r, u, p = vecs
+    wide = [np.pad(v, ((0, 0), (2 * h, 2 * h))) for v in (u, p)]
+    strips = []
+    for v in wide:
+        strips += [v[:, lo:lo + 2 * h], v[:, hi + 2 * h:hi + 4 * h]]
+    t = torch.from_numpy
+    bands_t = t(np.ascontiguousarray(bands))
+    csum = dia_column_checksum(A.offsets, bands_t, halo=h)
+    local = [t(np.ascontiguousarray(v[:, lo:hi])) for v in (x, r, u, p)]
+    u_lo, u_hi, p_lo, p_hi = (t(np.ascontiguousarray(s)) for s in strips)
+    return (bands_t, t(np.ascontiguousarray(invd_e)), csum, *local,
+            u_lo, u_hi, p_lo, p_hi), slice(lo, hi)
+
+
+def _halo_case(A, k, jacobi, seed):
+    (x, r, u, p), alpha, beta = _state(A.n, k, seed=seed)
+    invd = (1.0 / np.asarray(A.diagonal()) if jacobi else np.ones(A.n))
+    want = ref.pipecg_spmv_fused_ref(
+        A.offsets, A.bands, jnp.asarray(invd),
+        *(jnp.asarray(v) for v in (x, r, u, p)), jnp.asarray(alpha),
+        jnp.asarray(beta))
+    return (x, r, u, p), alpha, beta, invd, [np.asarray(w) for w in want]
+
+
+def _red_mags(A, want):
+    """Sum of each reduction entry's terms' magnitudes (its rounding scale)."""
+    _, r2, u2, _, _ = want
+    w2 = np.asarray(A.matvec(jnp.asarray(u2)))
+    c = np.asarray(j_checksum(A.offsets, A.bands))
+    terms = [r2 * u2, w2 * u2, r2 * r2, r2 * w2, w2 * w2]
+    return np.stack([np.abs(t).sum(-1) for t in terms]
+                    + [np.abs(w2).sum(-1) + np.abs(c * u2).sum(-1)], -1)
+
+
+def _random_banded(n, offsets, seed):
+    """A banded operator with every entry random (zero outside the matrix),
+    so an operator row read from the wrong place changes the sweep."""
+    rng = np.random.default_rng(seed)
+    bands = rng.uniform(-1.0, 1.0, (len(offsets), n))
+    bands[list(offsets).index(0)] = rng.uniform(2.0, 3.0, n)
+    i = np.arange(n)
+    for kb, off in enumerate(offsets):
+        bands[kb][(i + off < 0) | (i + off >= n)] = 0.0
+    return jops.DiaMatrix(offsets=tuple(offsets), bands=jnp.asarray(bands))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("name", ["tridiag", "lap2d", "random"])
+def test_pipecg_spmv_halo_plain_slices_match_ref(name, P, k):
+    """P ranks' sweeps on slices of one global state equal the reference
+    sweep on the global arrays row for row, and their partial rows sum to
+    its reduction row."""
+    A = {"tridiag": jops.tridiagonal_laplacian(256),
+         "lap2d": jops.laplacian_2d(16, 16),
+         "random": _random_banded(256, (-3, -1, 0, 2), seed=11)}[name]
+    vecs, alpha, beta, invd, want = _halo_case(A, k, jacobi=True, seed=12)
+    total = np.zeros((k, 6))
+    for q in range(P):
+        args, rows = _rank_operands(A, P, q, vecs, invd)
+        got = pipecg_spmv_halo_plain(A.offsets, *args, torch.from_numpy(alpha),
+                                     torch.from_numpy(beta))
+        for g, w in zip(got[:4], want[:4]):
+            np.testing.assert_allclose(g.numpy(), w[:, rows], rtol=1e-13,
+                                       atol=1e-13 * np.abs(w).max())
+        total += got[4].numpy()
+    assert np.all(np.abs(total - want[4]) <= 1e-12 * _red_mags(A, want))
+
+
+def test_pipecg_spmv_halo_reads_the_neighbour_rows():
+    """Rank 1 of 4 needs its neighbours' operator rows and strips: read
+    as zero, or swapped, they change its rows or the summed partials."""
+    A = _random_banded(256, (-3, -1, 0, 2), seed=13)
+    vecs, alpha, beta, invd, want = _halo_case(A, 2, jacobi=True, seed=14)
+    a, b = torch.from_numpy(alpha), torch.from_numpy(beta)
+    h = A.halo
+    ranks = [_rank_operands(A, 4, q, vecs, invd) for q in range(4)]
+
+    def agrees(args1):
+        total = np.zeros((2, 6))
+        same = True
+        for q, (args, rows) in enumerate(ranks):
+            got = pipecg_spmv_halo_plain(A.offsets, *(args1 if q == 1
+                                                      else args), a, b)
+            same &= all(np.allclose(g.numpy(), w[:, rows], rtol=1e-12,
+                                    atol=1e-12)
+                        for g, w in zip(got[:4], want[:4]))
+            total += got[4].numpy()
+        return same and bool(np.all(np.abs(total - want[4])
+                                    <= 1e-12 * _red_mags(A, want)))
+
+    args = ranks[1][0]
+    assert agrees(args)
+    bands, invd_e = args[0].clone(), args[1].clone()
+    bands[:, :h] = 0
+    bands[:, -h:] = 0
+    invd_e[:h] = 0
+    invd_e[-h:] = 0
+    u_lo, u_hi, p_lo, p_hi = args[7:]
+    for bad in ((bands,) + args[1:], args[:1] + (invd_e,) + args[2:],
+                args[:7] + (u_hi, u_lo, p_lo, p_hi),
+                args[:7] + (u_lo, u_hi, p_hi, p_lo)):
+        assert not agrees(bad)
+
+
+def test_pipecg_spmv_halo_step_single_rhs():
+    A = _random_banded(96, (-1, 0, 1), seed=15)
+    vecs, alpha, beta, invd, _ = _halo_case(A, 1, jacobi=False, seed=16)
+    args, _ = _rank_operands(A, 2, 0, vecs, invd)
+    a, b = torch.from_numpy(alpha), torch.from_numpy(beta)
+    batched = ops.pipecg_spmv_halo_step(A.offsets, *args, a, b)
+    single = ops.pipecg_spmv_halo_step(
+        A.offsets, *args[:3], *(v[0] for v in args[3:]),
+        torch.tensor(alpha[0]), torch.tensor(beta[0]))
+    for bt, s in zip(batched, single):
+        assert torch.equal(bt[0], s)
+    assert ops.launch_counts()["pipecg_spmv_halo"] == 0
+
+
+def test_halo_sweep_with_no_neighbours_is_the_sweep(op):
+    """One rank (zero strips and extension) is the single-device sweep."""
+    A, T = op
+    (x, r, u, p), alpha, beta = _state(A.n, 2, seed=17)
+    t = torch.from_numpy
+    h = A.halo
+    invd = torch.ones(A.n, dtype=torch.float64)
+    csum = T.column_checksum()
+    want = pipecg_spmv_fused_plain(T.offsets, T.bands, invd, csum,
+                                   *(t(v) for v in (x, r, u, p)),
+                                   t(alpha), t(beta))
+    z = torch.zeros((2, 2 * h), dtype=torch.float64)
+    got = pipecg_spmv_halo_plain(
+        T.offsets, torch.nn.functional.pad(T.bands, (h, h)),
+        torch.nn.functional.pad(invd, (h, h)), csum,
+        *(t(v) for v in (x, r, u, p)), z, z, z, z, t(alpha), t(beta))
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-13, atol=1e-12)
+
+
+# -- fused_dots ---------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n", [(3, 4096), (30, 2048), (1, 700)])
+def test_fused_dots_plain_matches_the_jax_kernel(m, n):
+    """Against the Pallas kernel itself (interpret mode on the CPU), each
+    coefficient to 1e-12 of the sum of its terms' magnitudes."""
+    from repro.kernels import ops as jkops
+    rng = np.random.default_rng(m)
+    V, z = rng.standard_normal((m, n)), rng.standard_normal(n)
+    want = np.asarray(jkops.fused_dots(jnp.asarray(V), jnp.asarray(z)))
+    got = ops.fused_dots(torch.from_numpy(V), torch.from_numpy(z))
+    assert got.shape == (m,) and got.dtype == torch.float64
+    assert np.all(np.abs(got.numpy() - want) <= 1e-12 * np.abs(V * z).sum(-1))
+    assert np.allclose(want, np.asarray(ref.fused_dots_ref(V, z)),
+                       rtol=1e-12, atol=1e-12)
+    eng = get_engine("fused").dots(torch.from_numpy(V), torch.from_numpy(z))
+    assert torch.equal(eng, got)
+    assert ops.launch_counts()["fused_dots"] == 0

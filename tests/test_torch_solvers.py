@@ -277,7 +277,7 @@ def test_bf16_storage_matches_reference_sweep(tri):
 
 def test_engine_errors(tri):
     _, T, b = tri
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="distributed_solve"):
         pipecg(T, _t(b), options=SolverOptions(maxiter=5,
                                                engine="sharded_fused"))
     with pytest.raises(ValueError, match="unknown engine"):

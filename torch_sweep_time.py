@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Time the one-device PIPECG sweep kernel of one checkout of the port.
+
+    python3 torch_sweep_time.py [SRC]
+
+``SRC`` is the ``src`` directory whose ``repro_torch`` is built and timed
+(default: this checkout's), so one session on one card can time two
+versions side by side: parent, change, change, parent.  Run on one NVIDIA
+GPU (exits with 2 without one).  Times ``pipecg_spmv_fused`` at
+chip_smoke.py's shapes (ex23's tridiagonal Laplacian at n = 2,097,152 and
+``laplacian_2d(1448, 1448)``; k = 1 and 8; float64, float32, float32 with
+bf16 storage) as CUDA-event medians of 25, after holding each call's
+vectors against its plain version.  Prints the card's ``nvidia-smi`` name
+and power limit, one line per shape, and one JSON object as its last line.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke as smoke
+
+
+def main(argv) -> int:
+    src = Path(argv[1]).resolve() if len(argv) > 1 else smoke.ROOT / "src"
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_sweep_time: no CUDA device", file=sys.stderr)
+        return 2
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"torch_sweep_time: no repro_torch under {src}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
+    from repro_torch.kernels import build
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        pipecg_spmv_fused, pipecg_spmv_fused_plain)
+
+    _, line = smoke.card()
+    print(line, flush=True)
+    so, _ = build.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    tri = tridiagonal_laplacian(smoke.N_EX23, device=dev)
+    lap = laplacian_2d(1448, 1448, device=dev)
+    out = []
+    for A, label, k, acc, sto in ((tri, "tridiag", 1, f64, f64),
+                                  (tri, "tridiag", 8, f64, f64),
+                                  (tri, "tridiag", 1, f32, f32),
+                                  (tri, "tridiag", 1, f32, bf16),
+                                  (lap, "lap2d", 1, f64, f64)):
+        def randn(dt):
+            return torch.randn((k, A.n), generator=gen, device=dev,
+                               dtype=f64).to(dt)
+        x, r, u, p = randn(acc), randn(sto), randn(sto), randn(sto)
+        a = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
+        b = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
+        bands = A.bands.to(sto)
+        invd = (1.0 / A.diagonal()).to(sto)
+        csum = A.column_checksum().to(sto)
+        args = (A.offsets, bands, invd, csum, x, r, u, p, a, b)
+        got = pipecg_spmv_fused(*args)
+        want = pipecg_spmv_fused_plain(*args)
+        torch.cuda.synchronize()
+        tol = {f64: 1e-12, f32: 1e-5}[acc]
+        for g, w in zip(got[:4], want[:4]):
+            gap = float(((g.double() - w.double()).abs()
+                         / w.double().abs().clamp(min=1.0)).max())
+            smoke.check(gap <= (2.0 ** -7 if g.dtype == bf16 else tol),
+                        f"sweep {label} k={k} disagrees: {gap}")
+        ms = smoke.time_ms(lambda: pipecg_spmv_fused(*args))
+        row = dict(shape=label, k=k, accum=str(acc)[6:],
+                   storage=str(sto)[6:], ms=ms)
+        smoke.say("sweep", **row)
+        out.append(row)
+    print(json.dumps({"src": str(src), "library": so.name,
+                      "sweep": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
