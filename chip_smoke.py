@@ -17,10 +17,20 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    CUDA-event time (median of 25), the plain version's, the library
    call's where one computes the same function (``torch.sparse`` CSR mv,
    ``torch.mv``), and its bound;
+   The p-BiCGStab sweep (#8) runs on the nonsymmetric
+   ``convection_diffusion`` at the same n, on ``laplacian_2d(1448, 1448)``,
+   in float32 and with bf16 chains and bands; its per-rank form (#9) on
+   rank 1 of 4 slices, and 4 slices against the one-device sweep;
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
    solves, ``pipecr``, and a callable-M solve on the update-kernel fallback;
+   then ``[bicgstab]``: ``pipebicgstab(M="jacobi", engine="fused",
+   maxiter=5000)`` on convection_diffusion with the counts set to 0 just
+   before it and read just after it (5000 sweeps, no SpMV), its first 20
+   residuals against ``engine="naive"``, the ``tol=1e-10`` solve's
+   ``iters`` against naive's, classical ``bicgstab`` to the same tol and a
+   callable M through the engine's SpMV;
 5. ranks: ex23 on 4 ranks of one process group, all on this card
    (``distributed_solve(pipecg, engine="sharded_fused", maxiter=5000)``,
    gloo with host-staged strips on one card, NCCL with one card per
@@ -28,9 +38,14 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    the one-device fused solve; 200-iteration pipecr, Jacobi,
    ``pipecg_multi`` (k=4), inline ``cg``/``pipecg`` and a 2-rank solve
    against theirs; the same solve under injected Exponential noise, whose
-   history must equal the quiet one bit for bit;
-6. model: ``asymptotic_speedup`` as in examples/quickstart.py and a
-   ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card;
+   history must equal the quiet one bit for bit; p-BiCGStab on the same 4
+   ranks (500 forced iterates with Jacobi, 4 x 500 halo sweeps, the H5
+   order, no blocking all-reduce; the tol solve's ``iters`` and the first
+   20 residuals against one device; the inline path with one all-reduce
+   per iteration);
+6. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
+   ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card and
+   the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises: the script exits non-zero and prints no result when a
@@ -64,6 +79,21 @@ MAXITER = 5000
 CHECK_ITERS = 200
 RANKS = 4
 NOISE_SCALE = 1e-4   # seconds per unit draw: Exponential(1) waits, 100 us mean
+# p-BiCGStab: forced iterates on 4 ranks, the inline path's, the history
+# window held to rtol 1e-10 (ROADMAP.md queue 3, H6) and the tol solve's
+BICG_RANK_ITERS = 500
+BICG_INLINE_ITERS = 200
+BICG_CHECK = 20
+BICG_TOL = 1e-10
+BICG_TOL_ITERS = 200
+# ROADMAP.md queue 3, H8 (tests/test_torch_bicgstab.py::
+# test_forced_iterates_drift_like_the_reference): forced iterates past
+# convergence keep the recurrence residual at rounding level while x's
+# true residual drifts to a few 1e-2 of ||b||, in the JAX reference too;
+# a residual replacement every BICG_RR iterations pins x
+BICG_REC_MAX = 1e-13   # recurrence residual / ||b|| after convergence
+BICG_DRIFT_MAX = 0.1   # true residual / ||b|| of a forced x
+BICG_RR = 50
 
 
 class SmokeFailure(RuntimeError):
@@ -210,7 +240,8 @@ def phase_build():
 def phase_kernels():
     """Each kernel against its plain version; returns the JSON records."""
     import torch
-    from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
+    from repro_torch.core.krylov import (convection_diffusion, laplacian_2d,
+                                         tridiagonal_laplacian)
     from repro_torch.kernels.checksum import dia_column_checksum
     from repro_torch.kernels.pipecg_fused import (pipecg_fused,
                                                   pipecg_fused_plain)
@@ -346,6 +377,10 @@ def phase_kernels():
     halo_kernel(records, gen, tri, lap)
     halo_slices_sum_to_sweep(gen, tri)
     dots_kernel(records, gen)
+    cdf = convection_diffusion(N_EX23, device=dev)
+    bicg_kernel(records, gen, cdf, lap)
+    bicg_halo_kernel(records, gen, cdf)
+    bicg_slices_sum_to_sweep(gen, cdf)
     return records
 
 
@@ -502,6 +537,178 @@ def dots_kernel(records, gen):
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+def bicg_operands(gen, A, acc, sto):
+    """Random p-BiCGStab sweep operands on A's rows: x at the accumulator
+    dtype, the seven chains (r, w, t, pa, a, c, r_hat) and the bands at
+    the storage dtype, c = A^T 1 and alpha/beta/omega at the accumulator."""
+    import torch
+    from repro_torch.kernels.checksum import dia_column_checksum
+    dev, f64 = A.device, torch.float64
+    x = torch.randn(A.n, generator=gen, device=dev, dtype=f64).to(acc)
+    chains = [torch.randn(A.n, generator=gen, device=dev, dtype=f64).to(sto)
+              for _ in range(7)]
+    sc = [torch.rand((), generator=gen, device=dev, dtype=f64).to(acc)
+          for _ in range(3)]
+    csum = dia_column_checksum(A.offsets, A.bands).to(acc)
+    return A.bands.to(sto).contiguous(), csum, x, chains, sc
+
+
+def gram_rel(got, want, C, csum) -> float:
+    """Largest (7, 6) payload gap relative to the sum of its terms'
+    magnitudes (the Gram of C and the checksum entry)."""
+    import torch
+    mags = C.abs() @ C.abs().T
+    mags = torch.cat([mags, torch.zeros_like(mags[:1])])
+    mags[6, 0] = C[2].abs().sum() + (csum * C[1]).abs().sum()
+    gap = (got - want).abs()
+    check(bool((gap[mags == 0] == 0).all()), "payload's zero entries moved")
+    return float((gap / mags.clamp(min=torch.finfo(mags.dtype).tiny)).max())
+
+
+def chains_equal(name, got, want) -> None:
+    """The seven output vectors: bit for bit, bf16 ones within one ulp."""
+    import torch
+    for i, (g, w) in enumerate(zip(got[:7], want[:7])):
+        if g.dtype == torch.bfloat16:
+            ulp = (w.double().abs() * 2.0 ** -7).clamp(min=2.0 ** -133)
+            check(bool(((g.double() - w.double()).abs() <= ulp).all()),
+                  f"{name} out{i}: more than one bf16 ulp")
+        else:
+            check(torch.equal(g, w), f"{name} out{i} differs")
+
+
+def bicg_bound(A, n, tensors, acc):
+    """(bound_ms, bound_by) of one sweep over n rows moving ``tensors``:
+    per row 9 updates, 2 band products, the 21-entry Gram and the
+    checksum (4 n_bands + 75 flops)."""
+    return bound(nbytes(*tensors), n * (4.0 * len(A.offsets) + 75), acc)
+
+
+def bicg_kernel(records, gen, cdf, lap):
+    """#8: the one-device p-BiCGStab sweep against its plain version."""
+    import torch
+    from repro_torch.kernels.pipebicgstab_fused import (
+        pipebicgstab_fused, pipebicgstab_fused_plain)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    cases = [(cdf, "convdiff", f64, f64), (lap, "lap2d", f64, f64),
+             (cdf, "convdiff", f32, f32), (cdf, "convdiff", f32, bf16)]
+    for A, label, acc, sto in cases:
+        bands, csum, x, chains, sc = bicg_operands(gen, A, acc, sto)
+        args = (A.offsets, bands, csum, x, *chains, *sc)
+        got = pipebicgstab_fused(*args)
+        want = pipebicgstab_fused_plain(*args)
+        torch.cuda.synchronize()
+        chains_equal(f"pipebicgstab_fused {label}", got, want)
+        C = torch.stack([want[i].to(acc) for i in (1, 2, 3, 5, 6)]
+                        + [chains[6].to(acc)])
+        rel = gram_rel(got[7], want[7], C, csum)
+        check(rel <= {f64: 1e-10, f32: 1e-5}[acc],
+              f"pipebicgstab_fused {label} payload: {rel}")
+        err = max_err(got, want)
+        ms = time_ms(lambda: pipebicgstab_fused(*args))
+        plain_ms = time_ms(lambda: pipebicgstab_fused_plain(*args))
+        b_ms, b_by = bicg_bound(A, A.n, (bands, csum, x, *chains, *sc,
+                                         *got), acc)
+        say("kernel", name="pipebicgstab_fused", shape=label, n=A.n,
+            accum=str(acc)[6:], storage=str(sto)[6:],
+            max_abs_err=f"{err:.3e}", gram_rel=f"{rel:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", share=f"{b_ms / ms:.3f}")
+        if (label, acc, sto) == ("convdiff", f64, f64):
+            records["pipebicgstab_fused"] = dict(
+                name="pipebicgstab_fused", route="cuda",
+                source="src/repro_torch/kernels/csrc/pipebicgstab_fused.cu",
+                replaces="src/repro/kernels/pipebicgstab_fused.py:213",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bicg_rank_operands(A, P, q, x, chains):
+    """Rank q of P's p-BiCGStab operands cut from global vectors: the
+    operator rows [lo - h, hi + h), this rank's slice of c = A^T 1 and the
+    w/t/c strips [lo - 2h, lo) and [hi, hi + 2h), zero beyond the matrix,
+    as the exchanges give them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.checksum import dia_column_checksum
+    h, n = A.halo, A.n
+    lo, hi = q * n // P, (q + 1) * n // P
+    bands = F.pad(A.bands, (h, h))[:, lo:hi + 2 * h]
+    csum = dia_column_checksum(A.offsets, bands, halo=h).to(x.dtype)
+    strips = []
+    for v in (chains[1], chains[2], chains[5]):          # w, t, c
+        wide = F.pad(v, (2 * h, 2 * h))
+        strips += [wide[lo:lo + 2 * h], wide[hi + 2 * h:hi + 4 * h]]
+    sto = chains[0].dtype
+    ops_ = [bands.to(sto), csum, x[lo:hi], *(v[lo:hi] for v in chains),
+            *strips]
+    return [t.contiguous() for t in ops_], slice(lo, hi)
+
+
+def bicg_halo_kernel(records, gen, cdf):
+    """#9: the per-rank p-BiCGStab sweep on rank 1 of 4 (real strips and
+    neighbour operator rows) against its plain version."""
+    import torch
+    from repro_torch.kernels.pipebicgstab_fused import (
+        pipebicgstab_halo, pipebicgstab_halo_plain)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    for acc, sto in ((f64, f64), (f32, bf16)):
+        _, _, x, chains, sc = bicg_operands(gen, cdf, acc, sto)
+        opnds, _ = bicg_rank_operands(cdf, RANKS, 1, x, chains)
+        args = (cdf.offsets, *opnds, *sc)
+        got = pipebicgstab_halo(*args)
+        want = pipebicgstab_halo_plain(*args)
+        torch.cuda.synchronize()
+        chains_equal("pipebicgstab_halo", got, want)
+        C = torch.stack([want[i].to(acc) for i in (1, 2, 3, 5, 6)]
+                        + [opnds[9].to(acc)])       # r_hat
+        rel = gram_rel(got[7], want[7], C, opnds[1])
+        check(rel <= {f64: 1e-10, f32: 1e-5}[acc],
+              f"pipebicgstab_halo payload: {rel}")
+        err = max_err(got, want)
+        ms = time_ms(lambda: pipebicgstab_halo(*args))
+        plain_ms = time_ms(lambda: pipebicgstab_halo_plain(*args))
+        n = cdf.n // RANKS
+        b_ms, b_by = bicg_bound(cdf, n, (*opnds, *sc, *got), acc)
+        say("kernel", name="pipebicgstab_halo", shape="convdiff",
+            ranks=RANKS, n_local=n, accum=str(acc)[6:],
+            storage=str(sto)[6:], max_abs_err=f"{err:.3e}",
+            gram_rel=f"{rel:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            share=f"{b_ms / ms:.3f}")
+        if acc == f64:
+            records["pipebicgstab_halo"] = dict(
+                name="pipebicgstab_halo", route="cuda",
+                source="src/repro_torch/kernels/csrc/pipebicgstab_fused.cu",
+                replaces="src/repro/kernels/pipebicgstab_fused.py:238",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bicg_slices_sum_to_sweep(gen, A):
+    """4 ranks' p-BiCGStab sweeps on slices of one global state: their
+    vectors equal the one-device sweep's rows bit for bit, their partial
+    payloads sum to its payload."""
+    import torch
+    from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
+                                                        pipebicgstab_halo)
+    f64 = torch.float64
+    bands, csum, x, chains, sc = bicg_operands(gen, A, f64, f64)
+    whole = pipebicgstab_fused(A.offsets, bands, csum, x, *chains, *sc)
+    total = torch.zeros_like(whole[7])
+    for q in range(RANKS):
+        opnds, rows = bicg_rank_operands(A, RANKS, q, x, chains)
+        got = pipebicgstab_halo(A.offsets, *opnds, *sc)
+        for i, (g, w) in enumerate(zip(got[:7], whole[:7])):
+            check(torch.equal(g, w[rows]), f"bicg rank {q} out{i} differs")
+        total = total + got[7]
+    torch.cuda.synchronize()
+    C = torch.stack([whole[i] for i in (1, 2, 3, 5, 6)] + [chains[6]])
+    rel = gram_rel(total, whole[7], C, csum)
+    check(rel <= 1e-10, f"rank payloads sum off by {rel}")
+    say("kernel", check="4 rank slices == one-device p-BiCGStab sweep",
+        n=A.n, vectors="bit-equal", payload_rel=f"{rel:.3e}")
+
+
 def phase_main_path(records):
     """The ex23 solve and its siblings, with the launch counts around them.
 
@@ -606,6 +813,113 @@ def phase_main_path(records):
         ms_per_iter=f"{dt_cb / cb_iters * 1e3:.4f}")
 
 
+def convdiff(gen):
+    """The nonsymmetric convection-diffusion tridiag(-1.4, 2.2, -0.6) at
+    ex23's n and a float64 right-hand side drawn from ``gen``."""
+    import torch
+    from repro_torch.core.krylov import convection_diffusion
+    b = torch.randn(N_EX23, generator=gen, device=gen.device,
+                    dtype=torch.float64)
+    return convection_diffusion(N_EX23, device=gen.device), b
+
+
+def phase_bicgstab(records):
+    """p-BiCGStab on one device: the forced 5000-iterate solve with the
+    launch counts set to 0 just before it and read just after it, then
+    the tol solve, classical BiCGStab and a callable M."""
+    import torch
+    from repro_torch.core.krylov import SolverOptions, bicgstab, pipebicgstab
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    A, b = convdiff(torch.Generator(device=dev).manual_seed(3))
+    bnorm = float(torch.linalg.norm(b))
+
+    def opts(**kw):
+        return SolverOptions(**dict(dict(M="jacobi", engine="fused",
+                                         tol=0.0), **kw))
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipebicgstab(A, b, options=opts(maxiter=MAXITER))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    records["pipebicgstab_fused"]["launches"] = counts["pipebicgstab_fused"]
+    check(counts["pipebicgstab_fused"] == MAXITER,
+          f"pipebicgstab_fused ran {counts['pipebicgstab_fused']} times")
+    check(counts["spmv_dia"] == 0, f"the init reached the SpMV: {counts}")
+    check(sum(counts.values()) == MAXITER, f"other kernels ran: {counts}")
+    hist = res.res_history
+    check(tuple(hist.shape) == (MAXITER,), f"history {tuple(hist.shape)}")
+    check(bool(torch.isfinite(hist).all())
+          and bool(torch.isfinite(res.x).all())
+          and bool(torch.isfinite(res.detect_history).all()),
+          "non-finite p-BiCGStab solve")
+    true_res = float(torch.linalg.norm(b - A.matvec(res.x))) / bnorm
+    check(float(hist[-1]) / bnorm < BICG_REC_MAX,
+          f"forced recurrence residual {float(hist[-1]) / bnorm}")
+    check(true_res < BICG_DRIFT_MAX, f"forced x's true residual {true_res}")
+    say("bicgstab", solve="pipebicgstab fused jacobi", n=N_EX23,
+        maxiter=MAXITER, seconds=f"{dt:.3f}", true_rel_res=f"{true_res:.3e}",
+        ms_per_iter=f"{dt / MAXITER * 1e3:.4f}",
+        kernel_ms=f"{records['pipebicgstab_fused']['ms']:.4f}",
+        res0=f"{float(hist[0]):.6e}", res_min=f"{float(hist.min()):.6e}",
+        res_last=f"{float(hist[-1]):.6e}",
+        max_abs_checksum=f"{float(res.detect_history.abs().max()):.3e}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    naive = pipebicgstab(A, b, options=opts(maxiter=BICG_CHECK,
+                                            engine="naive"))
+    gap = hist_close(naive.res_history, hist[:BICG_CHECK])
+    say("bicgstab", check="fused vs naive history", iters=BICG_CHECK,
+        max_rel_gap=f"{gap:.3e}")
+    pinned = pipebicgstab(A, b, options=opts(maxiter=MAXITER, rr=BICG_RR))
+    pinned_true = float(torch.linalg.norm(b - A.matvec(pinned.x))) / bnorm
+    check(pinned_true < 1e-12,
+          f"forced x with rr={BICG_RR}: true residual {pinned_true}")
+    say("bicgstab", check=f"forced x pinned by rr={BICG_RR}",
+        maxiter=MAXITER, true_rel_res=f"{pinned_true:.3e}",
+        rec_rel_res=f"{float(pinned.res_norm) / bnorm:.3e}")
+
+    tol_f = pipebicgstab(A, b, options=opts(maxiter=BICG_TOL_ITERS,
+                                            tol=BICG_TOL))
+    tol_n = pipebicgstab(A, b, options=opts(maxiter=BICG_TOL_ITERS,
+                                            tol=BICG_TOL, engine="naive"))
+    it_f, it_n = int(tol_f.iters), int(tol_n.iters)
+    check(it_f == it_n < BICG_TOL_ITERS, f"tol iters {it_f} vs {it_n}")
+    check(float(tol_f.res_norm) <= BICG_TOL * bnorm * 1.01,
+          f"tol solve stopped at {float(tol_f.res_norm)}")
+    tol_true = float(torch.linalg.norm(b - A.matvec(tol_f.x))) / bnorm
+    check(tol_true <= 10 * BICG_TOL, f"tol solve's true residual {tol_true}")
+    classic = bicgstab(A, b, options=opts(maxiter=BICG_TOL_ITERS,
+                                          tol=BICG_TOL))
+    check(int(classic.iters) < BICG_TOL_ITERS
+          and float(classic.res_norm) <= BICG_TOL * bnorm * 1.01,
+          f"classical bicgstab: {int(classic.iters)} iters, "
+          f"{float(classic.res_norm)}")
+    say("bicgstab", check=f"tol={BICG_TOL}", fused_iters=it_f,
+        true_rel_res=f"{tol_true:.3e}",
+        naive_iters=it_n, bicgstab_iters=int(classic.iters),
+        res_norm=f"{float(tol_f.res_norm):.6e}",
+        bicgstab_res_norm=f"{float(classic.res_norm):.6e}")
+
+    invd = 1.0 / A.diagonal()
+    M = lambda z: invd * z  # noqa: E731  an opaque linear M
+    before = ops.launch_counts()
+    cb = pipebicgstab(A, b, options=opts(maxiter=BICG_CHECK, M=M))
+    after = ops.launch_counts()
+    d = {k: after[k] - before[k] for k in after}
+    check(d["spmv_dia"] == 3 + 2 * BICG_CHECK and
+          d["pipebicgstab_fused"] == 0, f"callable-M launches {d}")
+    cbn = pipebicgstab(A, b, options=opts(maxiter=BICG_CHECK, M=M,
+                                          engine="naive"))
+    gap = hist_close(cbn.res_history, cb.res_history)
+    say("bicgstab", check="callable M through the engine's SpMV vs naive",
+        launches=json.dumps(d, separators=(",", ":")),
+        max_rel_gap=f"{gap:.3e}")
+
+
 def wall(per_rank, i: int) -> float:
     """Wall seconds of case i: the slowest rank's."""
     return max(outcomes[i]["seconds"] for outcomes in per_rank)
@@ -629,8 +943,18 @@ def phase_ranks(records):
     A = tridiagonal_laplacian(N_EX23, device="cpu")
     b = torch.randn(N_EX23, generator=cpu, dtype=torch.float64)
     B = torch.randn((4, N_EX23), generator=cpu, dtype=torch.float64)
+    A_cd, b_cd = convdiff(cpu)
     sharded = dict(engine="sharded_fused")
     it = CHECK_ITERS
+    bicg = {
+        "bicg": ("pipebicgstab", b_cd,
+                 dict(sharded, maxiter=BICG_RANK_ITERS, M="jacobi"), None),
+        "bicg tol": ("pipebicgstab", b_cd,
+                     dict(sharded, maxiter=BICG_TOL_ITERS, tol=BICG_TOL,
+                          M="jacobi"), None),
+        "bicg inline": ("pipebicgstab", b_cd,
+                        dict(maxiter=BICG_INLINE_ITERS), None),
+    }
     cases = {
         "main": ("pipecg", b, dict(sharded, maxiter=MAXITER), None),
         "quiet": ("pipecg", b, dict(sharded, maxiter=it), None),
@@ -641,10 +965,11 @@ def phase_ranks(records):
         "multi": ("pipecg_multi", B, dict(sharded, maxiter=it), None),
         "cg inline": ("cg", b, dict(maxiter=it), None),
         "pipecg inline": ("pipecg", b, dict(maxiter=it), None),
+        **bicg,
     }
     names = list(cases)
-    spec = [dict(solver=sv, A=A, b=rhs, kw=kw, noise=nz)
-            for sv, rhs, kw, nz in cases.values()]
+    spec = [dict(solver=sv, A=A_cd if name in bicg else A, b=rhs, kw=kw,
+                 noise=nz) for name, (sv, rhs, kw, nz) in cases.items()]
     backend = ranks.backend_for(RANKS, DEVICE)
     t0 = time.perf_counter()
     out = ranks.run(ranks.solve_cases, RANKS, spec, DEVICE, device=DEVICE)
@@ -654,9 +979,12 @@ def phase_ranks(records):
     few = {P: ranks.run(ranks.solve_cases, P, spec[1:2], DEVICE,
                         device=DEVICE) for P in (1, 2)}
 
-    # the main path's launches: the 5000-iterate solve, summed over ranks
-    for name in ("pipecg_spmv_halo", "fused_dots"):
-        records[name]["launches"] = sum(o[0]["launches"][name] for o in out)
+    # the main paths' launches: the 5000-iterate PIPECG solve and the
+    # p-BiCGStab solve, each summed over ranks
+    ib = names.index("bicg")
+    for name, i in (("pipecg_spmv_halo", 0), ("fused_dots", 0),
+                    ("pipebicgstab_halo", ib)):
+        records[name]["launches"] = sum(o[i]["launches"][name] for o in out)
         check(records[name]["launches"] > 0,
               f"{name} never launched on the rank path")
     for i, name in enumerate(names):
@@ -733,6 +1061,8 @@ def phase_ranks(records):
             ms_per_iter=f"{wall(per_rank, 0) / it * 1e3:.4f}",
             host_us_per_iter_rank0=seg)
 
+    bicg_ranks(out, names, records, A_cd, b_cd)
+
     qi, ni = names.index("quiet"), names.index("noisy")
     for rank, outcomes in enumerate(out):
         q, nz = outcomes[qi], outcomes[ni]
@@ -754,10 +1084,86 @@ def phase_ranks(records):
         asymptotic_speedup_P4=f"{speedup:.4f}")
 
 
+def bicg_ranks(out, names, records, A_cd, b_cd):
+    """The p-BiCGStab rank cases against their one-device counterparts."""
+    import torch
+    from repro_torch.core.krylov import SolverOptions, pipebicgstab
+    ib, it_, il = (names.index(k) for k in ("bicg", "bicg tol",
+                                            "bicg inline"))
+    check(records["pipebicgstab_halo"]["launches"]
+          == RANKS * BICG_RANK_ITERS,
+          f"pipebicgstab_halo: {records['pipebicgstab_halo']['launches']}")
+    for rank, outcomes in enumerate(out):
+        for i in (ib, it_):
+            check(outcomes[i]["all_reduces"] == 1,
+                  f"rank {rank}: blocking all-reduces in the sharded body")
+            check(outcomes[i]["launches"]["pipebicgstab_fused"] == 0,
+                  f"rank {rank}: the one-device p-BiCGStab sweep ran")
+        check(outcomes[il]["all_reduces"] == BICG_INLINE_ITERS + 2,
+              f"rank {rank}: inline p-BiCGStab issued "
+              f"{outcomes[il]['all_reduces']} all-reduces")
+    from repro_torch.core.krylov import convection_diffusion
+    dev = torch.device(DEVICE)
+    Ad, bd = convection_diffusion(N_EX23, device=dev), b_cd.to(dev)
+
+    def one(**kw):
+        return pipebicgstab(Ad, bd, options=SolverOptions(**kw))
+
+    ref = one(engine="fused", M="jacobi", maxiter=BICG_RANK_ITERS)
+    got = out[0][ib]
+    h = torch.from_numpy(got["res_history"])
+    gap = hist_close(ref.res_history[:BICG_CHECK], h[:BICG_CHECK])
+    check(bool(torch.isfinite(h).all()), "non-finite rank history")
+    xs = torch.from_numpy(got["x"]).to(dev)
+    check(bool(torch.isfinite(xs).all()), "non-finite rank x")
+    # past convergence forced iterates drift from their recurrence (H8,
+    # BICG_DRIFT_MAX), so x is compared on the tol solve below
+    bn = float(torch.linalg.norm(bd))
+    true_rank = float(torch.linalg.norm(bd - Ad.matvec(xs))) / bn
+    true_one = float(torch.linalg.norm(bd - Ad.matvec(ref.x))) / bn
+    check(float(h[-1]) / bn < BICG_REC_MAX,
+          f"rank recurrence residual {float(h[-1]) / bn}")
+    check(max(true_rank, true_one) < BICG_DRIFT_MAX,
+          f"forced x's true residuals {true_rank}, {true_one}")
+    seg = {k: np.mean([o[ib]["segments"][k] for o in out]) * 1e6
+           for k in got["segments"]}
+    say("ranks", solve="pipebicgstab sharded_fused jacobi", n=N_EX23,
+        ranks=RANKS, maxiter=BICG_RANK_ITERS,
+        seconds=f"{wall(out, ib):.3f}",
+        ms_per_iter=f"{wall(out, ib) / BICG_RANK_ITERS * 1e3:.4f}",
+        launches_summed=records["pipebicgstab_halo"]["launches"],
+        max_rel_gap_first_20=f"{gap:.3e}",
+        true_rel_res_ranks=f"{true_rank:.3e}",
+        true_rel_res_one_device=f"{true_one:.3e}",
+        order="issue(i)<halo(i+1)<wait(i)<launch(i+1) on every rank")
+    say("ranks", bicg_host_us_per_iter=" ".join(f"{k}={v:.1f}"
+                                                for k, v in seg.items()))
+    tol_one = one(engine="fused", M="jacobi", maxiter=BICG_TOL_ITERS,
+                  tol=BICG_TOL)
+    check(int(out[0][it_]["iters"]) == int(tol_one.iters) < BICG_TOL_ITERS,
+          f"tol iters {int(out[0][it_]['iters'])} vs {int(tol_one.iters)}")
+    xt = torch.from_numpy(out[0][it_]["x"])
+    x_gap = float((xt - tol_one.x.cpu()).abs().max()
+                  / tol_one.x.cpu().abs().max())
+    check(x_gap <= 1e-8, f"gathered p-BiCGStab x off by {x_gap}")
+    inline = one(maxiter=BICG_INLINE_ITERS)
+    gap_i = hist_close(inline.res_history[:BICG_CHECK],
+                       torch.from_numpy(out[0][il]["res_history"])
+                       [:BICG_CHECK])
+    say("ranks", check="p-BiCGStab tol and inline vs one device",
+        tol_iters=int(tol_one.iters), tol_x_rel_gap=f"{x_gap:.3e}",
+        inline_iters=BICG_INLINE_ITERS,
+        inline_max_rel_gap=f"{gap_i:.3e}",
+        inline_all_reduces_per_rank=out[0][il]["all_reduces"],
+        inline_ms_per_iter=f"{wall(out, il) / BICG_INLINE_ITERS * 1e3:.4f}")
+
+
 def phase_model():
     import torch
-    from repro_torch.core.perfmodel import (Exponential, LogNormal, Uniform,
+    from repro_torch.core.perfmodel import (SOLVER_SYNC_COUNTS, Exponential,
+                                            LogNormal, Uniform,
                                             asymptotic_speedup, harmonic,
+                                            s_sync_ceiling, s_sync_speedup,
                                             simulate)
     for P in (2, 4, 64, 8192):
         u = asymptotic_speedup(Uniform(0.0, 1.0), P)
@@ -784,6 +1190,19 @@ def phase_model():
         draws=256 * K * P, seconds=f"{dt:.3f}",
         t_sync_per_step=f"{step:.4f}", H_P=f"{harmonic(P):.4f}",
         speedup_of_means=f"{sp:.4f}")
+    # the s-sync model: BiCGStab's four synchronizations against one
+    check(s_sync_ceiling(2) == 2.0 and s_sync_ceiling(4) == 4.0, "ceilings")
+    check(SOLVER_SYNC_COUNTS["bicgstab"] == 4, "BiCGStab sync count")
+    lat = (0.0, 0.25, 0.5, 1.0)
+    sp4 = [s_sync_speedup(Exponential(1.0), P=4, s=4, red_latency=R)
+           for R in lat]
+    check(all(a < b for a, b in zip(sp4, sp4[1:])), f"s=4 speedups {sp4}")
+    check(sp4[-1] > 2.0, f"s=4 speedup at R=1: {sp4[-1]}")
+    far = s_sync_speedup(Exponential(1.0), P=4, s=4, red_latency=1e6)
+    check(abs(far - s_sync_ceiling(4)) < 1e-3, f"R -> inf: {far}")
+    say("model", s_sync="Exponential(1) P=4 s=4",
+        speedup_by_R=" ".join(f"{R}:{v:.4f}" for R, v in zip(lat, sp4)),
+        R_1e6=f"{far:.6f}", ceiling=s_sync_ceiling(4))
 
 
 def main() -> int:
@@ -797,10 +1216,12 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     phase_main_path(records)
+    phase_bicgstab(records)
     phase_ranks(records)
     phase_model()
     order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
-             "pipecg_fused", "fused_dots")
+             "pipecg_fused", "fused_dots", "pipebicgstab_fused",
+             "pipebicgstab_halo")
     print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

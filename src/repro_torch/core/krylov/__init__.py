@@ -1,10 +1,15 @@
-"""The paper's solvers: classical + pipelined CG/CR on one device or on
-the ranks of a process group (``distributed_solve``)."""
+"""The paper's solvers: classical + pipelined CG/CR and BiCGStab on one
+device or on the ranks of a process group (``distributed_solve``)."""
 from repro_torch.core.krylov.abft import DetectionReport  # noqa: F401
 from repro_torch.core.krylov.base import (  # noqa: F401
     SolveResult,
     local_dot,
     make_allreduce_dot,
+)
+from repro_torch.core.krylov.bicgstab import (  # noqa: F401
+    bicgstab,
+    pbicgstab_scalars,
+    pipebicgstab,
 )
 from repro_torch.core.krylov.cg import (  # noqa: F401
     cg,
@@ -18,6 +23,7 @@ from repro_torch.core.krylov.distributed import (  # noqa: F401
     distributed_solve,
     halo_exchange,
     halo_exchange_cols,
+    sharded_pipebicgstab_solve,
     sharded_pipecg_solve,
 )
 from repro_torch.core.krylov.engine import (  # noqa: F401

@@ -15,7 +15,11 @@ pipecg_spmv_halo) that emits a PARTIAL (k, 6) row, and the all-reduce that
 finishes it is split-phase (distributed/overlap.py): issued at the end of
 iteration i and waited for in iteration i+1 after that iteration's halo
 exchange, before the kernel that needs alpha and beta.  That window is the
-MPI_Iallreduce/MPI_Wait overlap the paper is about.
+MPI_Iallreduce/MPI_Wait overlap the paper is about.  ``pipebicgstab`` runs
+the same way on its own sweep (kernels/pipebicgstab_fused.py::
+pipebicgstab_halo), whose one (7, 6) payload hides BiCGStab's four
+synchronizations; on the inline path it finishes its Gram with one
+all-reduce per iteration.
 
 Where the JAX package takes a mesh, this one takes a process ``group``
 (None: the default group).  Each rank slices its rows of the global ``A``
@@ -284,6 +288,161 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
                        res_history=hist[:, 0], detect_history=chk_hist[:, 0])
 
 
+# ---------------------------------------------------------------------------
+# Sharded pipelined BiCGStab: 3 strip exchanges + ONE (7, 6) all-reduce
+# ---------------------------------------------------------------------------
+
+def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
+                               b_local, *, group=None, M=None,
+                               maxiter: int = 100, tol: float = 0.0,
+                               noise=None, precision=None, recorder=None
+                               ) -> SolveResult:
+    """Per-rank pipelined BiCGStab body of the ShardedFusedEngine.
+
+    Each iteration is one halo sweep (``kops.pipebicgstab_halo_step``) plus
+    one all-reduce of its PARTIAL (7, 6) payload: the Gram matrix of
+    ``[r, w, t, a, c, r_hat]`` and the ABFT checksum partial
+    ``1^T t' - c^T w'`` in row 6.  The reduction is split-phase, in the
+    order of :func:`sharded_pipecg_solve`:
+
+    1. the strip exchanges of w, t and c (the carried vectors only);
+    2. the wait for the payload issued at the end of the last iteration;
+    3. the alpha/beta/omega recurrence on it
+       (core/krylov/bicgstab.py::pbicgstab_scalars), which hides all four
+       classical synchronizations;
+    4. the kernel;
+    5. ``noise`` (if any), then the issue of this iteration's payload.
+
+    Single right-hand side (``b_local`` (n_local,)).  ``M`` is None or
+    "jacobi": right preconditioning folded into the local bands as column
+    scaling, with one exchange of diag^-1 per solve; residuals are TRUE
+    residuals of ``A x = b`` and x is unscaled locally at the end.  The
+    history is rolled into the local solver's alignment.  A bf16/fp8
+    ``precision`` stores r, w, t, pa, a, c, r_hat and the operator
+    extension narrow; x, the payload, the column sums and the recurrence
+    stay at b's dtype.  The int8 wire is not ported yet and raises.
+    """
+    from repro_torch.core.krylov.bicgstab import _eps, pbicgstab_scalars
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.checksum import dia_column_checksum
+
+    policy = as_policy(precision)
+    if policy.wire != "fp32" or policy.wire_gram != "fp32":
+        raise NotImplementedError(
+            "the int8 halo/Gram wire comes with the mixed-precision wire "
+            "slice (ROADMAP.md queue 1, item 10)")
+    if b_local.dim() != 1:
+        raise ValueError(
+            "the sharded pipebicgstab path is single-RHS; batch over "
+            "solves instead of RHS columns")
+    rank, _ = comm.rank_and_size(group)
+    halo = max(abs(int(o)) for o in offsets)
+    n_local = b_local.shape[0]
+    dt = b_local.dtype
+    if n_local < 2 * halo:
+        raise ValueError(
+            f"sharded_fused engine: local shard of {n_local} rows is "
+            f"narrower than the 2*halo={2 * halo} stencil reach")
+    if isinstance(M, str) and M == "jacobi":
+        invd = (1.0 / bands_local[list(offsets).index(0)]).to(dt)
+        il, ir = halo_exchange_cols(invd, halo, group)
+        invd_ext = torch.cat([il, invd, ir])
+        # A_hat[i, i+off] = A[i, i+off] * invd[i+off] (column scaling,
+        # consistent across rank boundaries through the exchanged rows)
+        bands_local = torch.stack([
+            bands_local[k] * invd_ext[halo + off:halo + off + n_local]
+            for k, off in enumerate(offsets)])
+        unscale = invd
+    elif M is None:
+        unscale = None
+    else:
+        raise ValueError(
+            "sharded pipebicgstab preconditions by folding Jacobi into "
+            f"the bands: M must be None or 'jacobi', got {M!r}")
+
+    # loop-invariant operator extension: one exchange per solve
+    bl, br = halo_exchange_cols(bands_local, halo, group)
+    bands_ext = torch.cat([bl, bands_local, br], dim=-1)
+    # this rank's slice of the GLOBAL c = A_hat^T 1, after the Jacobi
+    # fold and before any demotion
+    csum = dia_column_checksum(offsets, bands_ext, halo=halo).to(dt)
+    sdt = policy.storage_dtype
+    sto = dt if sdt is None else sdt
+    bands_s = bands_ext.to(sto).contiguous()
+
+    x = torch.zeros_like(b_local)
+    r = b_local
+    w = dia_matvec_local(offsets, bands_local, r, group)
+    t = dia_matvec_local(offsets, bands_local, w, group)
+    zero = torch.zeros_like(b_local)
+    V0 = torch.stack([r, w, t, zero, zero, r])
+    chk0 = torch.zeros((1, 6), dtype=dt, device=b_local.device)
+    chk0[0, 0] = torch.sum(t) - torch.sum(csum * w)
+    G_loc = torch.cat([V0 @ V0.T, chk0])   # this rank's PARTIAL payload
+    r, w, t, zero = (v.to(sto) for v in (r, w, t, zero))
+    r_hat, pa, a, c = r, zero, zero, zero
+    tol2 = torch.as_tensor(tol, dtype=dt, device=b_local.device) ** 2 \
+        * comm.all_reduce(torch.sum(b_local * b_local), group)
+
+    reducer = SplitPhaseReduce(group, recorder)
+    pending = reducer.issue(G_loc, iteration=-1)
+    one = torch.ones((), dtype=dt, device=b_local.device)
+    rho_prev = alpha_prev = omega_prev = one
+    done = torch.zeros((), dtype=torch.bool, device=b_local.device)
+    iters = torch.zeros((), dtype=torch.int32, device=b_local.device)
+    eps = _eps(dt)
+    hist, chk_hist = [], []
+    for i in range(maxiter):
+        # 1. strips for THIS iteration's sweep: carried vectors only
+        wl, wr = halo_exchange_cols(w, 2 * halo, group)
+        tl, tr = halo_exchange_cols(t, 2 * halo, group)
+        cl, cr = halo_exchange_cols(c, 2 * halo, group)
+        if recorder is not None:
+            recorder("halo", i)
+        # 2. finish the payload issued LAST iteration; its only consumers
+        # are the scalar recurrences below
+        G = pending.wait()
+        rr2, rho, alpha, beta, omega = pbicgstab_scalars(
+            G, rho_prev, alpha_prev, omega_prev, i == 0, eps)
+        x2, r2, w2, t2, pa2, a2, c2, G_new = kops.pipebicgstab_halo_step(
+            offsets, bands_s, csum, x, r, w, t, pa, a, c, r_hat,
+            wl, wr, tl, tr, cl, cr, alpha, beta, omega)
+        if recorder is not None:
+            recorder("launch", i)
+        if noise is not None:
+            noise(rank)   # the stall delays this rank's contribution
+
+        done = done | (rr2 <= tol2)
+        if not policy.is_default:
+            # low-precision breakdown guard: freeze at the last good
+            # iterate instead of carrying NaN
+            done = done | ~(torch.isfinite(rr2) & torch.isfinite(alpha)
+                            & torch.isfinite(omega))
+        # freeze AT the iterate whose residual met the tolerance, as the
+        # local pipebicgstab does
+        x, r, w, t, pa, a, c, G_loc, rho_prev, alpha_prev, omega_prev = (
+            torch.where(done, ov, nv) for nv, ov in
+            ((x2, x), (r2, r), (w2, w), (t2, t), (pa2, pa), (a2, a),
+             (c2, c), (G_new, G_loc), (rho, rho_prev),
+             (alpha, alpha_prev), (omega, omega_prev)))
+        iters = iters + (~done).to(torch.int32)
+        pending = reducer.issue(G_loc, iteration=i)
+        hist.append(torch.sqrt(torch.clamp(rr2, min=0.0)))
+        chk_hist.append(G[6, 0])
+
+    G_fin = pending.wait()
+    res = torch.sqrt(torch.clamp(G_fin[0, 0], min=0.0))
+    if maxiter:
+        # roll the shifted history into hist[i] = ||r_{i+1}||
+        hist = torch.stack(hist[1:] + [res])
+        chk_hist = torch.stack(chk_hist[1:] + [G_fin[6, 0]])
+    else:
+        hist = chk_hist = torch.zeros((0,), dtype=dt, device=b_local.device)
+    x_out = x if unscale is None else x * unscale
+    return SolveResult(x=x_out, iters=iters, res_norm=res,
+                       res_history=hist, detect_history=chk_hist)
+
+
 def _rows(n: int, group) -> slice:
     """This rank's contiguous block of the n rows (even split)."""
     rank, world = comm.rank_and_size(group)
@@ -306,7 +465,7 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
     if family is None:
         raise ValueError(
             "engine='sharded_fused' supports pipecg / pipecg_multi / "
-            f"pipecr; got solver {name!r}")
+            f"pipecr / pipebicgstab; got solver {name!r}")
     fmt = "bsr" if getattr(A, "format", None) == "bsr" else "dia"
     body = eng.body(family, fmt)   # raises for the bodies not ported yet
     if not isinstance(A, DiaMatrix):
@@ -316,6 +475,22 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
     M = solver_kw.pop("M", None)
     maxiter = solver_kw.pop("maxiter", 100)
     tol = solver_kw.pop("tol", 0.0)
+    sl = _rows(A.n, group)
+    if family == "pipebicgstab":
+        precision = solver_kw.pop("precision", None)
+        if {"x0", "carried", "with_state"} & set(solver_kw):
+            raise ValueError(
+                "x0= / carried= / with_state= (elastic warm start) are "
+                "implemented for the pipecg/pipecr body only; the "
+                "'pipebicgstab' path cannot resume mid-recurrence")
+        if solver_kw:
+            raise TypeError("unsupported kwargs for the sharded_fused "
+                            f"path: {sorted(solver_kw)}")
+        res = body(A.offsets, A.bands[:, sl].contiguous(),
+                   b[..., sl].contiguous(), group=group, M=M,
+                   maxiter=maxiter, tol=tol, noise=noise,
+                   precision=precision, recorder=recorder)
+        return _gather_x(res, group)
     if int(solver_kw.pop("l", 1)) != 1:
         raise NotImplementedError(
             "pipeline depth l > 1 needs the depth-l body (ROADMAP.md "
@@ -326,7 +501,6 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
     if solver_kw:
         raise TypeError("unsupported kwargs for the sharded_fused path: "
                         f"{sorted(solver_kw)}")
-    sl = _rows(A.n, group)
     res = body(A.offsets, A.bands[:, sl].contiguous(),
                b[..., sl].contiguous(), group=group, ip=_SHARDED_IP[name],
                M=M, maxiter=maxiter, tol=tol, noise=noise,
@@ -338,16 +512,17 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
                       group=None, *, use_kernel: bool = False, noise=None,
                       engine=None, options=None, recorder=None,
                       **solver_kw) -> SolveResult:
-    """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi) with the
-    rows of ``A`` and ``b`` split over the ranks of ``group``.
+    """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi / bicgstab /
+    pipebicgstab) with the rows of ``A`` and ``b`` split over the ranks of
+    ``group``.
 
     Every rank of the group calls it with the same global ``A`` and ``b``
     and gets the same result, ``x`` global.  ``engine=None`` keeps the
     historical per-op iteration (any solver taking ``dot=``);
     ``"sharded_fused"`` (or a ShardedFusedEngine) runs pipecg /
-    pipecg_multi / pipecr as one halo sweep per rank per iteration with a
-    split-phase all-reduce (:func:`sharded_pipecg_solve`), whose order
-    ``recorder`` logs.  ``options`` (a SolverOptions) bundles engine,
+    pipecg_multi / pipecr / pipebicgstab as one halo sweep per rank per
+    iteration with a split-phase all-reduce (:func:`sharded_pipecg_solve`,
+    :func:`sharded_pipebicgstab_solve`), whose order ``recorder`` logs.  ``options`` (a SolverOptions) bundles engine,
     maxiter/tol, M, depth, noise and precision; it cannot be mixed with
     the loose spellings.  ``precision`` needs the sharded engine.  A 2-D
     process grid (``group`` given as a pair) is not ported yet.
@@ -428,6 +603,11 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
     opts = SolverOptions(**{("depth" if k == "l" else k): solver_kw.pop(k)
                             for k in ("maxiter", "tol", "M", "l")
                             if k in solver_kw})
+    if getattr(solver, "__name__", "") == "pipebicgstab":
+        # keep the one-reduction-per-iteration structure on the inline
+        # path too: finish the locally computed (6, 6) Gram with a single
+        # all-reduce instead of 21 per-entry dots
+        solver_kw["gram_reduce"] = lambda G: comm.all_reduce(G, group)
     res = solver(mv, b_local, dot=make_allreduce_dot(group), options=opts,
                  **solver_kw)
     return _gather_x(res, group)

@@ -229,13 +229,17 @@ class FusedEngine(Engine):
             return super().prepare(A, M, dtype)
         # dtype follows the OPERATOR: under a storage-demoting policy the
         # operator, diag^-1 and c ride at the storage dtype the kernel
-        # streams, while x stays at the accumulator dtype
+        # streams, while x stays at the accumulator dtype.  diag^-1 and c
+        # are computed at the accumulator dtype and then cast, as the
+        # sharded body does: torch has no float8 arithmetic
+        wide = DiaMatrix(offsets=A.offsets, bands=A.bands.to(dtype))
         if M is None:
             inv_d = torch.ones((A.n,), dtype=A.dtype, device=A.device)
         else:
-            inv_d = (1.0 / A.diagonal()).to(A.dtype).contiguous()
-        return IterOperands(A=A, Mf=_resolve_M(A, M), inv_diag=inv_d,
-                            csum=A.column_checksum().contiguous())
+            inv_d = (1.0 / wide.diagonal()).to(A.dtype).contiguous()
+        return IterOperands(A=A, Mf=_resolve_M(wide, M), inv_diag=inv_d,
+                            csum=wide.column_checksum().to(A.dtype)
+                            .contiguous())
 
     def pipecg_init(self, A, b, x0, M, ip):
         _reject_bsr(A)
@@ -291,23 +295,23 @@ class ShardedFusedEngine(Engine):
     def _reject(self, *_args, **_kw):
         raise ValueError(
             "engine='sharded_fused' computes per-rank partial reductions "
-            "and must run on a process group: use "
-            "distributed_solve(pipecg | pipecg_multi | pipecr, A, b, group, "
+            "and must run on a process group: use distributed_solve("
+            "pipecg | pipecg_multi | pipecr | pipebicgstab, A, b, group, "
             "engine='sharded_fused') instead of the local solver entry")
 
     spmv = dots = prepare = pipecg_init = pipecg_iter = _reject
 
     # table-driven dispatch: (solver family, operator format) -> the name
-    # of the per-rank body in core/krylov/distributed.py.  Only the 1-D
-    # DIA PIPECG/PIPECR body is ported; the others raise with their
-    # ROADMAP.md items.
+    # of the per-rank body in core/krylov/distributed.py.  The 1-D DIA
+    # PIPECG/PIPECR and p-BiCGStab bodies are ported; the others raise
+    # with their ROADMAP.md items.
     _BODIES = {
         ("pipecg", "dia"): "sharded_pipecg_solve",
+        ("pipebicgstab", "dia"): "sharded_pipebicgstab_solve",
     }
     _LATER = {
         ("pipecg", "bsr"): "queue 1, item 9",
         ("pipecg_l", "dia"): "queue 1, item 8",
-        ("pipebicgstab", "dia"): "queue 1, item 7",
     }
 
     def body(self, family: str, fmt: str = "dia"):

@@ -6,6 +6,7 @@ Usage::
     >>> asymptotic_speedup(Exponential(1.0), P=4)     # H_4 = 25/12 > 2
     >>> from repro_torch.core.perfmodel import simulate
     >>> simulate(Exponential(1.0), P=8, K=1000).speedup_of_means  # on the card
+    >>> s_sync_speedup(Exponential(1.0), P=4, s=4, red_latency=8.0)  # > 2
 """
 from repro_torch.core.perfmodel.distributions import (  # noqa: F401
     Deterministic,
@@ -36,4 +37,10 @@ from repro_torch.core.perfmodel.speedup import (  # noqa: F401
     min_procs_exceeding,
     speedup_table,
     uniform_speedup,
+)
+from repro_torch.core.perfmodel.sync import (  # noqa: F401
+    SOLVER_SYNC_COUNTS,
+    s_sync_ceiling,
+    s_sync_speedup,
+    s_sync_table,
 )

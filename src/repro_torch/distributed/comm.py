@@ -39,10 +39,18 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum of ``t`` over the group (blocking); returns a new tensor."""
+    """Sum of ``t`` over the group (blocking); returns a new tensor.
+
+    ``all_reduce.calls`` counts the calls, so a test can read how many
+    blocking reductions a solve issued.
+    """
+    all_reduce.calls += 1
     buf = to_wire(t, host_staged(t.device, group))
     dist.all_reduce(buf, group=group)
     return buf.to(t.device)
+
+
+all_reduce.calls = 0
 
 
 def all_gather_cols(x: torch.Tensor, group=None) -> torch.Tensor:

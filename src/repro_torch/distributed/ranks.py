@@ -97,7 +97,8 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     ``device`` here, ``kw`` (keyword arguments of ``distributed_solve``)
     and optionally ``noise``, the ``(dist, scale, seed)`` of a
     ``NoiseHook`` built on this rank.  Each outcome holds the result's
-    fields, the kernel launches and the wall seconds of the solve (ranks
+    fields, the kernel launches, the blocking all-reduces
+    (``comm.all_reduce`` calls) and the wall seconds of the solve (ranks
     start together; the card is synchronised around it) and this rank's
     injected waits; a sharded solve adds its split-phase order check and
     the mean host seconds per iteration between its events
@@ -107,6 +108,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     from repro_torch.core.krylov.distributed import distributed_solve
     from repro_torch.core.krylov.operators import DiaMatrix
     from repro_torch.core.noise import NoiseHook
+    from repro_torch.distributed import comm
     from repro_torch.distributed.overlap import OrderRecorder, split_phase_ok
     from repro_torch.kernels import ops
 
@@ -127,6 +129,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         ops.reset_launch_counts()
+        comm.all_reduce.calls = 0
         t0 = time.perf_counter()
         res = distributed_solve(solver, A, b, noise=hook, recorder=rec, **kw)
         if dev.type == "cuda":
@@ -139,6 +142,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
             res_history=_numpy(res.res_history),
             detect_history=_numpy(res.detect_history),
             launches=launches, seconds=seconds,
+            all_reduces=comm.all_reduce.calls,
             order_ok=(split_phase_ok(rec.events, res.res_history.shape[-1])
                       if rec is not None else None),
             segments=rec.segments() if rec is not None else None,

@@ -97,6 +97,18 @@ template <typename F> int with_types(int acc, int sto, F &&f) {
   }
 }
 
+// row m of right-hand side j of a carried (k, n) vector: the local rows,
+// else the (k, h2) strips to the left and right (null: zero), else zero
+template <typename T, typename S>
+__device__ __forceinline__ T vec_at(const S *v, const S *lo, const S *hi,
+                                    long long j, long long m, long long n,
+                                    int h2) {
+  if (m >= 0 && m < n) return up<T>(v[j * n + m]);
+  if (m < 0) return (lo != nullptr && m >= -h2) ? up<T>(lo[j * h2 + m + h2])
+                                                : T(0);
+  return (hi != nullptr && m < n + h2) ? up<T>(hi[j * h2 + (m - n)]) : T(0);
+}
+
 inline long long blocks_for(long long n) { return (n + kBlock - 1) / kBlock; }
 
 // ---- deterministic block reduction --------------------------------------

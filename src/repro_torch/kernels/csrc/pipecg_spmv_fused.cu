@@ -65,17 +65,6 @@ template <typename T, typename S> struct SweepArgs {
   T *partials;
 };
 
-// row m of a carried vector: local rows, else the strips, else zero
-template <typename T, typename S>
-__device__ __forceinline__ T vec_at(const S *v, const S *lo, const S *hi,
-                                    long long j, long long m, long long n,
-                                    int h2) {
-  if (m >= 0 && m < n) return up<T>(v[j * n + m]);
-  if (m < 0) return (lo != nullptr && m >= -h2) ? up<T>(lo[j * h2 + m + h2])
-                                                : T(0);
-  return (hi != nullptr && m < n + h2) ? up<T>(hi[j * h2 + (m - n)]) : T(0);
-}
-
 template <typename T, typename S, bool Ext> struct Row {
   const SweepArgs<T, S> &a;
   long long j;

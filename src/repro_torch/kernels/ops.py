@@ -13,6 +13,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.fused_dots import fused_dots as _fused_dots
+from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
+                                                    pipebicgstab_halo)
 from repro_torch.kernels.pipecg_fused import pipecg_fused
 from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
                                                    pipecg_spmv_halo)
@@ -25,6 +27,8 @@ KERNELS = {
     "pipecg_spmv_halo": pipecg_spmv_halo,
     "pipecg_fused": pipecg_fused,
     "fused_dots": _fused_dots,
+    "pipebicgstab_fused": pipebicgstab_fused,
+    "pipebicgstab_halo": pipebicgstab_halo,
 }
 
 
@@ -98,3 +102,32 @@ def pipecg_fused_step(x, r, u, w, m, n_, z, q, s, p, alpha, beta
     if squeeze:
         outs = tuple(o[0] for o in outs)
     return outs
+
+
+def pipebicgstab_fused_step(offsets: Sequence[int], bands, csum,
+                            x, r, w, t, pa, a, c, r_hat, alpha, beta, omega
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Single-sweep p-BiCGStab iteration (9 updates + 2 SpMVs + Gram).
+
+    Vectors (n,), 0-d alpha/beta/omega; returns
+    (x', r', w', t', pa', a', c', gram (7, 6)).
+    """
+    vecs = tuple(v.contiguous() for v in (x, r, w, t, pa, a, c, r_hat))
+    return pipebicgstab_fused(tuple(offsets), bands, csum, *vecs,
+                              alpha, beta, omega)
+
+
+def pipebicgstab_halo_step(offsets: Sequence[int], bands_ext, csum,
+                           x, r, w, t, pa, a, c, r_hat,
+                           w_lo, w_hi, t_lo, t_hi, c_lo, c_hi,
+                           alpha, beta, omega) -> Tuple[torch.Tensor, ...]:
+    """One rank's single-sweep p-BiCGStab iteration with neighbour strips.
+
+    Vectors (n,) local rows, strips (2h,); returns the vectors and this
+    rank's PARTIAL (7, 6) payload.
+    """
+    vecs = tuple(v.contiguous() for v in
+                 (x, r, w, t, pa, a, c, r_hat,
+                  w_lo, w_hi, t_lo, t_hi, c_lo, c_hi))
+    return pipebicgstab_halo(tuple(offsets), bands_ext, csum, *vecs,
+                             alpha, beta, omega)

@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels.checksum import dia_column_checksum
 from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
+from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
+                                                    pipebicgstab_fused_plain,
+                                                    pipebicgstab_halo,
+                                                    pipebicgstab_halo_plain)
 from repro_torch.kernels.pipecg_fused import pipecg_fused, pipecg_fused_plain
 from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
                                                    pipecg_spmv_fused_plain,
@@ -149,3 +153,100 @@ def test_fused_dots_matches_plain_on_card(cuda, dt):
         mags = (V * z).abs().sum(-1)
         tol = 1e-12 if dt == torch.float64 else 1e-5
         assert bool(((got - want).abs() <= tol * mags + 1e-30).all())
+
+
+def _gram_rel(got, want, C, csum):
+    """Largest payload gap relative to the sum of its terms' magnitudes."""
+    mags = C.abs() @ C.abs().T
+    chk = C[2].abs().sum() + (csum * C[1]).abs().sum()
+    mags = torch.cat([mags, torch.zeros_like(mags[:1])])
+    mags[6, 0] = chk
+    tiny = torch.finfo(mags.dtype).tiny
+    return float(((got - want).abs() / mags.clamp(min=tiny)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_pipebicgstab_kernel_matches_plain_on_card(cuda, acc, sto):
+    from repro_torch.core.krylov import convection_diffusion, laplacian_2d
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for A in (convection_diffusion(5000), laplacian_2d(70, 50)):
+        n = A.n
+        x = torch.randn(n, generator=g, device=cuda, dtype=acc)
+        chains = [torch.randn(n, generator=g, device=cuda,
+                              dtype=acc).to(sto) for _ in range(7)]
+        sc = [torch.rand((), generator=g, device=cuda, dtype=acc)
+              for _ in range(3)]
+        bands = A.bands.to(sto)
+        csum = dia_column_checksum(A.offsets, bands.to(acc))
+        args = (A.offsets, bands, csum, x, *chains, *sc)
+        got = pipebicgstab_fused(*args)
+        want = pipebicgstab_fused_plain(*args)
+        torch.cuda.synchronize()
+        for gv, wv in zip(got[:7], want[:7]):
+            assert torch.equal(gv, wv)
+        C = torch.stack([want[i].to(acc) for i in (1, 2, 3, 5, 6)]
+                        + [chains[6].to(acc)])
+        rel = _gram_rel(got[7], want[7], C, csum)
+        assert rel <= (1e-10 if acc == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.bfloat16)])
+def test_pipebicgstab_halo_kernel_matches_plain_on_card(cuda, acc, sto):
+    """An interior rank with random strips and a random operator
+    extension; zeroing the extension changes the payload."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    offsets = (-3, -1, 0, 2)
+    h, n = 3, 4000
+
+    def rnd(*shape, dt=acc):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=torch.float64).to(dt)
+
+    bands = rnd(len(offsets), n + 2 * h, dt=torch.float64)
+    bands[offsets.index(0)] = bands[offsets.index(0)].abs() + 2.0
+    csum = dia_column_checksum(offsets, bands, halo=h).to(acc)
+    bands = bands.to(sto)
+    x = rnd(n)
+    chains = [rnd(n, dt=sto) for _ in range(7)]
+    strips = [rnd(2 * h, dt=sto) for _ in range(6)]
+    sc = [torch.rand((), generator=g, device=cuda, dtype=acc)
+          for _ in range(3)]
+    args = (offsets, bands, csum, x, *chains, *strips, *sc)
+    got = pipebicgstab_halo(*args)
+    want = pipebicgstab_halo_plain(*args)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got[:7], want[:7]):
+        assert torch.equal(gv, wv)
+    rel = float(((got[7] - want[7]).abs()
+                 / want[7].abs().clamp(min=1.0)).max())
+    assert rel <= (1e-10 if acc == torch.float64 else 1e-3)
+    cut = bands.clone()
+    cut[:, :h] = 0
+    cut[:, -h:] = 0
+    moved = pipebicgstab_halo(offsets, cut, *args[2:])[7]
+    assert not torch.allclose(moved, got[7])
+
+
+@pytest.mark.cuda
+def test_pipebicgstab_fused_solve_on_card_matches_naive(cuda):
+    from repro_torch.core.krylov import (SolverOptions, convection_diffusion,
+                                         pipebicgstab)
+    from repro_torch.kernels import ops
+    A = convection_diffusion(4096)
+    b = torch.randn(4096, generator=torch.Generator(device=cuda)
+                    .manual_seed(6), device=cuda, dtype=torch.float64)
+    before = ops.launch_counts()
+    fused = pipebicgstab(A, b, options=SolverOptions(
+        engine="fused", maxiter=20, M="jacobi"))
+    after = ops.launch_counts()
+    assert after["pipebicgstab_fused"] - before["pipebicgstab_fused"] == 20
+    assert after["spmv_dia"] == before["spmv_dia"]
+    naive = pipebicgstab(A, b, options=SolverOptions(
+        engine="naive", maxiter=20, M="jacobi"))
+    torch.testing.assert_close(fused.res_history, naive.res_history,
+                               rtol=1e-10, atol=0)

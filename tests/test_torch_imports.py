@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.distributed.overlap",
             "repro_torch.distributed.ranks",
             "repro_torch.kernels.fused_dots",
-            "repro_torch.kernels.pipecg_spmv_fused"} <= set(names)
+            "repro_torch.kernels.pipecg_spmv_fused",
+            "repro_torch.core.krylov.bicgstab",
+            "repro_torch.core.perfmodel.sync",
+            "repro_torch.kernels.pipebicgstab_fused"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -75,4 +78,4 @@ def test_kernel_sources_are_in_the_package():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
-        "pipecg_fused.cu", "fused_dots.cu"}
+        "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu"}

@@ -2,8 +2,9 @@
 
 On the CPU each wrapper takes its plain torch version, which is held
 against ``repro/kernels/ref.py`` on the same numpy inputs (float64, rtol
-and atol 1e-12; the halo sweep's rank slices 1e-13 against the global
-sweep, and its partial rows to 1e-12 of their terms' magnitudes), and
+and atol 1e-12; the halo sweeps' rank slices 1e-13 against the global
+sweep, and their partial rows and Gram payloads to 1e-12 of their terms'
+magnitudes), and
 ``fused_dots`` against the JAX package's Pallas kernel run in interpret
 mode.  tests/test_torch_cuda.py holds the CUDA kernels against
 the plain versions on the card.
@@ -20,6 +21,8 @@ from repro_torch import convert
 from repro_torch.core.krylov.engine import get_engine
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.checksum import dia_column_checksum
+from repro_torch.kernels.pipebicgstab_fused import (
+    pipebicgstab_fused, pipebicgstab_fused_plain, pipebicgstab_halo_plain)
 from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused_plain,
                                                    pipecg_spmv_halo_plain)
 from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
@@ -167,8 +170,8 @@ def test_build_is_lazy_and_names_sm90a():
     assert "arch=compute_90a,code=sm_90a" in build.ARCH
     assert build.library_path().parent == build.BUILD_DIR
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "fused_dots.cu", "pipecg_fused.cu", "pipecg_spmv_fused.cu",
-        "spmv_dia.cu"]
+        "fused_dots.cu", "pipebicgstab_fused.cu", "pipecg_fused.cu",
+        "pipecg_spmv_fused.cu", "spmv_dia.cu"]
 
 
 # -- the per-rank halo sweep --------------------------------------------------
@@ -341,3 +344,194 @@ def test_fused_dots_plain_matches_the_jax_kernel(m, n):
     eng = get_engine("fused").dots(torch.from_numpy(V), torch.from_numpy(z))
     assert torch.equal(eng, got)
     assert ops.launch_counts()["fused_dots"] == 0
+
+
+# -- the p-BiCGStab sweep -----------------------------------------------------
+
+def _bicg_state(n, seed):
+    rng = np.random.default_rng(seed)
+    vecs = [rng.standard_normal(n) for _ in range(8)]
+    return vecs, tuple(rng.uniform(0.2, 0.9, 3))
+
+
+def _gram_mags(offsets, bands, vecs, scalars, csum):
+    """Sum of each payload entry's terms' magnitudes (its rounding scale),
+    from the reference oracle's vectors on the same inputs."""
+    out = ref.pipebicgstab_fused_ref(offsets, jnp.asarray(bands),
+                                     *map(jnp.asarray, vecs), *scalars)
+    C = np.stack([np.asarray(out[i]) for i in (1, 2, 3, 5, 6)]
+                 + [np.asarray(vecs[7])])
+    mags = np.abs(C) @ np.abs(C).T
+    chk = np.abs(C[2]).sum() + np.abs(csum * C[1]).sum()
+    return np.concatenate([mags, [[chk] + [0.0] * 5]])
+
+
+def _scalars_t(scalars):
+    return [torch.tensor(s, dtype=torch.float64) for s in scalars]
+
+
+def test_pipebicgstab_fused_plain_matches_ref(op):
+    A, T = op
+    vecs, sc = _bicg_state(A.n, seed=20)
+    want = ref.pipebicgstab_fused_ref(A.offsets, A.bands,
+                                      *map(jnp.asarray, vecs), *sc)
+    csum = T.column_checksum()
+    got = pipebicgstab_fused_plain(T.offsets, T.bands, csum,
+                                   *map(torch.from_numpy, vecs),
+                                   *_scalars_t(sc))
+    for g, w in zip(got[:7], want[:7]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    mags = _gram_mags(A.offsets, A.bands, vecs, sc, csum.numpy())
+    assert got[7].shape == (7, 6)
+    assert np.all(np.abs(got[7].numpy() - np.asarray(want[7]))
+                  <= 1e-12 * mags)
+    # the wrapper takes the plain version on the CPU and launches nothing
+    before = ops.launch_counts()
+    again = ops.pipebicgstab_fused_step(T.offsets, T.bands, csum,
+                                        *map(torch.from_numpy, vecs),
+                                        *_scalars_t(sc))
+    for g, w in zip(again, got):
+        assert torch.equal(g, w)
+    assert ops.launch_counts() == before
+
+
+def test_pipebicgstab_bf16_storage_narrows_only_the_stores():
+    """bf16 chains and bands: loads widen, arithmetic and the payload at
+    float64, the six chain stores narrow, r_hat is only read."""
+    A = jops.convection_diffusion(200, c=0.5, shift=0.25)   # exact in bf16
+    vecs, sc = _bicg_state(A.n, seed=21)
+    bf = torch.bfloat16
+    t = torch.from_numpy
+    chains = [t(v).to(bf) for v in vecs[1:]]
+    bands_b = t(np.array(A.bands)).to(bf)
+    csum = dia_column_checksum(A.offsets, bands_b.to(torch.float64))
+    got = pipebicgstab_fused_plain(A.offsets, bands_b, csum, t(vecs[0]),
+                                   *chains, *_scalars_t(sc))
+    wide = [vecs[0]] + [c.to(torch.float64).numpy() for c in chains]
+    want = ref.pipebicgstab_fused_ref(A.offsets, A.bands,
+                                      *map(jnp.asarray, wide), *sc)
+    assert got[0].dtype == torch.float64 and got[7].dtype == torch.float64
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:7], want[1:7]):
+        assert g.dtype == bf
+        np.testing.assert_array_equal(
+            g.to(torch.float64).numpy(),
+            torch.from_numpy(np.array(w)).to(bf).to(torch.float64).numpy())
+    mags = _gram_mags(A.offsets, A.bands, wide, sc, csum.numpy())
+    assert np.all(np.abs(got[7].numpy() - np.asarray(want[7]))
+                  <= 1e-12 * mags)
+
+
+def _bicg_rank_operands(A, P, q, vecs):
+    """Rank q's halo-sweep operands cut from global vectors: the operator
+    rows [lo - h, hi + h) and the w/t/c strips [lo - 2h, lo) and
+    [hi, hi + 2h), zero beyond the matrix, as the exchanges give them."""
+    h, n = A.halo, A.n
+    lo, hi = q * n // P, (q + 1) * n // P
+    t = torch.from_numpy
+    bands = t(np.ascontiguousarray(
+        np.pad(np.asarray(A.bands), ((0, 0), (h, h)))[:, lo:hi + 2 * h]))
+    csum = dia_column_checksum(A.offsets, bands, halo=h)
+    local = [t(np.ascontiguousarray(v[lo:hi])) for v in vecs]
+    strips = []
+    for v in (vecs[2], vecs[3], vecs[6]):          # w, t, c
+        wide = np.pad(v, (2 * h, 2 * h))
+        strips += [t(np.ascontiguousarray(wide[lo:lo + 2 * h])),
+                   t(np.ascontiguousarray(wide[hi + 2 * h:hi + 4 * h]))]
+    return (bands, csum, *local, *strips), slice(lo, hi)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("name", ["convdiff", "lap2d", "random"])
+def test_pipebicgstab_halo_plain_slices_sum_to_sweep(name, P):
+    """P ranks' sweeps on slices of one state equal the one-device plain
+    sweep row for row, and their partial payloads sum to its payload (and
+    to the reference oracle's)."""
+    A = {"convdiff": jops.convection_diffusion(256),
+         "lap2d": jops.laplacian_2d(16, 16),
+         "random": _random_banded(256, (-3, -1, 0, 2), seed=22)}[name]
+    T = convert.dia_from_numpy(A.offsets, np.asarray(A.bands), device="cpu")
+    vecs, sc = _bicg_state(A.n, seed=23)
+    csum = T.column_checksum()
+    whole = pipebicgstab_fused_plain(T.offsets, T.bands, csum,
+                                     *map(torch.from_numpy, vecs),
+                                     *_scalars_t(sc))
+    want = ref.pipebicgstab_fused_ref(A.offsets, A.bands,
+                                      *map(jnp.asarray, vecs), *sc)
+    mags = _gram_mags(A.offsets, A.bands, vecs, sc, csum.numpy())
+    total = np.zeros((7, 6))
+    for q in range(P):
+        args, rows = _bicg_rank_operands(A, P, q, vecs)
+        got = pipebicgstab_halo_plain(A.offsets, *args, *_scalars_t(sc))
+        for g, w in zip(got[:7], whole[:7]):
+            np.testing.assert_allclose(g.numpy(), w.numpy()[rows],
+                                       rtol=1e-13, atol=1e-13)
+        total += got[7].numpy()
+    assert np.all(np.abs(total - whole[7].numpy()) <= 1e-12 * mags)
+    assert np.all(np.abs(total - np.asarray(want[7])) <= 1e-12 * mags)
+
+
+def test_pipebicgstab_halo_reads_the_neighbour_rows():
+    """Rank 1 of 4 needs its neighbours' operator rows and w/t/c strips:
+    zeroed or swapped, they change its rows or the summed payload."""
+    A = _random_banded(256, (-3, -1, 0, 2), seed=24)
+    T = convert.dia_from_numpy(A.offsets, np.asarray(A.bands), device="cpu")
+    vecs, sc = _bicg_state(A.n, seed=25)
+    s = _scalars_t(sc)
+    whole = pipebicgstab_fused_plain(T.offsets, T.bands, T.column_checksum(),
+                                     *map(torch.from_numpy, vecs), *s)
+    ranks = [_bicg_rank_operands(A, 4, q, vecs) for q in range(4)]
+    h = A.halo
+
+    def agrees(args1):
+        total = torch.zeros((7, 6), dtype=torch.float64)
+        same = True
+        for q, (args, rows) in enumerate(ranks):
+            got = pipebicgstab_halo_plain(A.offsets, *(args1 if q == 1
+                                                       else args), *s)
+            same &= all(torch.allclose(g, w[rows], rtol=1e-12, atol=1e-12)
+                        for g, w in zip(got[:7], whole[:7]))
+            total += got[7]
+        return same and torch.allclose(total, whole[7], rtol=1e-12,
+                                       atol=1e-10)
+
+    args = ranks[1][0]
+    assert agrees(args)
+    bands = args[0].clone()
+    bands[:, :h] = 0
+    bands[:, -h:] = 0
+    strips = list(args[10:])
+    bad = [(bands,) + args[1:]]
+    for i in range(0, 6, 2):                  # swap each lo/hi pair
+        sw = list(strips)
+        sw[i], sw[i + 1] = sw[i + 1], sw[i]
+        bad.append(args[:10] + tuple(sw))
+    for b in bad:
+        assert not agrees(b)
+
+
+def test_pipebicgstab_halo_with_no_neighbours_is_the_sweep(op):
+    """One rank (zero strips and extension) is the single-device sweep."""
+    A, T = op
+    vecs, sc = _bicg_state(A.n, seed=26)
+    s = _scalars_t(sc)
+    h = A.halo
+    csum = T.column_checksum()
+    tv = list(map(torch.from_numpy, vecs))
+    want = pipebicgstab_fused_plain(T.offsets, T.bands, csum, *tv, *s)
+    z = torch.zeros(2 * h, dtype=torch.float64)
+    got = ops.pipebicgstab_halo_step(
+        T.offsets, torch.nn.functional.pad(T.bands, (h, h)), csum, *tv,
+        z, z, z, z, z, z, *s)
+    for g, w in zip(got[:7], want[:7]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[7], want[7], rtol=1e-13, atol=1e-12)
+    assert ops.launch_counts()["pipebicgstab_halo"] == 0
+
+
+def test_pipebicgstab_wrapper_rejects_devices_without_a_kernel():
+    T = convert.dia_from_numpy((-1, 0, 1), np.ones((3, 8)), device="cpu")
+    v = torch.zeros(8, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pipebicgstab_fused(T.offsets, T.bands, T.bands[0], v, v, v, v, v, v,
+                           v, v, 0.1, 0.2, 0.3)

@@ -145,3 +145,38 @@ def test_model_defaults_to_the_card():
         return
     with pytest.raises(RuntimeError):
         tpm.simulate(tpm.Exponential(1.0), P=2, K=2, trials=2)
+
+
+# -- the s-sync model (core/perfmodel/sync.py) ----------------------------
+
+@pytest.mark.parametrize("s", [1, 2, 4])
+@pytest.mark.parametrize("R", [0.0, 0.5, 2.0, 1e6])
+def test_s_sync_speedup_matches_reference(s, R):
+    """Same seed, same numpy draws: equal to the reference's float (to
+    1e-10 where E[max] comes from quadrature, as the quadrature tests)."""
+    for dist, rel in (("exponential", 1e-13), ("uniform", 1e-13),
+                      ("lognormal", 1e-10)):
+        mk = {"exponential": lambda m: m.Exponential(1.0),
+              "uniform": lambda m: m.Uniform(0.0, 2.0),
+              "lognormal": lambda m: m.LogNormal(0.0, 0.5)}[dist]
+        want = jpm.s_sync_speedup(mk(jpm), 4, s, red_latency=R, t0=0.3,
+                                  trials=4000, seed=5)
+        got = tpm.s_sync_speedup(mk(tpm), 4, s, red_latency=R, t0=0.3,
+                                 trials=4000, seed=5, device=CPU)
+        assert got == pytest.approx(want, rel=rel)
+
+
+def test_s_sync_table_ceiling_and_counts():
+    d_j, d_t = jpm.Exponential(1.0), tpm.Exponential(1.0)
+    want = jpm.s_sync_table(d_j, 4, (1, 2, 4), red_latency=2.0)
+    got = tpm.s_sync_table(d_t, 4, (1, 2, 4), red_latency=2.0,
+                           device=CPU)
+    assert got.keys() == want.keys()
+    for s in got:
+        assert got[s] == pytest.approx(want[s], rel=1e-13)
+    assert got[1] < got[2] < got[4] and got[4] > 2.0
+    assert tpm.s_sync_ceiling(2) == jpm.s_sync_ceiling(2) == 2.0
+    assert tpm.s_sync_ceiling(4) == jpm.s_sync_ceiling(4) == 4.0
+    assert tpm.SOLVER_SYNC_COUNTS == jpm.SOLVER_SYNC_COUNTS
+    assert tpm.s_sync_speedup(d_t, 4, 4, red_latency=1e6, device=CPU) \
+        == pytest.approx(4.0, rel=1e-3)

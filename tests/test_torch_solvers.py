@@ -273,6 +273,41 @@ def test_bf16_storage_matches_reference_sweep(tri):
     assert int(got.iters) == int(want.iters)
 
 
+class _RefSweepWide(_RefSweep):
+    """``_RefSweep`` for storage dtypes JAX cannot mix with float64
+    (float8): the oracle runs on the widened operator and vectors, and the
+    r', u', p' stores narrow back, as the sweep kernel does."""
+
+    name = "ref_sweep_wide"
+
+    def pipecg_iter(self, A, M, ip, st, alpha, beta):
+        acc = st["x"].dtype
+        wide = jk.DiaMatrix(offsets=A.offsets, bands=A.bands.astype(acc))
+        vecs = dict(st, **{k: st[k].astype(acc) for k in "rup"})
+        out = super().pipecg_iter(wide, M, ip, vecs, alpha, beta)
+        narrow = {k: out[0][k].astype(st[k].dtype) for k in "rup"}
+        return (dict(out[0], **narrow),) + out[1:]
+
+
+@pytest.mark.parametrize("M", [None, "jacobi"])
+def test_fp8_storage_runs_and_matches_reference_sweep(tri, M):
+    """H7: float8 storage on one device computes c = A^T 1 (and diag^-1)
+    at the accumulator dtype, then casts; torch has no float8 arithmetic.
+    The history matches the reference driver over the same fp8 sweep."""
+    A, T, b = tri
+    want = jcg._pipecg_engine(A, jnp.asarray(b), maxiter=12, M=M,
+                              engine=_RefSweepWide(), precision="fp8")
+    got = pipecg(T, _t(b), options=SolverOptions(maxiter=12, engine="fused",
+                                                 M=M, precision="fp8"))
+    assert got.x.dtype == torch.float64
+    assert bool(torch.isfinite(got.res_history).all())
+    _hist_close(want.res_history, got.res_history)
+    assert int(got.iters) == int(want.iters)
+    bf16 = pipecg(T, _t(b), options=SolverOptions(maxiter=12, engine="fused",
+                                                  M=M, precision="bf16"))
+    assert not torch.equal(got.res_history, bf16.res_history)
+
+
 # -- errors ------------------------------------------------------------------
 
 def test_engine_errors(tri):

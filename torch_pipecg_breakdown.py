@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where one fused PIPECG iteration of the PyTorch port spends its time.
+"""Where one fused PIPECG (or p-BiCGStab) iteration of the port spends its time.
 
-    python3 torch_pipecg_breakdown.py
+    python3 torch_pipecg_breakdown.py [pipecg | pipebicgstab]
 
 Run from the root of a checkout on one NVIDIA GPU (exits with 2 without
 one).  Solves ex23 (chip_smoke.py's problem: the tridiagonal Laplacian at
 n = 2,097,152, float64) for 200 iterations with ``pipecg(engine="fused")``
-and reports
+or, given ``pipebicgstab``, the convection-diffusion problem of
+chip_smoke.py's ``[bicgstab]`` phase with ``pipebicgstab(M="jacobi",
+engine="fused")``, and reports
 
 * the host-clock time per iteration of a synchronised solve (best of 3),
   and of one solve with ``torch.profiler`` attached;
@@ -28,8 +30,9 @@ import chip_smoke as smoke
 
 ITERS = 200
 GROUPS = (
-    ("sweep kernel", ("pipecg_spmv_fused_kernel",)),
-    ("sweep reduce", ("reduce_rows_kernel",)),
+    ("sweep kernel", ("pipecg_spmv_fused_kernel",
+                      "pipebicgstab_fused_kernel")),
+    ("sweep reduce", ("reduce_rows_kernel", "finish_gram_kernel")),
     ("spmv kernel", ("spmv_dia_kernel",)),
     ("torch.where (freeze)", ("where",)),
 )
@@ -51,16 +54,28 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.krylov import SolverOptions, pipecg
+    from repro_torch.core.krylov import (SolverOptions, pipebicgstab,
+                                         pipecg)
 
+    solver = sys.argv[1] if len(sys.argv) > 1 else "pipecg"
+    if solver not in ("pipecg", "pipebicgstab"):
+        print(f"torch_pipecg_breakdown: unknown solver {solver!r}",
+              file=sys.stderr)
+        return 2
     _, card = smoke.card()
-    A, b = smoke.ex23(torch.Generator(device="cuda").manual_seed(0))
-    opts = SolverOptions(engine="fused", maxiter=ITERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if solver == "pipecg":
+        A, b = smoke.ex23(gen)
+        run, opts = pipecg, SolverOptions(engine="fused", maxiter=ITERS)
+    else:
+        A, b = smoke.convdiff(gen)
+        run, opts = pipebicgstab, SolverOptions(engine="fused", M="jacobi",
+                                                maxiter=ITERS)
 
     def solve():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipecg(A, b, options=opts)
+        run(A, b, options=opts)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -81,7 +96,7 @@ def main() -> int:
     busy_us = sum(groups.values())
     per_iter = {g: us / ITERS for g, us in sorted(groups.items())}
     result = {
-        "card": card, "n": smoke.N_EX23, "iters": ITERS,
+        "card": card, "solver": solver, "n": smoke.N_EX23, "iters": ITERS,
         "wall_ms_per_iter": wall / ITERS * 1e3,
         "wall_ms_per_iter_profiled": wall_prof / ITERS * 1e3,
         "device_us_per_iter": per_iter if busy_us else "not measured",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the one-device PIPECG sweep kernel of one checkout of the port.
+"""Time the sweep kernels of one checkout of the port.
 
     python3 torch_sweep_time.py [SRC]
 
@@ -10,8 +10,12 @@ GPU (exits with 2 without one).  Times ``pipecg_spmv_fused`` at
 chip_smoke.py's shapes (ex23's tridiagonal Laplacian at n = 2,097,152 and
 ``laplacian_2d(1448, 1448)``; k = 1 and 8; float64, float32, float32 with
 bf16 storage) as CUDA-event medians of 25, after holding each call's
-vectors against its plain version.  Prints the card's ``nvidia-smi`` name
-and power limit, one line per shape, and one JSON object as its last line.
+vectors against its plain version.  Where the checkout has the p-BiCGStab
+sweep, it times ``pipebicgstab_fused`` at chip_smoke.py's shapes too
+(convection-diffusion and the 2-D Laplacian in float64, float32, float32
+with bf16 storage) and ``pipebicgstab_halo`` on rank 1 of 4.  Prints the
+card's ``nvidia-smi`` name and power limit, one line per shape, and one
+JSON object as its last line.
 """
 from __future__ import annotations
 
@@ -76,9 +80,48 @@ def main(argv) -> int:
                    storage=str(sto)[6:], ms=ms)
         smoke.say("sweep", **row)
         out.append(row)
+    bicg = []
+    if (src / "repro_torch" / "kernels" / "pipebicgstab_fused.py").exists():
+        bicg = time_bicg(gen, lap)
     print(json.dumps({"src": str(src), "library": so.name,
-                      "sweep": out}), flush=True)
+                      "sweep": out, "bicg": bicg}), flush=True)
     return 0
+
+
+def time_bicg(gen, lap):
+    """CUDA-event medians of the p-BiCGStab sweeps, each held bit for bit
+    (one bf16 ulp) against its plain version first."""
+    import torch
+    from repro_torch.core.krylov import convection_diffusion
+    from repro_torch.kernels.pipebicgstab_fused import (
+        pipebicgstab_fused, pipebicgstab_fused_plain, pipebicgstab_halo,
+        pipebicgstab_halo_plain)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    cdf = convection_diffusion(smoke.N_EX23, device=gen.device)
+    rows = []
+    for A, label, acc, sto, ranks in ((cdf, "convdiff", f64, f64, 1),
+                                      (lap, "lap2d", f64, f64, 1),
+                                      (cdf, "convdiff", f32, f32, 1),
+                                      (cdf, "convdiff", f32, bf16, 1),
+                                      (cdf, "convdiff", f64, f64,
+                                       smoke.RANKS)):
+        bands, csum, x, chains, sc = smoke.bicg_operands(gen, A, acc, sto)
+        if ranks == 1:
+            fn, plain = pipebicgstab_fused, pipebicgstab_fused_plain
+            args = (A.offsets, bands, csum, x, *chains, *sc)
+        else:
+            fn, plain = pipebicgstab_halo, pipebicgstab_halo_plain
+            opnds, _ = smoke.bicg_rank_operands(A, ranks, 1, x, chains)
+            args = (A.offsets, *opnds, *sc)
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        smoke.chains_equal(f"{fn.__name__} {label}", got, want)
+        row = dict(kernel=fn.__name__, shape=label, ranks=ranks,
+                   accum=str(acc)[6:], storage=str(sto)[6:],
+                   ms=smoke.time_ms(lambda: fn(*args)))
+        smoke.say("sweep", **row)
+        rows.append(row)
+    return rows
 
 
 if __name__ == "__main__":
