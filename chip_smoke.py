@@ -20,7 +20,13 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    The p-BiCGStab sweep (#8) runs on the nonsymmetric
    ``convection_diffusion`` at the same n, on ``laplacian_2d(1448, 1448)``,
    in float32 and with bf16 chains and bands; its per-rank form (#9) on
-   rank 1 of 4 slices, and 4 slices against the one-device sweep;
+   rank 1 of 4 slices, and 4 slices against the one-device sweep.
+   The 21-band ``glen_law_band`` at the same n runs through #1, #2 and #8
+   (ROADMAP.md H10).  The ghost-chain sweep (#4) at l = 2 and 4 on ex23,
+   l = 2 and 4 on ``laplacian_2d(1448, 1448)`` (the latter in the
+   global-memory workspace), l = 4 on glen, in float32 and with bf16
+   storage; its per-rank form (#5) on rank 1 of 4, and 4 slices against
+   the one-device chain;
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
@@ -31,6 +37,12 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    residuals against ``engine="naive"``, the ``tol=1e-10`` solve's
    ``iters`` against naive's, classical ``bicgstab`` to the same tol and a
    callable M through the engine's SpMV;
+   then ``[depth]``: ``pipecg_l(engine="fused", maxiter=5000)`` on ex23 at
+   l = 2 and at l = 4, each with the counts set to 0 just before it and
+   read just after it (2500 / 1250 chain sweeps, nothing else), its first
+   200 residuals against ``engine="naive"`` and within the Cools bound
+   1e-6 of depth-1 PIPECG, x's true residual against the recurrence's;
+   ``pgmres_l(restart=40, l=2)`` through the SpMV kernel against naive;
 5. ranks: ex23 on 4 ranks of one process group, all on this card
    (``distributed_solve(pipecg, engine="sharded_fused", maxiter=5000)``,
    gloo with host-staged strips on one card, NCCL with one card per
@@ -42,10 +54,15 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    ranks (500 forced iterates with Jacobi, 4 x 500 halo sweeps, the H5
    order, no blocking all-reduce; the tol solve's ``iters`` and the first
    20 residuals against one device; the inline path with one all-reduce
-   per iteration);
+   per iteration); ``pipecg_l`` at l = 2 on the same 4 ranks (2000
+   iterates: 4 x 1000 chain sweeps, the depth order halo < launch < issue
+   < wait per block, one all-reduce per block, the first 20 blocks against
+   one device) and a tol solve on glen with Jacobi against one device;
 6. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
-   ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card and
-   the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``);
+   ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card,
+   the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``) and the depth
+   model (``depth_speedup_table``, ``depth_speedup_ceiling``,
+   ``crossover_depth``);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises: the script exits non-zero and prints no result when a
@@ -94,6 +111,20 @@ BICG_TOL_ITERS = 200
 BICG_REC_MAX = 1e-13   # recurrence residual / ||b|| after convergence
 BICG_DRIFT_MAX = 0.1   # true residual / ||b|| of a forced x
 BICG_RR = 50
+# depth-l (pipecg_l): the depths driven on one device, the rank solve's
+# forced iterates and the blocks its history is held to one device over,
+# the tol solve on the 21-band glen operator; the Cools gate of
+# tests/test_pipeline_depth.py (history within 1e-6 of depth-1 above 1e-8
+# of its largest entry) and the forced x's true-vs-recurrence gap
+DEPTHS = (2, 4)
+DEPTH_RANK_ITERS = 2000
+DEPTH_CHECK_BLOCKS = 20
+DEPTH_TOL = 1e-10
+DEPTH_TOL_ITERS = 200
+COOLS_RTOL = 1e-6
+COOLS_FLOOR = 1e-8
+DEPTH_GAP_MAX = 1e-8
+PGMRES_RESTART = 40
 
 
 class SmokeFailure(RuntimeError):
@@ -240,8 +271,8 @@ def phase_build():
 def phase_kernels():
     """Each kernel against its plain version; returns the JSON records."""
     import torch
-    from repro_torch.core.krylov import (convection_diffusion, laplacian_2d,
-                                         tridiagonal_laplacian)
+    from repro_torch.core.krylov import (convection_diffusion, glen_law_band,
+                                         laplacian_2d, tridiagonal_laplacian)
     from repro_torch.kernels.checksum import dia_column_checksum
     from repro_torch.kernels.pipecg_fused import (pipecg_fused,
                                                   pipecg_fused_plain)
@@ -381,6 +412,10 @@ def phase_kernels():
     bicg_kernel(records, gen, cdf, lap)
     bicg_halo_kernel(records, gen, cdf)
     bicg_slices_sum_to_sweep(gen, cdf)
+    glen = glen_law_band(N_EX23, device=dev)
+    glen_sweeps(gen, glen)
+    chain_kernel(records, gen, tri, lap, glen)
+    chain_halo_kernel(records, gen, tri)
     return records
 
 
@@ -709,6 +744,212 @@ def bicg_slices_sum_to_sweep(gen, A):
         n=A.n, vectors="bit-equal", payload_rel=f"{rel:.3e}")
 
 
+def glen_sweeps(gen, glen):
+    """H10: the earlier sweeps on the 21-band glen operator (the paper's
+    second Table-1 operator) against their plain versions, timed."""
+    import torch
+    from repro_torch.kernels.checksum import dia_column_checksum
+    from repro_torch.kernels.pipebicgstab_fused import (
+        pipebicgstab_fused, pipebicgstab_fused_plain)
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        pipecg_spmv_fused, pipecg_spmv_fused_plain)
+    from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
+    f64, dev, n = torch.float64, glen.device, glen.n
+    nb = len(glen.offsets)
+    check(nb == 21, f"glen has {nb} bands")
+    x = torch.randn(n, generator=gen, device=dev, dtype=f64)
+    y = spmv_dia(glen.offsets, glen.bands, x)
+    check(torch.equal(y, spmv_dia_plain(glen.offsets, glen.bands, x)),
+          "spmv_dia glen differs")
+    ms = time_ms(lambda: spmv_dia(glen.offsets, glen.bands, x))
+    plain_ms = time_ms(lambda: spmv_dia_plain(glen.offsets, glen.bands, x))
+    b_ms, _ = bound(nbytes(glen.bands, x, y), 2.0 * nb * n, f64)
+    say("kernel", name="spmv_dia", shape="glen", bands=nb, n=n,
+        max_abs_err="0", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b_ms:.4f}")
+    X, R, U, P = (torch.randn((1, n), generator=gen, device=dev, dtype=f64)
+                  for _ in range(4))
+    a = torch.rand(1, generator=gen, device=dev, dtype=f64)
+    b = torch.rand(1, generator=gen, device=dev, dtype=f64)
+    invd = (1.0 / glen.diagonal()).contiguous()
+    csum = dia_column_checksum(glen.offsets, glen.bands)
+    args = (glen.offsets, glen.bands, invd, csum, X, R, U, P, a, b)
+    got = pipecg_spmv_fused(*args)
+    want = pipecg_spmv_fused_plain(*args)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got[:4], want[:4])):
+        check(torch.equal(g, w), f"pipecg_spmv_fused glen out{i} differs")
+    rel = float(((got[4] - want[4]).abs()
+                 / want[4].abs().clamp(min=1.0)).max())
+    check(rel <= 1e-10, f"pipecg_spmv_fused glen partials {rel}")
+    ms = time_ms(lambda: pipecg_spmv_fused(*args))
+    plain_ms = time_ms(lambda: pipecg_spmv_fused_plain(*args))
+    b_ms, _ = bound(nbytes(glen.bands, invd, csum, X, R, U, P, *got),
+                    n * (4 * nb + 22), f64)
+    say("kernel", name="pipecg_spmv_fused", shape="glen", bands=nb, k=1,
+        accum="float64", storage="float64", partial_rel=f"{rel:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}")
+    bands, csum, x, chains, sc = bicg_operands(gen, glen, f64, f64)
+    args = (glen.offsets, bands, csum, x, *chains, *sc)
+    got = pipebicgstab_fused(*args)
+    want = pipebicgstab_fused_plain(*args)
+    torch.cuda.synchronize()
+    chains_equal("pipebicgstab_fused glen", got, want)
+    C = torch.stack([want[i] for i in (1, 2, 3, 5, 6)] + [chains[6]])
+    rel = gram_rel(got[7], want[7], C, csum)
+    check(rel <= 1e-10, f"pipebicgstab_fused glen payload: {rel}")
+    ms = time_ms(lambda: pipebicgstab_fused(*args))
+    plain_ms = time_ms(lambda: pipebicgstab_fused_plain(*args))
+    b_ms, _ = bicg_bound(glen, n, (bands, csum, x, *chains, *sc, *got), f64)
+    say("kernel", name="pipebicgstab_fused", shape="glen", bands=nb, n=n,
+        accum="float64", storage="float64", gram_rel=f"{rel:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}")
+
+
+def chain_bound(A, n, tensors, l, acc):
+    """(bound_ms, bound_by) of one chain sweep over n rows moving
+    ``tensors``: per row 2l - 1 links of 2 n_bands + 1 flops and the
+    (2l+1)(2l+2)/2 Gram products of 2 flops."""
+    m = 2 * l + 1
+    flops = n * ((2 * l - 1) * (2.0 * len(A.offsets) + 1) + m * (m + 1))
+    return bound(nbytes(*tensors), flops, acc)
+
+
+def chain_equal(name, got, want) -> None:
+    """The chain: bit for bit, bf16 within one ulp."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        ulp = (want.double().abs() * 2.0 ** -7).clamp(min=2.0 ** -133)
+        check(bool(((got.double() - want.double()).abs() <= ulp).all()),
+              f"{name}: chain more than one bf16 ulp off")
+    else:
+        check(torch.equal(got, want), f"{name}: chain differs")
+
+
+def chain_gram_rel(got, want, C) -> float:
+    """Largest Gram gap relative to the sum of its terms' magnitudes."""
+    import torch
+    mags = C.abs() @ C.abs().T
+    return float(((got - want).abs()
+                  / mags.clamp(min=torch.finfo(mags.dtype).tiny)).max())
+
+
+def chain_kernel(records, gen, tri, lap, glen):
+    """#4: the one-device ghost-chain sweep against its plain version."""
+    import torch
+    from repro_torch.core.krylov import dia_inf_norm
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        chain_plan, ghost_chain_fused, ghost_chain_fused_plain)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    # lap2d at l = 4 runs the global-memory workspace, the rest the shared
+    cases = [(tri, "tridiag", 2, f64, f64), (tri, "tridiag", 4, f64, f64),
+             (lap, "lap2d", 2, f64, f64), (lap, "lap2d", 4, f64, f64),
+             (glen, "glen", 4, f64, f64), (tri, "tridiag", 2, f32, f32),
+             (tri, "tridiag", 2, f32, bf16)]
+    for A, label, l, acc, sto in cases:
+        dev = A.device
+        bands = A.bands.to(sto).contiguous()
+        p, r = (torch.randn(A.n, generator=gen, device=dev,
+                            dtype=torch.float64).to(sto) for _ in range(2))
+        theta = dia_inf_norm(A)
+        args = (A.offsets, bands, p, r, theta, l)
+        got = ghost_chain_fused(*args)
+        want = ghost_chain_fused_plain(*args)
+        torch.cuda.synchronize()
+        chain_equal(f"ghost_chain_fused {label} l={l}", got[0], want[0])
+        wide = ghost_chain_fused_plain(A.offsets, bands.to(acc), p.to(acc),
+                                       r.to(acc), theta, l)[0]
+        rel = chain_gram_rel(got[1], want[1], wide)
+        check(rel <= {f64: 1e-10, f32: 1e-5}[acc],
+              f"ghost_chain_fused {label} l={l} Gram: {rel}")
+        err = max_err(got, want)
+        ms = time_ms(lambda: ghost_chain_fused(*args))
+        plain_ms = time_ms(lambda: ghost_chain_fused_plain(*args))
+        b_ms, b_by = chain_bound(A, A.n, (bands, p, r, *got), l, acc)
+        shared = chain_plan(l * A.halo, 2 * l + 1,
+                            torch.finfo(acc).bits // 8)[2]
+        say("kernel", name="ghost_chain_fused", shape=label, n=A.n, l=l,
+            bands=len(A.offsets), accum=str(acc)[6:], storage=str(sto)[6:],
+            workspace="shared" if shared else "global",
+            max_abs_err=f"{err:.3e}", gram_rel=f"{rel:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            share=f"{b_ms / ms:.3f}")
+        if (label, l, acc, sto) == ("tridiag", 2, f64, f64):
+            records["ghost_chain_fused"] = dict(
+                name="ghost_chain_fused", route="cuda",
+                source="src/repro_torch/kernels/csrc/ghost_chain.cu",
+                replaces="src/repro/kernels/pipecg_spmv_fused.py:424",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def chain_rank_operands(A, P, q, p, r, l):
+    """Rank q of P's chain operands cut from global vectors: the operator
+    rows [lo - lh, hi + lh) and the p/r strips [lo - lh, lo) and
+    [hi, hi + lh), zero beyond the matrix, as the exchanges give them."""
+    import torch.nn.functional as F
+    H, n = l * A.halo, A.n
+    lo, hi = q * n // P, (q + 1) * n // P
+    bands = F.pad(A.bands, (H, H))[:, lo:hi + 2 * H].to(p.dtype)
+    strips = []
+    for v in (p, r):
+        wide = F.pad(v, (H, H))
+        strips += [wide[lo:lo + H], wide[hi + H:hi + 2 * H]]
+    ops_ = [bands, p[lo:hi], r[lo:hi], *strips]
+    return [t.contiguous() for t in ops_], slice(lo, hi)
+
+
+def chain_halo_kernel(records, gen, tri):
+    """#5: the per-rank chain sweep on rank 1 of 4 (real strips and
+    neighbour operator rows) against its plain version, and 4 slices
+    against the one-device sweep."""
+    import torch
+    from repro_torch.core.krylov import dia_inf_norm
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        ghost_chain_fused, ghost_chain_halo, ghost_chain_halo_plain)
+    f64, l = torch.float64, 2
+    p, r = (torch.randn(tri.n, generator=gen, device=tri.device, dtype=f64)
+            for _ in range(2))
+    theta = dia_inf_norm(tri)
+    opnds, _ = chain_rank_operands(tri, RANKS, 1, p, r, l)
+    args = (tri.offsets, *opnds, theta, l)
+    got = ghost_chain_halo(*args)
+    want = ghost_chain_halo_plain(*args)
+    torch.cuda.synchronize()
+    chain_equal("ghost_chain_halo", got[0], want[0])
+    rel = chain_gram_rel(got[1], want[1], want[0])
+    check(rel <= 1e-10, f"ghost_chain_halo Gram: {rel}")
+    err = max_err(got, want)
+    ms = time_ms(lambda: ghost_chain_halo(*args))
+    plain_ms = time_ms(lambda: ghost_chain_halo_plain(*args))
+    n = tri.n // RANKS
+    b_ms, b_by = chain_bound(tri, n, (*opnds, *got), l, f64)
+    say("kernel", name="ghost_chain_halo", shape="tridiag", ranks=RANKS,
+        n_local=n, l=l, accum="float64", storage="float64",
+        max_abs_err=f"{err:.3e}", gram_rel=f"{rel:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+        share=f"{b_ms / ms:.3f}")
+    records["ghost_chain_halo"] = dict(
+        name="ghost_chain_halo", route="cuda",
+        source="src/repro_torch/kernels/csrc/ghost_chain.cu",
+        replaces="src/repro/kernels/pipecg_spmv_fused.py:445",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    whole = ghost_chain_fused(tri.offsets, tri.bands, p, r, theta, l)
+    total = torch.zeros_like(whole[1])
+    for q in range(RANKS):
+        opnds, rows = chain_rank_operands(tri, RANKS, q, p, r, l)
+        got = ghost_chain_halo(tri.offsets, *opnds, theta, l)
+        check(torch.equal(got[0], whole[0][:, rows]),
+              f"chain rank {q} differs from the one-device chain")
+        total = total + got[1]
+    torch.cuda.synchronize()
+    rel = chain_gram_rel(total, whole[1], whole[0])
+    check(rel <= 1e-10, f"rank Grams sum off by {rel}")
+    say("kernel", check="4 rank slices == one-device ghost chain", n=tri.n,
+        l=l, chain="bit-equal", gram_rel=f"{rel:.3e}")
+
+
 def phase_main_path(records):
     """The ex23 solve and its siblings, with the launch counts around them.
 
@@ -920,6 +1161,87 @@ def phase_bicgstab(records):
         max_rel_gap=f"{gap:.3e}")
 
 
+def rel_dev(hist, ref, floor_rel=COOLS_FLOOR) -> float:
+    """Largest relative deviation of ``hist`` from ``ref`` above the floor
+    (the Cools gate of tests/test_pipeline_depth.py)."""
+    h, g = hist.double().cpu(), ref.double().cpu()
+    k = min(h.numel(), g.numel())
+    h, g = h[:k], g[:k]
+    mask = g > floor_rel * float(g.max())
+    check(int(mask.sum()) > 0, "history entirely below the floor")
+    return float(((h[mask] - g[mask]).abs() / g[mask]).max())
+
+
+def phase_depth(records):
+    """Depth-l pipelined CG on one device: the 5000-iterate ex23 solve at
+    l = 2 and at l = 4, each with the launch counts set to 0 just before
+    it and read just after it, against engine="naive" and the depth-1
+    PIPECG history; then pgmres_l through the SpMV kernel."""
+    import torch
+    from repro_torch.core.krylov import (SolverOptions, pgmres_l, pipecg,
+                                         pipecg_l)
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    A, b = ex23(torch.Generator(device=dev).manual_seed(4))
+    bn = float(torch.linalg.norm(b))
+    depth1 = pipecg(A, b, options=SolverOptions(engine="fused",
+                                                maxiter=MAXITER))
+    for l in DEPTHS:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipecg_l(A, b, options=SolverOptions(
+            engine="fused", maxiter=MAXITER, depth=l))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        blocks = -(-MAXITER // l)
+        check(counts["ghost_chain_fused"] == blocks,
+              f"l={l}: ghost_chain_fused ran {counts['ghost_chain_fused']}")
+        check(sum(counts.values()) == blocks, f"l={l}: other kernels {counts}")
+        if l == DEPTHS[0]:
+            records["ghost_chain_fused"]["launches"] = counts[
+                "ghost_chain_fused"]
+        hist = res.res_history
+        check(tuple(hist.shape) == (MAXITER,), f"history {tuple(hist.shape)}")
+        check(bool(torch.isfinite(hist).all())
+              and bool(torch.isfinite(res.x).all()), "non-finite depth solve")
+        check(int(res.iters) == MAXITER, f"iters {int(res.iters)}")
+        true_res = float(torch.linalg.norm(b - A.matvec(res.x))) / bn
+        rec_res = float(res.res_norm) / bn
+        check(abs(true_res - rec_res) <= DEPTH_GAP_MAX,
+              f"l={l}: true {true_res} vs recurrence {rec_res}")
+        naive = pipecg_l(A, b, options=SolverOptions(
+            engine="naive", maxiter=CHECK_ITERS, depth=l))
+        gap = hist_close(naive.res_history, hist[:CHECK_ITERS])
+        cools = rel_dev(hist[:CHECK_ITERS],
+                        depth1.res_history[:CHECK_ITERS])
+        check(cools <= COOLS_RTOL, f"l={l}: {cools} from depth 1")
+        say("depth", solve=f"pipecg_l fused l={l}", n=N_EX23,
+            maxiter=MAXITER, seconds=f"{dt:.3f}",
+            ms_per_iter=f"{dt / MAXITER * 1e3:.4f}",
+            launches=json.dumps(counts, separators=(",", ":")),
+            true_rel_res=f"{true_res:.6e}", rec_rel_res=f"{rec_res:.6e}",
+            naive_max_rel_gap=f"{gap:.3e}", cools_dev_200=f"{cools:.3e}",
+            cools_dev_all=f"{rel_dev(hist, depth1.res_history):.3e}",
+            depth1_rec_rel_res=f"{float(depth1.res_norm) / bn:.6e}")
+
+    ops.reset_launch_counts()
+    fused = pgmres_l(A, b, restart=PGMRES_RESTART, l=2, engine="fused")
+    counts = ops.launch_counts()
+    check(counts["spmv_dia"] == PGMRES_RESTART + 1,
+          f"pgmres_l SpMVs: {counts}")
+    naive = pgmres_l(A, b, restart=PGMRES_RESTART, l=2, engine="naive")
+    gap = hist_close(naive.res_history, fused.res_history)
+    true_res = float(torch.linalg.norm(b - A.matvec(fused.x))) / bn
+    check(abs(true_res - float(fused.res_norm) / bn) <= 1e-6,
+          f"pgmres_l: true {true_res} vs {float(fused.res_norm) / bn}")
+    say("depth", solve=f"pgmres_l fused l=2 restart={PGMRES_RESTART}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        max_rel_gap=f"{gap:.3e}", true_rel_res=f"{true_res:.6e}")
+
+
 def wall(per_rank, i: int) -> float:
     """Wall seconds of case i: the slowest rank's."""
     return max(outcomes[i]["seconds"] for outcomes in per_rank)
@@ -933,8 +1255,8 @@ def phase_ranks(records):
     one-device counterparts run here afterwards.
     """
     import torch
-    from repro_torch.core.krylov import (SolverOptions, cg, pipecg,
-                                         pipecg_multi, pipecr,
+    from repro_torch.core.krylov import (SolverOptions, cg, glen_law_band,
+                                         pipecg, pipecg_multi, pipecr,
                                          tridiagonal_laplacian)
     from repro_torch.core.perfmodel import Exponential, asymptotic_speedup
     from repro_torch.distributed import ranks
@@ -967,8 +1289,19 @@ def phase_ranks(records):
         "pipecg inline": ("pipecg", b, dict(maxiter=it), None),
         **bicg,
     }
+    A_glen = glen_law_band(N_EX23, device="cpu")
+    depth = {
+        "depth": ("pipecg_l", b, dict(sharded, maxiter=DEPTH_RANK_ITERS,
+                                      l=2), None),
+        "depth tol": ("pipecg_l", b_cd,
+                      dict(sharded, maxiter=DEPTH_TOL_ITERS, l=2,
+                           tol=DEPTH_TOL, M="jacobi"), None),
+    }
+    cases.update(depth)
     names = list(cases)
-    spec = [dict(solver=sv, A=A_cd if name in bicg else A, b=rhs, kw=kw,
+    ops_of = dict.fromkeys(bicg, A_cd)
+    ops_of["depth tol"] = A_glen
+    spec = [dict(solver=sv, A=ops_of.get(name, A), b=rhs, kw=kw,
                  noise=nz) for name, (sv, rhs, kw, nz) in cases.items()]
     backend = ranks.backend_for(RANKS, DEVICE)
     t0 = time.perf_counter()
@@ -983,7 +1316,8 @@ def phase_ranks(records):
     # p-BiCGStab solve, each summed over ranks
     ib = names.index("bicg")
     for name, i in (("pipecg_spmv_halo", 0), ("fused_dots", 0),
-                    ("pipebicgstab_halo", ib)):
+                    ("pipebicgstab_halo", ib),
+                    ("ghost_chain_halo", names.index("depth"))):
         records[name]["launches"] = sum(o[i]["launches"][name] for o in out)
         check(records[name]["launches"] > 0,
               f"{name} never launched on the rank path")
@@ -996,7 +1330,8 @@ def phase_ranks(records):
         for name, o in zip(names, outcomes):
             if cases[name][2].get("engine"):
                 check(o["order_ok"] is True,
-                      f"rank {rank} {name}: split-phase order broken")
+                      f"rank {rank} {name}: split-phase or depth order "
+                      "broken")
             check(o["launches"]["pipecg_spmv_fused"] == 0,
                   f"rank {rank} {name}: the one-device sweep ran")
             ref = out[0][names.index(name)]
@@ -1062,6 +1397,7 @@ def phase_ranks(records):
             host_us_per_iter_rank0=seg)
 
     bicg_ranks(out, names, records, A_cd, b_cd)
+    depth_ranks(out, names, records, b, A_glen, b_cd)
 
     qi, ni = names.index("quiet"), names.index("noisy")
     for rank, outcomes in enumerate(out):
@@ -1158,11 +1494,75 @@ def bicg_ranks(out, names, records, A_cd, b_cd):
         inline_ms_per_iter=f"{wall(out, il) / BICG_INLINE_ITERS * 1e3:.4f}")
 
 
+def depth_ranks(out, names, records, b, A_glen, b_glen):
+    """The depth-l rank cases against their one-device counterparts."""
+    import torch
+    from repro_torch.core.krylov import (DiaMatrix, SolverOptions, pipecg_l,
+                                         tridiagonal_laplacian)
+    i_d, i_t = names.index("depth"), names.index("depth tol")
+    blocks = -(-DEPTH_RANK_ITERS // 2)
+    check(records["ghost_chain_halo"]["launches"] == RANKS * blocks,
+          f"ghost_chain_halo: {records['ghost_chain_halo']['launches']}")
+    for rank, outcomes in enumerate(out):
+        for i in (i_d, i_t):
+            o = outcomes[i]
+            check(o["reductions"] == -(-o["res_history"].shape[-1] // 2),
+                  f"rank {rank}: {o['reductions']} reductions, not one "
+                  "per block")
+            check(o["all_reduces"] == 3,
+                  f"rank {rank}: {o['all_reduces']} blocking all-reduces")
+            check(o["launches"]["ghost_chain_fused"] == 0,
+                  f"rank {rank}: the one-device chain sweep ran")
+    dev = torch.device(DEVICE)
+    Ad, bd = tridiagonal_laplacian(N_EX23, device=dev), b.to(dev)
+    it = 2 * DEPTH_CHECK_BLOCKS
+    one = pipecg_l(Ad, bd, options=SolverOptions(engine="fused", maxiter=it,
+                                                 depth=2))
+    got = out[0][i_d]
+    h = torch.from_numpy(got["res_history"])
+    check(bool(torch.isfinite(h).all()), "non-finite depth rank history")
+    gap = hist_close(one.res_history, h[:it])
+    seg = {k: np.mean([o[i_d]["segments"][k] for o in out]) * 1e6
+           for k in got["segments"]}
+    say("ranks", solve="pipecg_l sharded_fused l=2", n=N_EX23, ranks=RANKS,
+        maxiter=DEPTH_RANK_ITERS, seconds=f"{wall(out, i_d):.3f}",
+        ms_per_iter=f"{wall(out, i_d) / DEPTH_RANK_ITERS * 1e3:.4f}",
+        launches_summed=records["ghost_chain_halo"]["launches"],
+        reductions_per_rank=got["reductions"],
+        blocking_all_reduces_per_rank=got["all_reduces"],
+        max_rel_gap_first_blocks=f"{gap:.3e}",
+        order="halo(b)<launch(b)<issue(b)<wait(b)<halo(b+1) on every rank")
+    say("ranks", depth_host_us_per_iter=" ".join(
+        f"{k}={v:.1f}" for k, v in seg.items()))
+    Ag = DiaMatrix(offsets=A_glen.offsets, bands=A_glen.bands.to(dev))
+    tol_one = pipecg_l(Ag, b_glen.to(dev), options=SolverOptions(
+        engine="fused", maxiter=DEPTH_TOL_ITERS, depth=2, tol=DEPTH_TOL,
+        M="jacobi"))
+    got = out[0][i_t]
+    check(int(got["iters"]) == int(tol_one.iters) < DEPTH_TOL_ITERS,
+          f"depth tol iters {int(got['iters'])} vs {int(tol_one.iters)}")
+    xt = torch.from_numpy(got["x"])
+    x_gap = float((xt - tol_one.x.cpu()).abs().max()
+                  / tol_one.x.cpu().abs().max())
+    check(x_gap <= 1e-8, f"gathered depth x off by {x_gap}")
+    bn = float(torch.linalg.norm(b_glen))
+    true_res = float(torch.linalg.norm(b_glen - A_glen.matvec(xt))) / bn
+    say("ranks", check="pipecg_l tol on glen (21 bands), jacobi, 4 ranks vs "
+        "one device", iters=int(tol_one.iters), x_rel_gap=f"{x_gap:.3e}",
+        true_rel_res=f"{true_res:.3e}",
+        ms_per_iter=f"{wall(out, i_t) / max(int(got['iters']), 1) * 1e3:.4f}")
+
+
 def phase_model():
     import torch
     from repro_torch.core.perfmodel import (SOLVER_SYNC_COUNTS, Exponential,
                                             LogNormal, Uniform,
-                                            asymptotic_speedup, harmonic,
+                                            asymptotic_speedup,
+                                            block_expected_max,
+                                            crossover_depth,
+                                            depth_speedup_ceiling,
+                                            depth_speedup_table, harmonic,
+                                            modeled_depth_speedup,
                                             s_sync_ceiling, s_sync_speedup,
                                             simulate)
     for P in (2, 4, 64, 8192):
@@ -1203,6 +1603,24 @@ def phase_model():
     say("model", s_sync="Exponential(1) P=4 s=4",
         speedup_by_R=" ".join(f"{R}:{v:.4f}" for R, v in zip(lat, sp4)),
         R_1e6=f"{far:.6f}", ceiling=s_sync_ceiling(4))
+    # the depth model (tests/test_pipeline_depth.py): monotone in l, under
+    # the Eq. 8 ceiling, above 2 at depth
+    ceiling = depth_speedup_ceiling(Exponential(1.0), P=4, red_latency=2.0)
+    sp = depth_speedup_table(Exponential(1.0), 4, (1, 2, 4, 8),
+                             red_latency=2.0, seed=7)
+    vals = [sp[l] for l in sorted(sp)]
+    check(all(a <= b + 1e-9 for a, b in zip(vals, vals[1:])),
+          f"depth speedups not monotone: {sp}")
+    check(vals[-1] <= ceiling * 1.02 and vals[-1] > 2.0,
+          f"depth speedups {sp} vs ceiling {ceiling}")
+    check(sp[4] == modeled_depth_speedup(Exponential(1.0), P=4, l=4,
+                                         red_latency=2.0, seed=7),
+          "depth table != modeled_depth_speedup")
+    say("model", depth="Exponential(1) P=4 R=2",
+        speedup_by_l=" ".join(f"{l}:{v:.4f}" for l, v in sp.items()),
+        ceiling=f"{ceiling:.4f}",
+        crossover_0_9=crossover_depth(sp, ceiling, 0.9),
+        block_max_l4=f"{block_expected_max(Exponential(1.0), 4, 4):.4f}")
 
 
 def main() -> int:
@@ -1217,11 +1635,12 @@ def main() -> int:
     records = phase_kernels()
     phase_main_path(records)
     phase_bicgstab(records)
+    phase_depth(records)
     phase_ranks(records)
     phase_model()
     order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
-             "pipecg_fused", "fused_dots", "pipebicgstab_fused",
-             "pipebicgstab_halo")
+             "ghost_chain_fused", "ghost_chain_halo", "pipecg_fused",
+             "fused_dots", "pipebicgstab_fused", "pipebicgstab_halo")
     print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

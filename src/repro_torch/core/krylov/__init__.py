@@ -1,5 +1,6 @@
-"""The paper's solvers: classical + pipelined CG/CR and BiCGStab on one
-device or on the ranks of a process group (``distributed_solve``)."""
+"""The paper's solvers: classical + pipelined CG/CR, BiCGStab and the
+depth-l pipelined CG/GMRES on one device or on the ranks of a process group
+(``distributed_solve``)."""
 from repro_torch.core.krylov.abft import DetectionReport  # noqa: F401
 from repro_torch.core.krylov.base import (  # noqa: F401
     SolveResult,
@@ -24,6 +25,7 @@ from repro_torch.core.krylov.distributed import (  # noqa: F401
     halo_exchange,
     halo_exchange_cols,
     sharded_pipebicgstab_solve,
+    sharded_pipecg_depth_solve,
     sharded_pipecg_solve,
 )
 from repro_torch.core.krylov.engine import (  # noqa: F401
@@ -45,10 +47,17 @@ from repro_torch.core.krylov.operators import (  # noqa: F401
     MatFreeOperator,
     convection_diffusion,
     dia_gather_matvec,
+    glen_law_band,
     identity_preconditioner,
     jacobi_preconditioner,
     laplacian_2d,
     tridiagonal_laplacian,
+)
+from repro_torch.core.krylov.pipeline import (  # noqa: F401
+    dia_inf_norm,
+    pgmres_l,
+    pipecg_l,
+    symmetrized_jacobi,
 )
 from repro_torch.core.krylov.options import (  # noqa: F401
     UNSET,

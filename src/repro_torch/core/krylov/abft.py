@@ -47,6 +47,19 @@ def deviation_update(dev, alpha, rr2, ww, *, eps: float):
                         * torch.sqrt(torch.clamp(ww, min=0.0)))
 
 
+def deviation_update_block(dev, l: int, theta, rr2, *, eps: float):
+    """Block-aggregated deviation increment for the depth-l solvers.
+
+    One ghost-basis block advances l iterations between reductions, so
+    the per-iteration recursion of :func:`deviation_update` collapses to
+    ``l * eps * (1 + 2 theta) * ||r||``: ``theta`` (the ||A||_inf-scale
+    ghost-basis scale) stands in for ``|alpha| ||w|| / ||r||`` since the
+    block recurrences keep the chain columns O(||r||)-scaled.
+    """
+    return dev + l * eps * (1.0 + 2.0 * theta) * torch.sqrt(
+        torch.clamp(rr2, min=0.0))
+
+
 def deviation_trip(dev, rr2, tau: float):
     """True when the estimated gap crosses ``tau * ||r||`` (replace now)."""
     return dev > tau * torch.sqrt(torch.clamp(rr2, min=0.0))

@@ -19,7 +19,10 @@ MPI_Iallreduce/MPI_Wait overlap the paper is about.  ``pipebicgstab`` runs
 the same way on its own sweep (kernels/pipebicgstab_fused.py::
 pipebicgstab_halo), whose one (7, 6) payload hides BiCGStab's four
 synchronizations; on the inline path it finishes its Gram with one
-all-reduce per iteration.
+all-reduce per iteration.  ``pipecg_l`` with ``l > 1`` runs depth-l
+ghost-basis blocks (:func:`sharded_pipecg_depth_solve`): one l*h strip
+exchange, one chain sweep (kernels/pipecg_spmv_fused.py::ghost_chain_halo)
+and one all-reduce per l iterations; the inline path rejects it.
 
 Where the JAX package takes a mesh, this one takes a process ``group``
 (None: the default group).  Each rank slices its rows of the global ``A``
@@ -443,6 +446,162 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
                        res_history=hist, detect_history=chk_hist)
 
 
+# ---------------------------------------------------------------------------
+# Sharded depth-l PIPECG: one l*h strip exchange + ONE all-reduce per block
+# ---------------------------------------------------------------------------
+
+def sharded_pipecg_depth_solve(offsets: Tuple[int, ...], bands_local,
+                               b_local, *, l: int, group=None, M=None,
+                               maxiter: int = 100, tol: float = 0.0,
+                               noise=None, precision=None, recorder=None
+                               ) -> SolveResult:
+    """Per-rank depth-l pipelined CG body (ghost-basis blocks).
+
+    Each block of ``l`` iterations is, in this order:
+
+    1. ONE exchange of l*h-wide edge strips of p and of r;
+    2. ONE ghost-chain sweep (``kops.ghost_chain_halo_step``) giving the
+       (2l+1, n_local) basis and this rank's partial Gram;
+    3. ``noise`` (if any), then ONE all-reduce of the (2l+2, 2l+1)
+       payload (the partial Gram plus the ABFT state-deviation row
+       ``c^T x + 1^T r``), issued and waited for at once: the block's
+       steps need it;
+    4. l coefficient-space CG steps (pipeline.py::_block_cg_steps) and
+       the block-end reconstruction of x, r and p from the chain.
+
+    Depth amortizes both the collective count (one per l iterations)
+    and the message count (one strip pair of width l*h instead of l of
+    width 2h).  ``recorder`` (an overlap.OrderRecorder) logs ``halo``,
+    ``launch``, ``issue`` and ``wait`` per block, the order
+    ``overlap.depth_order_ok`` checks.  The deviation ``1^T (b - A x -
+    r)`` of each block comes back as ``detect_history`` (repeated to
+    per-iteration length).
+
+    Semantics match ``pipeline.py::pipecg_l`` with ``rr=0``.  Set-up,
+    once per solve: theta by an all-reduce MAX of the local row sums;
+    ``M="jacobi"`` symmetrized in with one exchange of ``diag^-1/2``;
+    the operator extended by l*h rows with one exchange; this rank's
+    slice of the global column checksum at full precision.  A bf16/fp8
+    ``precision`` then stores p, r, the chain and the operator extension
+    narrow, while the links, the Gram and the block recurrences stay at
+    b's dtype (the kernel's accumulator).  The Gram is consumed in the
+    block that computes it, so the int8 wire (which compresses a carried
+    payload) is rejected, as are multi-RHS right-hand sides.
+    """
+    from repro_torch.core.krylov.pipeline import _block_cg_steps, _shift_matrix
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.checksum import dia_column_checksum
+
+    policy = as_policy(precision)
+    if policy.wire != "fp32" or policy.wire_gram != "fp32":
+        raise ValueError(
+            "the depth-l sharded path exchanges one l*halo strip and "
+            "finishes its Gram all-reduce inside the same block: int8 "
+            "wire compression applies to the depth-1 pipecg/pipebicgstab "
+            "bodies only")
+    if b_local.dim() != 1:
+        raise ValueError(
+            "the depth-l sharded path is single-RHS; use l=1 for the "
+            "batched pipecg_multi engine")
+    rank, _ = comm.rank_and_size(group)
+    halo = max(abs(int(o)) for o in offsets)
+    H = l * halo
+    n_local = b_local.shape[0]
+    dt, dev = b_local.dtype, b_local.device
+    if n_local < 2 * H:
+        raise ValueError(
+            f"sharded depth-l engine: local shard of {n_local} rows is "
+            f"narrower than the 2*l*halo={2 * H} chain reach")
+    if isinstance(M, str) and M == "jacobi":
+        ds = 1.0 / torch.sqrt(bands_local[list(offsets).index(0)].to(dt))
+        dl, dr = halo_exchange_cols(ds, halo, group)
+        ds_ext = torch.cat([dl, ds, dr])
+        bands_local = torch.stack([
+            bands_local[k] * ds * ds_ext[halo + off:halo + off + n_local]
+            for k, off in enumerate(offsets)])
+        b_local = b_local * ds
+        unscale = ds
+    elif M is None:
+        unscale = None
+    else:
+        raise ValueError(
+            "sharded depth-l engine preconditions via the symmetrized "
+            f"operator: M must be None or 'jacobi', got {M!r}")
+    theta = comm.all_reduce(
+        torch.max(torch.sum(torch.abs(bands_local), dim=0)), group, op="max")
+
+    # loop-invariant operator extension (+l*h), one exchange per solve
+    bl, br = halo_exchange_cols(bands_local, H, group)
+    bands_ext = torch.cat([bl, bands_local, br], dim=-1)
+    # this rank's slice of the GLOBAL column checksum of the (possibly
+    # symmetrized) operator, before any demotion
+    csum_loc = dia_column_checksum(offsets, bands_ext, halo=H).to(dt)
+    sdt = policy.storage_dtype
+    if sdt is not None:
+        bands_ext = bands_ext.to(sdt)
+    bands_ext = bands_ext.contiguous()
+
+    x = torch.zeros_like(b_local)
+    r = b_local if sdt is None else b_local.to(sdt)
+    p = r
+    m = 2 * l + 1
+    Tm = _shift_matrix(l, dt, dev)
+    nblocks = -(-maxiter // l)
+    # one set-up all-reduce covers the tolerance scale and the 1^T b leg
+    # of the deviation detector
+    bb, bsum = comm.all_reduce(torch.stack([torch.sum(b_local * b_local),
+                                            torch.sum(b_local)]), group)
+    tol2 = torch.as_tensor(tol, dtype=dt, device=dev) ** 2 * bb
+    reducer = SplitPhaseReduce(group, recorder)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    step = torch.tensor(l, dtype=torch.int32, device=dev)
+    hists, dets = [], []
+    for bi in range(nblocks):
+        # 1. ONE strip exchange per block, of the carried vectors only
+        pl_, pr_ = halo_exchange_cols(p, H, group)
+        rl_, rr_ = halo_exchange_cols(r, H, group)
+        if recorder is not None:
+            recorder("halo", bi)
+        # 2. the chain and this rank's partial Gram
+        C, gram = kops.ghost_chain_halo_step(
+            offsets, bands_ext, p, r, pl_, pr_, rl_, rr_, theta, l,
+            accum_dtype=None if sdt is None else dt)
+        if recorder is not None:
+            recorder("launch", bi)
+        # 3. the block's one reduction; the deviation partial rides it as
+        # an extra row, so a corrupted payload corrupts the detector too
+        dev_row = torch.zeros((1, m), dtype=dt, device=dev)
+        dev_row[0, 0] = torch.sum(csum_loc * x) + torch.sum(r.to(dt))
+        payload = torch.cat([gram, dev_row])
+        if noise is not None:
+            noise(rank)   # the stall delays this rank's contribution
+        Ge = reducer.issue(payload, iteration=bi).wait()
+        G = Ge[:-1]
+        dets.append(bsum - Ge[-1, 0])
+        # 4. l steps in coefficient space; the carried r and p re-demote
+        xc, rc, pc, hist = _block_cg_steps(G, Tm, l, theta, done)
+        Cw = C.to(dt)
+        x = torch.where(done, x, x + xc @ Cw)
+        r = torch.where(done, r, (rc @ Cw).to(r.dtype))
+        p = torch.where(done, p, (pc @ Cw).to(p.dtype))
+        rr2 = torch.clamp(rc @ G @ rc, min=0.0)   # global: G is
+        hists.append(torch.where(done, torch.sqrt(rr2), hist))
+        iters = iters + torch.where(done, torch.zeros_like(step), step)
+        done = done | (rr2 <= tol2)
+    if nblocks:
+        hist = torch.cat(hists)[:maxiter]
+        det = torch.repeat_interleave(torch.stack(dets), l)[:maxiter]
+    else:
+        hist = det = torch.zeros((0,), dtype=dt, device=dev)
+    r_fin = r.to(dt)
+    res = torch.sqrt(torch.clamp(comm.all_reduce(torch.sum(r_fin * r_fin),
+                                                 group), min=0.0))
+    x_out = x if unscale is None else x * unscale
+    return SolveResult(x=x_out, iters=torch.clamp(iters, max=maxiter),
+                       res_norm=res, res_history=hist, detect_history=det)
+
+
 def _rows(n: int, group) -> slice:
     """This rank's contiguous block of the n rows (even split)."""
     rank, world = comm.rank_and_size(group)
@@ -465,7 +624,7 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
     if family is None:
         raise ValueError(
             "engine='sharded_fused' supports pipecg / pipecg_multi / "
-            f"pipecr / pipebicgstab; got solver {name!r}")
+            f"pipecr / pipecg_l / pipebicgstab; got solver {name!r}")
     fmt = "bsr" if getattr(A, "format", None) == "bsr" else "dia"
     body = eng.body(family, fmt)   # raises for the bodies not ported yet
     if not isinstance(A, DiaMatrix):
@@ -491,18 +650,35 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
                    maxiter=maxiter, tol=tol, noise=noise,
                    precision=precision, recorder=recorder)
         return _gather_x(res, group)
-    if int(solver_kw.pop("l", 1)) != 1:
-        raise NotImplementedError(
-            "pipeline depth l > 1 needs the depth-l body (ROADMAP.md "
-            "queue 1, item 8)")
+    depth = int(solver_kw.pop("l", 1))
+    if depth > 1 and name != "pipecg_l":
+        raise ValueError(
+            f"pipeline depth l={depth} needs solver pipecg_l, got {name!r}")
     precision = solver_kw.pop("precision", None)
     warm = {kw: solver_kw.pop(kw) for kw in ("x0", "carried", "with_state")
             if kw in solver_kw}
+    if family == "pipecg_l" and depth > 1:
+        if warm:
+            raise ValueError(
+                "x0= / carried= / with_state= (elastic warm start) are "
+                "implemented for the depth-1 pipecg/pipecr body only; the "
+                f"'pipecg_l' (l={depth}) path cannot resume mid-recurrence")
+        if solver_kw:
+            raise TypeError("unsupported kwargs for the sharded_fused "
+                            f"path: {sorted(solver_kw)}")
+        res = body(A.offsets, A.bands[:, sl].contiguous(),
+                   b[..., sl].contiguous(), l=depth, group=group, M=M,
+                   maxiter=maxiter, tol=tol, noise=noise,
+                   precision=precision, recorder=recorder)
+        return _gather_x(res, group)
+    if family == "pipecg_l":   # depth 1: the PIPECG body itself
+        body = eng.body("pipecg", fmt)
     if solver_kw:
         raise TypeError("unsupported kwargs for the sharded_fused path: "
                         f"{sorted(solver_kw)}")
     res = body(A.offsets, A.bands[:, sl].contiguous(),
-               b[..., sl].contiguous(), group=group, ip=_SHARDED_IP[name],
+               b[..., sl].contiguous(), group=group,
+               ip=_SHARDED_IP.get(name, "id"),
                M=M, maxiter=maxiter, tol=tol, noise=noise,
                precision=precision, recorder=recorder, **warm)
     return _gather_x(res, group)
@@ -513,8 +689,8 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
                       engine=None, options=None, recorder=None,
                       **solver_kw) -> SolveResult:
     """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi / bicgstab /
-    pipebicgstab) with the rows of ``A`` and ``b`` split over the ranks of
-    ``group``.
+    pipebicgstab / pipecg_l) with the rows of ``A`` and ``b`` split over
+    the ranks of ``group``.
 
     Every rank of the group calls it with the same global ``A`` and ``b``
     and gets the same result, ``x`` global.  ``engine=None`` keeps the
@@ -522,10 +698,13 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
     ``"sharded_fused"`` (or a ShardedFusedEngine) runs pipecg /
     pipecg_multi / pipecr / pipebicgstab as one halo sweep per rank per
     iteration with a split-phase all-reduce (:func:`sharded_pipecg_solve`,
-    :func:`sharded_pipebicgstab_solve`), whose order ``recorder`` logs.  ``options`` (a SolverOptions) bundles engine,
-    maxiter/tol, M, depth, noise and precision; it cannot be mixed with
-    the loose spellings.  ``precision`` needs the sharded engine.  A 2-D
-    process grid (``group`` given as a pair) is not ported yet.
+    :func:`sharded_pipebicgstab_solve`), and pipecg_l (``l=``) as one
+    chain sweep and one all-reduce per block
+    (:func:`sharded_pipecg_depth_solve`); ``recorder`` logs their order.
+    ``options`` (a SolverOptions) bundles engine, maxiter/tol, M, depth,
+    noise and precision; it cannot be mixed with the loose spellings.
+    ``precision`` needs the sharded engine. A 2-D process grid (``group``
+    given as a pair) is not ported yet.
     """
     from repro_torch.core.krylov.engine import ShardedFusedEngine, get_engine
 
@@ -571,6 +750,12 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
             "distributed_solve supports engine=None (historical inline "
             "path) or 'sharded_fused'; single-device engines compute "
             f"local reductions and cannot shard (got {eng.name!r})")
+    if getattr(solver, "__name__", "") == "pipecg_l":
+        raise ValueError(
+            "pipecg_l's ghost-basis blocks need the depth-aware sharded "
+            "path: use distributed_solve(pipecg_l, A, b, group, "
+            "engine='sharded_fused', l=...); the historical inline path "
+            "(engine=None) cannot express its fused Gram reduction")
     if recorder is not None:
         raise ValueError(
             "recorder= logs the sharded body's split-phase order; the "

@@ -296,22 +296,23 @@ class ShardedFusedEngine(Engine):
         raise ValueError(
             "engine='sharded_fused' computes per-rank partial reductions "
             "and must run on a process group: use distributed_solve("
-            "pipecg | pipecg_multi | pipecr | pipebicgstab, A, b, group, "
+            "pipecg | pipecg_multi | pipecr | pipecg_l | pipebicgstab, A, "
+            "b, group, "
             "engine='sharded_fused') instead of the local solver entry")
 
     spmv = dots = prepare = pipecg_init = pipecg_iter = _reject
 
     # table-driven dispatch: (solver family, operator format) -> the name
     # of the per-rank body in core/krylov/distributed.py.  The 1-D DIA
-    # PIPECG/PIPECR and p-BiCGStab bodies are ported; the others raise
-    # with their ROADMAP.md items.
+    # PIPECG/PIPECR, p-BiCGStab and depth-l bodies are ported; the others
+    # raise with their ROADMAP.md items.
     _BODIES = {
         ("pipecg", "dia"): "sharded_pipecg_solve",
         ("pipebicgstab", "dia"): "sharded_pipebicgstab_solve",
+        ("pipecg_l", "dia"): "sharded_pipecg_depth_solve",
     }
     _LATER = {
         ("pipecg", "bsr"): "queue 1, item 9",
-        ("pipecg_l", "dia"): "queue 1, item 8",
     }
 
     def body(self, family: str, fmt: str = "dia"):

@@ -200,6 +200,40 @@ def convection_diffusion(n: int, c: float = 0.4, shift: float = 0.2,
     return DiaMatrix(offsets=(-1, 0, 1), bands=torch.stack([lo, main, hi]))
 
 
+def glen_law_band(n: int, bandwidth: int = 10, seed: int = 0,
+                  dtype=torch.float64, device="cuda") -> DiaMatrix:
+    """A denser SPD band matrix standing in for the SNES ex48 (Blatter-Pattyn
+    ice sheet) system: ``2*bandwidth+1`` bands (the paper notes ex48 has ~10x
+    more nonzeros per row than ex23).
+
+    The structure is the JAX package's: band ``+off`` holds uniform draws in
+    [-1, 0) scaled by ``1/(1+off)`` and zero past the matrix edge, band
+    ``-off`` mirrors it (symmetry), the diagonal is the sum of the
+    off-diagonals' magnitudes plus 1 (diagonal dominance, so SPD), offsets
+    sorted.  The draws come from a ``torch.Generator`` seeded with ``seed``
+    on the host, so the values differ from the JAX factory's
+    (``jax.random``); carry its bands across with ``convert.dia_from_numpy``
+    to get the same operator.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    bands = {}
+    for off in range(1, bandwidth + 1):
+        hi = (torch.rand(n, generator=gen, dtype=torch.float64) - 1.0) \
+            / (1 + off)
+        hi[n - off:] = 0.0
+        lo = torch.zeros(n, dtype=torch.float64)
+        lo[off:] = hi[:n - off]            # band(-off)[i] = band(off)[i-off]
+        bands[off], bands[-off] = hi, lo
+    total = torch.zeros(n, dtype=torch.float64)
+    for off in sorted(bands):
+        total = total + bands[off].abs()
+    bands[0] = total + 1.0
+    offs = tuple(sorted(bands))
+    return DiaMatrix(offsets=offs,
+                     bands=torch.stack([bands[o] for o in offs])
+                     .to(device=device, dtype=dtype))
+
+
 @dataclasses.dataclass(frozen=True)
 class MatFreeOperator:
     """Matrix-free operator (e.g. Hessian-vector products)."""

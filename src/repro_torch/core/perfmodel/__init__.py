@@ -7,7 +7,15 @@ Usage::
     >>> from repro_torch.core.perfmodel import simulate
     >>> simulate(Exponential(1.0), P=8, K=1000).speedup_of_means  # on the card
     >>> s_sync_speedup(Exponential(1.0), P=4, s=4, red_latency=8.0)  # > 2
+    >>> modeled_depth_speedup(Exponential(1.0), P=4, l=4, red_latency=2.0)
 """
+from repro_torch.core.perfmodel.depth import (  # noqa: F401
+    block_expected_max,
+    crossover_depth,
+    depth_speedup_ceiling,
+    depth_speedup_table,
+    modeled_depth_speedup,
+)
 from repro_torch.core.perfmodel.distributions import (  # noqa: F401
     Deterministic,
     Distribution,

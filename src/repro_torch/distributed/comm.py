@@ -38,15 +38,18 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum of ``t`` over the group (blocking); returns a new tensor.
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (or, ``op="max"``, maximum) of ``t`` over the group (blocking);
+    returns a new tensor.
 
     ``all_reduce.calls`` counts the calls, so a test can read how many
     blocking reductions a solve issued.
     """
     all_reduce.calls += 1
     buf = to_wire(t, host_staged(t.device, group))
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
     return buf.to(t.device)
 
 

@@ -13,6 +13,14 @@ here ``OrderRecorder`` logs, per iteration, the order of the four events
 ``split_phase_ok`` checks ``issue(i) < halo(i+1) < wait(i) < launch(i+1)``
 with exactly one reduction issued per iteration.  Iteration -1 is the
 solve's set-up, whose row the first iteration waits for.
+
+The depth-l body (core/krylov/distributed.py::sharded_pipecg_depth_solve)
+logs the same four events once per block of l iterations, with the block
+as the iteration number; its reduction is consumed in the block that
+issues it, and ``depth_order_ok`` checks ``halo(b) < launch(b) <
+issue(b) < wait(b) < halo(b+1)`` with exactly one reduction per block,
+the port's stand-in for the JAX package's HLO ``depth_ok``
+(launch/hlo_analysis.py).
 """
 from __future__ import annotations
 
@@ -37,23 +45,31 @@ class OrderRecorder:
         self.events.append((event, int(iteration), time.perf_counter()))
 
     def segments(self) -> Dict[str, float]:
-        """Mean host seconds per iteration between consecutive events.
+        """Mean host seconds per iteration from the event before each event.
 
-        ``halo``: from the last issue to the end of the strip exchange;
-        ``wait``: then to the reduction's result; ``launch``: then through
-        the recurrence to the kernel's launch; ``issue``: then through the
-        freeze (and any noise) to the next issue.  Iteration 0 is left
-        out (it waits for the set-up row).
+        Split-phase log: ``halo`` from the last issue to the end of the
+        strip exchange, ``wait`` then to the reduction's result,
+        ``launch`` then through the recurrence to the kernel's launch,
+        ``issue`` then through the freeze (and any noise) to the next
+        issue.  Depth log: ``halo`` from the last block's result through
+        its steps to this block's strips, ``launch`` then to the chain
+        sweep, ``issue`` then through the deviation row (and any noise)
+        to the reduction, ``wait`` to its result.  Events are counted
+        from the first ``halo`` of iteration 1 to the last ``issue``
+        (iteration 0 waits for the set-up).
         """
-        at = {ev[:2]: ev[2] for ev in self.events}
-        iters = sorted({i for e, i in at if e == "launch" and i > 0})
+        ev = self.events
         out = dict(halo=0.0, wait=0.0, launch=0.0, issue=0.0)
-        for i in iters:
-            out["halo"] += at[("halo", i)] - at[("issue", i - 1)]
-            out["wait"] += at[("wait", i - 1)] - at[("halo", i)]
-            out["launch"] += at[("launch", i)] - at[("wait", i - 1)]
-            out["issue"] += at[("issue", i)] - at[("launch", i)]
-        return {k: v / max(len(iters), 1) for k, v in out.items()}
+        start = next((k for k, e in enumerate(ev)
+                      if e[0] == "halo" and e[1] >= 1), None)
+        if start is None:
+            return out
+        last = max(k for k, e in enumerate(ev) if e[0] == "issue")
+        count = dict.fromkeys(out, 0)
+        for k in range(start, last + 1):
+            out[ev[k][0]] += ev[k][2] - ev[k - 1][2]
+            count[ev[k][0]] += 1
+        return {k: v / max(count[k], 1) for k, v in out.items()}
 
 
 def split_phase_ok(events, iterations: int) -> bool:
@@ -83,6 +99,30 @@ def split_phase_ok(events, iterations: int) -> bool:
     last = iterations - 1
     return (("issue", last) in pos and ("wait", last) in pos
             and pos[("issue", last)] < pos[("wait", last)])
+
+
+def depth_order_ok(events, blocks: int) -> bool:
+    """True when the log shows the depth-l order for every block.
+
+    ``events`` holds ``(event, block, ...)`` in order: per block exactly
+    one ``halo``, ``launch``, ``issue`` and ``wait``, in that order, and
+    the block's ``wait`` before the next block's ``halo``.
+    """
+    pos = {}
+    for at, ev in enumerate(events):
+        key = tuple(ev[:2])
+        if key in pos or key[0] not in EVENTS:
+            return False          # an event twice, or an unknown one
+        pos[key] = at
+    if len(events) != 4 * blocks:
+        return False
+    order = []
+    for b in range(blocks):
+        keys = [("halo", b), ("launch", b), ("issue", b), ("wait", b)]
+        if any(k not in pos for k in keys):
+            return False
+        order += [pos[k] for k in keys]
+    return order == sorted(order)
 
 
 class Pending:

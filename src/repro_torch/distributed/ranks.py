@@ -100,16 +100,20 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     fields, the kernel launches, the blocking all-reduces
     (``comm.all_reduce`` calls) and the wall seconds of the solve (ranks
     start together; the card is synchronised around it) and this rank's
-    injected waits; a sharded solve adds its split-phase order check and
-    the mean host seconds per iteration between its events
-    (``OrderRecorder.segments``; None for the inline path).
+    injected waits; a sharded solve adds its order check (split-phase, or
+    ``depth_order_ok`` for ``pipecg_l`` with ``l > 1``), the reductions
+    its recorder saw issued (``reductions``) and the mean host seconds per
+    iteration between its events (``OrderRecorder.segments``; None for
+    the inline path).
     """
     from repro_torch.core import krylov
     from repro_torch.core.krylov.distributed import distributed_solve
     from repro_torch.core.krylov.operators import DiaMatrix
     from repro_torch.core.noise import NoiseHook
     from repro_torch.distributed import comm
-    from repro_torch.distributed.overlap import OrderRecorder, split_phase_ok
+    from repro_torch.distributed.overlap import (OrderRecorder,
+                                                 depth_order_ok,
+                                                 split_phase_ok)
     from repro_torch.kernels import ops
 
     dev = torch.device(device)
@@ -136,6 +140,13 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
         launches = ops.launch_counts()
+        order_ok = None
+        if rec is not None:
+            steps = res.res_history.shape[-1]
+            depth = int(kw.get("l", getattr(kw.get("options"), "depth", 1)))
+            order_ok = (depth_order_ok(rec.events, -(-steps // depth))
+                        if case["solver"] == "pipecg_l" and depth > 1
+                        else split_phase_ok(rec.events, steps))
         outcomes.append(dict(
             x=_numpy(res.x), iters=_numpy(res.iters),
             res_norm=_numpy(res.res_norm),
@@ -143,8 +154,9 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
             detect_history=_numpy(res.detect_history),
             launches=launches, seconds=seconds,
             all_reduces=comm.all_reduce.calls,
-            order_ok=(split_phase_ok(rec.events, res.res_history.shape[-1])
-                      if rec is not None else None),
+            reductions=(sum(e[0] == "issue" for e in rec.events)
+                        if rec is not None else None),
+            order_ok=order_ok,
             segments=rec.segments() if rec is not None else None,
             waits=(np.zeros(0) if hook is None else hook.shard_waits(rank))))
     return outcomes

@@ -38,7 +38,10 @@ ACCUM_DTYPES = (torch.float32, torch.float64)
 #: rows per CTA (kBlock in csrc/common.cuh); sizes the partials scratch
 BLOCK = 256
 #: the most bands an operator may carry (kMaxBands in csrc/common.cuh)
-MAX_BANDS = 8
+MAX_BANDS = 32
+#: dynamic shared memory a CTA may opt into on sm_90 (227 KB), less 4 KB
+#: for the kernels' static block-reduction buffers
+SMEM_DYNAMIC = 232_448 - 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +63,10 @@ _SIGNATURES = {
                               _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _P, _P],
+    "rt_ghost_chain": [_I, _I, _P, _I, _L, _I,
+                       _P, _I, _P, _P,
+                       _P, _P, _P, _P, _I, _L,
+                       _P, _P, _I, _P, _L, _P, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

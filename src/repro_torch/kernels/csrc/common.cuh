@@ -20,8 +20,11 @@ enum DType : int { kF32 = 0, kF64 = 1, kBF16 = 2, kFP8E4M3 = 3 };
 
 // rows per CTA of every row-parallel kernel (one thread per row)
 constexpr int kBlock = 256;
-// the most bands a DIA operator may carry (every operator factory uses <= 5)
-constexpr int kMaxBands = 8;
+// the most bands a DIA operator may carry: glen_law_band(bandwidth <= 15);
+// the paper's second operator, glen_law_band(bandwidth=10), has 21.  Only
+// the Offsets parameter block is sized by it (132 bytes); no per-thread
+// array is
+constexpr int kMaxBands = 32;
 
 struct Offsets {
   int nb;

@@ -16,7 +16,9 @@ from repro_torch.kernels.fused_dots import fused_dots as _fused_dots
 from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
                                                     pipebicgstab_halo)
 from repro_torch.kernels.pipecg_fused import pipecg_fused
-from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
+from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
+                                                   ghost_chain_halo,
+                                                   pipecg_spmv_fused,
                                                    pipecg_spmv_halo)
 from repro_torch.kernels.spmv_dia import spmv_dia
 
@@ -29,6 +31,8 @@ KERNELS = {
     "fused_dots": _fused_dots,
     "pipebicgstab_fused": pipebicgstab_fused,
     "pipebicgstab_halo": pipebicgstab_halo,
+    "ghost_chain_fused": ghost_chain_fused,
+    "ghost_chain_halo": ghost_chain_halo,
 }
 
 
@@ -131,3 +135,37 @@ def pipebicgstab_halo_step(offsets: Sequence[int], bands_ext, csum,
                   w_lo, w_hi, t_lo, t_hi, c_lo, c_hi))
     return pipebicgstab_halo(tuple(offsets), bands_ext, csum, *vecs,
                              alpha, beta, omega)
+
+
+def ghost_chain_step(offsets: Sequence[int], bands, p, r, theta, l: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depth-l ghost basis + Gram in one sweep (kernel-backed on CUDA).
+
+    Returns ``(chain, gram)``: the (2l+1, n) theta-scaled basis
+    [p, A~p, .., A~^l p, r, .., A~^(l-1) r] and its (2l+1, 2l+1) Gram
+    matrix, the one reduction of a depth-l block.
+    """
+    return ghost_chain_fused(tuple(offsets), bands, p.contiguous(),
+                             r.contiguous(), theta, l)
+
+
+def ghost_chain_halo_step(offsets: Sequence[int], bands_ext, p, r, p_left,
+                          p_right, r_left, r_right, theta, l: int,
+                          accum_dtype=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's depth-l ghost-chain sweep with neighbour strips.
+
+    The strips are (l*h,), exchanged once per block; ``bands_ext`` is the
+    once-per-solve l*h-extended operator.  The returned ``gram`` is this
+    rank's PARTIAL Gram (the caller all-reduces it).
+    """
+    n = p.shape[-1]
+    H = l * max(abs(int(o)) for o in offsets)
+    if n < 2 * H:
+        raise ValueError(
+            f"local shard of {n} rows is narrower than the 2*l*halo={2 * H} "
+            "chain reach; use fewer ranks or a smaller depth")
+    vecs = tuple(v.contiguous() for v in (p, r, p_left, p_right, r_left,
+                                          r_right))
+    return ghost_chain_halo(tuple(offsets), bands_ext, *vecs, theta, l,
+                            accum_dtype)

@@ -22,6 +22,19 @@ The accumulator dtype is x's; r, u, p and the operator (bands, diag^-1,
 column sums) may be stored as bfloat16 or float8_e4m3fn.  Loads widen and
 only the r', u', p' stores narrow.  The callers compute diag^-1 and the
 column sums once per solve and pass them in.
+
+``ghost_chain_fused`` replaces ``repro/kernels/pipecg_spmv_fused.py::
+ghost_chain_fused``, the depth-l sweep: with ``A~ = A / theta`` it returns
+the (2l+1, n) ghost basis ``C = [p, A~p, .., A~^l p, r, A~r, ..,
+A~^(l-1) r]`` and its (2l+1, 2l+1) Gram matrix ``C C^T``, the one
+reduction of a depth-l block (core/krylov/pipeline.py).  Its kernel
+(csrc/ghost_chain.cu) is bound by bytes: 2 + n_bands + 2l + 1 words per
+row, 10n for the tridiagonal operator at l = 2.  ``ghost_chain_halo``
+replaces the per-rank form ``::ghost_chain_halo`` and launches the same
+kernel with the neighbours' (l*h,) strips of p and r and the operator
+rows [-l*h, n + l*h); its Gram is this rank's PARTIAL sum.  Links and
+Gram run at the accumulator dtype; p, r, the bands and C may be stored
+narrower, and the Gram is taken before C's store narrows it.
 """
 from __future__ import annotations
 
@@ -34,6 +47,8 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.spmv_dia import spmv_dia_plain
 
 NRED = 6  # <r,u>, <w,u>, <r,r>, <r,w>, <w,w>, ABFT 1^T(Au') - c^T u'
+#: rows per CTA of the ghost-chain sweep (twice that for a wide reach)
+CHAIN_TILE = 1024
 
 
 def _halo(offsets: Sequence[int]) -> int:
@@ -217,3 +232,195 @@ def pipecg_spmv_halo(offsets: Sequence[int], bands_ext, invd_ext, csum,
 
 pipecg_spmv_fused.launches = 0
 pipecg_spmv_halo.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Depth-l ghost-chain sweep
+# ---------------------------------------------------------------------------
+
+def _chain_accum(p: torch.Tensor, accum_dtype) -> torch.dtype:
+    """Links' and Gram's dtype: ``accum_dtype``, else p's widened to f32."""
+    if accum_dtype is not None:
+        return accum_dtype
+    return p.dtype if p.dtype in _b.ACCUM_DTYPES else torch.float32
+
+
+def _theta_inv(theta, acc, device) -> torch.Tensor:
+    """``1 / theta`` at ``acc`` (theta cast first, as the reference does)."""
+    th = (theta.to(device=device, dtype=acc) if torch.is_tensor(theta)
+          else torch.tensor(float(theta), dtype=acc, device=device))
+    return (1.0 / th).reshape(())
+
+
+def _chain_plain(offsets, bands_ext, p_e, r_e, theta, l: int, acc
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's arithmetic over rows [-l*h, n + l*h) in plain torch.
+
+    ``bands_ext``, ``p_e`` and ``r_e`` hold those rows; link j is kept on
+    rows [-(l - j) h, n + (l - j) h), each row zero, + band_k * (link
+    j-1 at row + off_k) in band order, * (1/theta), as the kernel does.
+    Returns (C (2l+1, n) in p's dtype, Gram at ``acc``).
+    """
+    h = _halo(offsets)
+    H = l * h
+    n = p_e.shape[-1] - 2 * H
+    th_inv = _theta_inv(theta, acc, p_e.device)
+    bands_a = bands_ext.to(acc)
+
+    def links(v, depth):
+        a = v.to(acc)
+        out = [a[H:H + n]]
+        for j in range(1, depth + 1):
+            width = n + 2 * (H - j * h)
+            nxt = torch.zeros(width, dtype=acc, device=a.device)
+            for k, off in enumerate(offsets):
+                nxt = nxt + bands_a[k, j * h:j * h + width] \
+                    * a[h + off:h + off + width]
+            a = nxt * th_inv
+            out.append(a[H - j * h:H - j * h + n])
+        return out
+
+    C = torch.stack(links(p_e, l) + links(r_e, l - 1))
+    return C.to(p_e.dtype), C @ C.T
+
+
+def ghost_chain_fused_plain(offsets: Sequence[int], bands, p, r, theta,
+                            l: int, accum_dtype=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-device chain sweep in plain torch (zero beyond the matrix).
+
+    p, r (n,), bands (n_bands, n), theta a scalar.  Returns (C (2l+1, n),
+    Gram (2l+1, 2l+1)).
+    """
+    H = l * _halo(offsets)
+    pad = torch.nn.functional.pad
+    return _chain_plain(offsets, pad(bands, (H, H)), pad(p, (H, H)),
+                        pad(r, (H, H)), theta, l,
+                        _chain_accum(p, accum_dtype))
+
+
+def ghost_chain_halo_plain(offsets: Sequence[int], bands_ext, p, r, p_lo,
+                           p_hi, r_lo, r_hi, theta, l: int, accum_dtype=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's chain sweep in plain torch.
+
+    p, r (n,) local rows; p_lo/p_hi/r_lo/r_hi (l*h,) the rows [-l*h, 0)
+    and [n, n + l*h); bands_ext (n_bands, n + 2 l*h) the operator rows
+    [-l*h, n + l*h).  Returns (C, this rank's PARTIAL Gram).
+    """
+    return _chain_plain(offsets, bands_ext, torch.cat([p_lo, p, p_hi]),
+                        torch.cat([r_lo, r, r_hi]), theta, l,
+                        _chain_accum(p, accum_dtype))
+
+
+def chain_plan(reach: int, m: int, acc_bytes: int) -> Tuple[int, int, bool]:
+    """(tile rows, workspace words per CTA, in shared memory?) of a sweep.
+
+    The workspace holds two windows of tile + 2 reach rows and the
+    (m, tile) link block: in shared memory when it fits ``SMEM_DYNAMIC``,
+    else in a global scratch.
+    """
+    tile = CHAIN_TILE if 2 * reach <= CHAIN_TILE else 2 * CHAIN_TILE
+    ws = 2 * (tile + 2 * reach) + m * tile
+    return tile, ws, ws * acc_bytes <= _b.SMEM_DYNAMIC
+
+
+def _chain_launch(name: str, offsets, bands, p, r, theta, l: int,
+                  accum_dtype, oext: int, strips=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the operands and launch the chain kernel on p's device.
+
+    ``bands`` (n_bands, n + 2 oext) holds the operator rows
+    [-oext, n + oext); ``strips`` is None (zero outside [0, n)) or
+    (p_lo, p_hi, r_lo, r_hi), each (l*h,).
+    """
+    (n,) = p.shape
+    nb = len(offsets)
+    if not 1 <= nb <= _b.MAX_BANDS:
+        raise ValueError(f"{name}: {nb} bands, the kernel takes 1.."
+                         f"{_b.MAX_BANDS}")
+    if l < 1:
+        raise ValueError(f"{name}: depth l={l} < 1")
+    acc = _chain_accum(p, accum_dtype)
+    if acc not in _b.ACCUM_DTYPES:
+        raise ValueError(f"{name}: accumulator must be float32 or float64")
+    sto = p.dtype
+    H = l * _halo(offsets)
+    shapes = [("r", r, (n,)), ("bands", bands, (nb, n + 2 * oext))]
+    if strips is not None:
+        shapes += [(key, t, (H,)) for key, t in
+                   zip(("p_lo", "p_hi", "r_lo", "r_hi"), strips)]
+    for key, t, shape in shapes:
+        if tuple(t.shape) != shape or t.dtype != sto:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {sto}")
+    th_inv = _theta_inv(theta, acc, p.device).contiguous()
+    _b.check_cuda(name, p.device, p=p, th_inv=th_inv,
+                  **{key: t for key, t, _ in shapes})
+    m = 2 * l + 1
+    tile, ws, shared = chain_plan(H, m, torch.finfo(acc).bits // 8)
+    nblk = -(-n // tile)
+    chain = torch.empty((m, n), dtype=sto, device=p.device)
+    partials = torch.empty((m * (m + 1) // 2, nblk), dtype=acc,
+                           device=p.device)
+    gram = torch.empty((m, m), dtype=acc, device=p.device)
+    scratch = None if shared else torch.empty(nblk * ws, dtype=acc,
+                                              device=p.device)
+    offs = (ctypes.c_int * nb)(*[int(o) for o in offsets])
+    P = _b.ptr
+    lo_hi = [P(t) for t in strips] if strips is not None else [None] * 4
+    with torch.cuda.device(p.device):
+        rc = _b.lib().rt_ghost_chain(
+            _b.DTYPE_CODES[acc], _b.dtype_code(name, p), offs, nb, n, l,
+            P(bands), oext, P(p), P(r), *lo_hi, H, n, P(th_inv),
+            P(chain), tile, P(scratch), ws, P(partials), nblk, P(gram),
+            _b.stream_of(p.device))
+    _b.raise_on_error(name, rc)
+    return chain, gram
+
+
+def ghost_chain_fused(offsets: Sequence[int], bands, p, r, theta, l: int,
+                      accum_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depth-l ghost basis and its Gram matrix on one device.
+
+    p, r (n,), bands (n_bands, n), theta a scalar or 0-d tensor.  Returns
+    (C (2l+1, n) in p's dtype, Gram (2l+1, 2l+1) at ``accum_dtype``,
+    default p's dtype widened to at least float32).  CUDA tensors launch
+    the CUDA kernel (or raise); CPU tensors take
+    :func:`ghost_chain_fused_plain`.  ``ghost_chain_fused.launches``
+    counts kernel launches.
+    """
+    if _on_cpu("ghost_chain_fused", p, bands, r):
+        return ghost_chain_fused_plain(offsets, bands, p, r, theta, l,
+                                       accum_dtype)
+    outs = _chain_launch("ghost_chain_fused", offsets, bands, p, r, theta, l,
+                         accum_dtype, oext=0)
+    ghost_chain_fused.launches += 1
+    return outs
+
+
+def ghost_chain_halo(offsets: Sequence[int], bands_ext, p, r, p_lo, p_hi,
+                     r_lo, r_hi, theta, l: int, accum_dtype=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's depth-l ghost basis and PARTIAL Gram matrix.
+
+    p, r (n,) local rows; p_lo/p_hi/r_lo/r_hi (l*h,) the rows [-l*h, 0)
+    and [n, n + l*h) (zeros at the ends of the chain); bands_ext
+    (n_bands, n + 2 l*h) the operator rows [-l*h, n + l*h).  The caller
+    finishes the Gram with an all-reduce.  CUDA tensors launch the chain
+    kernel (or raise); CPU tensors take :func:`ghost_chain_halo_plain`.
+    ``ghost_chain_halo.launches`` counts kernel launches.
+    """
+    strips = (p_lo, p_hi, r_lo, r_hi)
+    if _on_cpu("ghost_chain_halo", p, bands_ext, r, *strips):
+        return ghost_chain_halo_plain(offsets, bands_ext, p, r, *strips,
+                                      theta, l, accum_dtype)
+    outs = _chain_launch("ghost_chain_halo", offsets, bands_ext, p, r, theta,
+                         l, accum_dtype, oext=l * _halo(offsets),
+                         strips=strips)
+    ghost_chain_halo.launches += 1
+    return outs
+
+
+ghost_chain_fused.launches = 0
+ghost_chain_halo.launches = 0

@@ -9,7 +9,10 @@ on a machine that has only the port's requirements:
 Vectors must agree bit for bit (the kernels round as the plain versions
 do); the reduction partials, summed in another order, to 1e-10 (float64)
 and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes, as
-``fused_dots``'s coefficients to 1e-12 and 1e-5.
+``fused_dots``'s coefficients to 1e-12 and 1e-5.  The ghost-chain sweep's
+chains bit for bit (bf16 ones too: the links run at float32 in both), its
+Gram as the partials.  The 21-band glen operator (H10) runs through every
+sweep.
 """
 import pytest
 import torch
@@ -21,7 +24,11 @@ from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
                                                     pipebicgstab_halo,
                                                     pipebicgstab_halo_plain)
 from repro_torch.kernels.pipecg_fused import pipecg_fused, pipecg_fused_plain
-from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused,
+from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
+                                                   ghost_chain_fused_plain,
+                                                   ghost_chain_halo,
+                                                   ghost_chain_halo_plain,
+                                                   pipecg_spmv_fused,
                                                    pipecg_spmv_fused_plain,
                                                    pipecg_spmv_halo,
                                                    pipecg_spmv_halo_plain)
@@ -250,3 +257,138 @@ def test_pipebicgstab_fused_solve_on_card_matches_naive(cuda):
         engine="naive", maxiter=20, M="jacobi"))
     torch.testing.assert_close(fused.res_history, naive.res_history,
                                rtol=1e-10, atol=0)
+
+
+def _glen(n, cuda):
+    from repro_torch.core.krylov import glen_law_band
+    return glen_law_band(n, bandwidth=10, device=cuda)
+
+
+@pytest.mark.cuda
+def test_sweeps_run_21_bands_on_card(cuda):
+    """H10: spmv_dia, the PIPECG sweep and the p-BiCGStab sweep take the
+    21-band glen operator and equal their plain versions."""
+    A = _glen(6000, cuda)
+    assert len(A.offsets) == 21
+    g = torch.Generator(device=cuda).manual_seed(7)
+    k, n = 2, A.n
+    x, r, u, p = (torch.randn(k, n, generator=g, device=cuda,
+                              dtype=torch.float64) for _ in range(4))
+    a, b = (torch.rand(k, generator=g, device=cuda, dtype=torch.float64)
+            for _ in range(2))
+    invd = 1.0 / A.diagonal()
+    csum = dia_column_checksum(A.offsets, A.bands)
+    assert torch.equal(spmv_dia(A.offsets, A.bands, x),
+                       spmv_dia_plain(A.offsets, A.bands, x))
+    got = pipecg_spmv_fused(A.offsets, A.bands, invd, csum, x, r, u, p, a, b)
+    want = pipecg_spmv_fused_plain(A.offsets, A.bands, invd, csum,
+                                   x, r, u, p, a, b)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got[:4], want[:4]):
+        assert torch.equal(gv, wv)
+    rel = float(((got[4] - want[4]).abs()
+                 / want[4].abs().clamp(min=1.0)).max())
+    assert rel <= 1e-10
+    chains = [torch.randn(n, generator=g, device=cuda, dtype=torch.float64)
+              for _ in range(7)]
+    sc = [torch.rand((), generator=g, device=cuda, dtype=torch.float64)
+          for _ in range(3)]
+    args = (A.offsets, A.bands, csum, x[0], *chains, *sc)
+    got = pipebicgstab_fused(*args)
+    want = pipebicgstab_fused_plain(*args)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got[:7], want[:7]):
+        assert torch.equal(gv, wv)
+    C = torch.stack([want[i] for i in (1, 2, 3, 5, 6)] + [chains[6]])
+    assert _gram_rel(got[7], want[7], C, csum) <= 1e-10
+
+
+def _chain_gram_rel(got, want, C):
+    mags = C.abs() @ C.abs().T
+    return float(((got - want).abs()
+                  / mags.clamp(min=torch.finfo(mags.dtype).tiny)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 2, 4, 8])
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_ghost_chain_kernel_matches_plain_on_card(cuda, l, acc, sto):
+    """On ex23, laplacian_2d and glen (ragged tiles: n is no multiple of
+    the tile); laplacian_2d at l = 8 in float64 runs the global-memory
+    workspace (tests/test_torch_kernels.py::test_chain_plan_picks_the_
+    workspace), the others the shared one."""
+    from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for A in (tridiagonal_laplacian(5001, device=cuda),
+              laplacian_2d(70, 50, device=cuda), _glen(3001, cuda)):
+        bands = A.bands.to(sto)
+        p, r = (torch.randn(A.n, generator=g, device=cuda,
+                            dtype=torch.float64).to(sto) for _ in range(2))
+        theta = torch.tensor(3.7, dtype=torch.float64, device=cuda)
+        want = ghost_chain_fused_plain(A.offsets, bands, p, r, theta, l,
+                                       accum_dtype=acc)
+        got = ghost_chain_fused(A.offsets, bands, p, r, theta, l,
+                                accum_dtype=acc)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        wide = ghost_chain_fused_plain(A.offsets, bands.to(acc), p.to(acc),
+                                       r.to(acc), theta, l)[0]
+        rel = _chain_gram_rel(got[1], want[1], wide)
+        assert rel <= (1e-10 if acc == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.bfloat16)])
+def test_ghost_chain_halo_kernel_matches_plain_on_card(cuda, acc, sto):
+    """An interior rank with random strips and a random operator
+    extension; zeroing the extension changes the Gram."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    offsets = (-3, -1, 0, 2)
+    h, n, l = 3, 4000, 2
+    H = l * h
+
+    def rnd(*shape, dt=sto):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=torch.float64).to(dt)
+
+    bands = rnd(len(offsets), n + 2 * H)
+    p, r = rnd(n), rnd(n)
+    strips = [rnd(H) for _ in range(4)]
+    args = (offsets, bands, p, r, *strips, 2.9, l)
+    got = ghost_chain_halo(*args, accum_dtype=acc)
+    want = ghost_chain_halo_plain(*args, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    rel = float(((got[1] - want[1]).abs()
+                 / want[1].abs().clamp(min=1.0)).max())
+    assert rel <= (1e-10 if acc == torch.float64 else 1e-3)
+    cut = bands.clone()
+    cut[:, :H] = 0
+    cut[:, -H:] = 0
+    moved = ghost_chain_halo(offsets, cut, *args[2:], accum_dtype=acc)[1]
+    assert not torch.allclose(moved, got[1])
+
+
+@pytest.mark.cuda
+def test_depth_solve_on_card_matches_naive(cuda):
+    from repro_torch.core.krylov import (SolverOptions, pipecg_l,
+                                         tridiagonal_laplacian)
+    from repro_torch.kernels import ops
+    A = tridiagonal_laplacian(4096, device=cuda)
+    b = torch.randn(4096, generator=torch.Generator(device=cuda)
+                    .manual_seed(10), device=cuda, dtype=torch.float64)
+    for l in (2, 4):
+        before = ops.launch_counts()
+        fused = pipecg_l(A, b, options=SolverOptions(engine="fused",
+                                                     maxiter=60, depth=l))
+        after = ops.launch_counts()
+        assert after["ghost_chain_fused"] - before["ghost_chain_fused"] \
+            == 60 // l
+        assert after["spmv_dia"] == before["spmv_dia"]
+        naive = pipecg_l(A, b, options=SolverOptions(engine="naive",
+                                                     maxiter=60, depth=l))
+        torch.testing.assert_close(fused.res_history, naive.res_history,
+                                   rtol=1e-10, atol=0)

@@ -20,6 +20,13 @@ rounds and is held against the JAX package's sharded body on a one-device
 mesh (:func:`_jax_sharded_low_precision`); its ABFT row reads the
 demotion error of the column sums, so it is held to that row to rtol 1e-9
 instead of to the rounding bound 1e-9 (ROUNDED_BANDS).
+
+The depth-l cases (``pipecg_l``, l = 2 and 4) are held against the JAX
+package's local ``pipecg_l(engine="naive")`` and the port's one-device
+``pipecg_l(engine="fused")`` to rtol 1e-10, their tol case freezing at
+the same block; the bf16 depth case against the JAX package's sharded
+depth body on a one-device mesh with its chain kernel replaced by the
+TPU kernel's arithmetic in jnp (:func:`_jax_sharded_depth_low_precision`).
 """
 import numpy as np
 import pytest
@@ -38,13 +45,13 @@ from repro.core.perfmodel.distributions import Exponential as JExponential
 from repro_torch import convert
 from repro_torch.core.krylov import (PrecisionPolicy, SolverOptions, cg,
                                      distributed_solve, pipebicgstab, pipecg,
-                                     pipecg_multi, pipecr)
+                                     pipecg_l, pipecg_multi, pipecr)
 from repro_torch.core.krylov.engine import get_engine
 from repro_torch.core.noise import NoiseHook, sample_np, scale_distribution
 from repro_torch.core.noise.traces import EmpiricalDistribution
 from repro_torch.core.perfmodel import Exponential, LogNormal, Uniform
 from repro_torch.distributed import ranks
-from repro_torch.distributed.overlap import split_phase_ok
+from repro_torch.distributed.overlap import depth_order_ok, split_phase_ok
 
 SCALE = 1e-5   # seconds per unit noise draw: 10 us mean waits
 
@@ -107,7 +114,23 @@ CASES = {
                            dict(SHARDED, maxiter=20), True),
     "pipebicgstab-inline": ("pipebicgstab", "cd", "cd", dict(maxiter=20),
                             False),
+    "depth2": ("pipecg_l", "ex23", "ex23", dict(SHARDED, maxiter=80, l=2),
+               False),
+    "depth4": ("pipecg_l", "ex23", "ex23", dict(SHARDED, maxiter=80, l=4),
+               False),
+    "depth2-lap2d": ("pipecg_l", "lap2d", "lap2d",
+                     dict(SHARDED, maxiter=20, l=2), False),
+    "depth2-jacobi": ("pipecg_l", "spd", "spd",
+                      dict(SHARDED, maxiter=60, l=2, M="jacobi"), False),
+    "depth2-tol": ("pipecg_l", "spd", "spd",
+                   dict(SHARDED, maxiter=80, l=2, tol=3e-2), False),
+    # bf16 rounds the random bands of "spd"
+    "depth2-bf16": ("pipecg_l", "spd", "spd",
+                    dict(SHARDED, maxiter=12, l=2, precision="bf16"), False),
+    "depth2-noise": ("pipecg_l", "ex23", "ex23",
+                     dict(SHARDED, maxiter=80, l=2), True),
 }
+DEPTH = [n for n, c in CASES.items() if c[0] == "pipecg_l"]
 NAMES = list(CASES)
 
 
@@ -136,6 +159,8 @@ def _reference(name):
         return jk.pipecg_multi(A, b, maxiter=it, engine="naive")
     if kw.get("precision") and solver == "pipebicgstab":
         return _jax_sharded_low_precision(A, b, kw)
+    if kw.get("precision") and solver == "pipecg_l":
+        return _jax_sharded_depth_low_precision(A, b, kw)
     if kw.get("precision"):
         # the JAX fused path reaches Pallas; the port's single-device bf16
         # sweep is held against the reference sweep in test_torch_solvers
@@ -145,6 +170,8 @@ def _reference(name):
     opts = dict(maxiter=it, tol=kw.get("tol", 0.0), M=kw.get("M"))
     if kw.get("engine"):
         opts["engine"] = "naive"
+    if "l" in kw:
+        opts["depth"] = kw["l"]
     return getattr(jk, solver)(A, b, options=jk.SolverOptions(**opts))
 
 
@@ -179,6 +206,46 @@ def _jax_sharded_low_precision(A, b, kw):
         return jk.distributed_solve(jk.pipebicgstab, A, b, mesh, **kw)
 
 
+def _jax_sharded_depth_low_precision(A, b, kw):
+    """The JAX package's sharded depth body on a one-device mesh.
+
+    Its chain kernel is a Pallas kernel (H1), so the sweep is the TPU
+    kernel's arithmetic (``_chain_kernel``) in jnp: p, r, the strips and
+    the operator extension widen to the accumulator, each link is zero +
+    band_k * (link at row + off_k) in band order times 1/theta, the Gram
+    is taken at the accumulator and only the chain narrows back.
+    """
+    def sweep(offsets, bands_ext, p, r, p_l, p_r, r_l, r_r, theta, l,
+              accum_dtype=None, **_):
+        acc = accum_dtype or jnp.promote_types(p.dtype, jnp.float32)
+        h = max(abs(o) for o in offsets)
+        H, n = l * h, p.shape[0]
+        th_inv = 1.0 / jnp.asarray(theta, acc)
+        bands = bands_ext.astype(acc)
+
+        def links(v, depth):
+            a = v.astype(acc)
+            out = [a[H:H + n]]
+            for j in range(1, depth + 1):
+                width = n + 2 * (H - j * h)
+                nxt = jnp.zeros((width,), acc)
+                for k, off in enumerate(offsets):
+                    nxt = nxt + bands[k, j * h:j * h + width] \
+                        * a[h + off:h + off + width]
+                a = nxt * th_inv
+                out.append(a[H - j * h:H - j * h + n])
+            return out
+
+        C = jnp.stack(links(jnp.concatenate([p_l, p, p_r]), l)
+                      + links(jnp.concatenate([r_l, r, r_r]), l - 1))
+        return C.astype(p.dtype), C @ C.T
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("x",))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jops, "ghost_chain_halo_step", sweep)
+        return jk.distributed_solve(jk.pipecg_l, A, b, mesh, **kw)
+
+
 @pytest.fixture(scope="module")
 def references():
     return {name: _reference(name) for name in NAMES}
@@ -209,7 +276,8 @@ def test_distributed_solve_matches_reference(runs, references, name):
     i = NAMES.index(name)
     got = per_rank[0][i]
     want = references[name]
-    if CASES[name][3].get("tol") and CASES[name][0] != "pipebicgstab":
+    if CASES[name][3].get("tol") and CASES[name][0] not in ("pipebicgstab",
+                                                            "pipecg_l"):
         # the split-phase body sees ||r_i|| one iteration late, so it
         # freezes one iteration after the local solver does (as the JAX
         # package's sharded body does), on the state one step further on
@@ -223,7 +291,8 @@ def test_distributed_solve_matches_reference(runs, references, name):
                                                   engine="naive"))
     else:
         # p-BiCGStab detects convergence from the carried Gram on one
-        # device too, so a tol case freezes at the same iteration
+        # device too, and the depth body consumes its Gram in the block
+        # that takes it, so a tol case freezes at the same iteration
         _hist_close(want.res_history, got["res_history"])
         np.testing.assert_array_equal(got["iters"], _np(want.iters))
         if CASES[name][3].get("tol"):
@@ -244,7 +313,7 @@ def test_distributed_solve_matches_reference(runs, references, name):
 # ("cd": -1.4, 2.2, -0.6) the sweep applies the demoted operator while
 # c = A^T 1 is the full-precision one, so the column reads (c_bf16 - c)^T w',
 # ~1e-3: such a case is held to the reference's row to rtol 1e-9 instead.
-ROUNDED_BANDS = {"pipebicgstab-bf16"}
+ROUNDED_BANDS = {"pipebicgstab-bf16", "depth2-bf16"}
 
 
 @pytest.mark.parametrize("name", [n for n in NAMES
@@ -280,10 +349,12 @@ def test_noise_only_delays(runs):
     """The noisy solve equals the quiet one bit for bit; every rank's
     waits are the draws of its substream (seed 0, shard = rank)."""
     world, per_rank = runs
-    # sharded: one wait per iteration; inline cg: one per SpMV
-    for quiet, noisy, extra in (("pipecg", "pipecg-noise", 0),
-                                ("cg-inline", "cg-inline-noise", 2),
-                                ("pipebicgstab", "pipebicgstab-noise", 0)):
+    # sharded: one wait per iteration (per block at depth l); inline cg:
+    # one per SpMV, two of them at set-up
+    for quiet, noisy, n_waits in (("pipecg", "pipecg-noise", 80),
+                                  ("cg-inline", "cg-inline-noise", 82),
+                                  ("pipebicgstab", "pipebicgstab-noise", 20),
+                                  ("depth2", "depth2-noise", 40)):
         qi, ni = NAMES.index(quiet), NAMES.index(noisy)
         for rank, outcome in enumerate(per_rank):
             q, nz = outcome[qi], outcome[ni]
@@ -293,8 +364,67 @@ def test_noise_only_delays(runs):
             draws = np.random.default_rng((0, rank)).exponential(
                 1.0, size=waits.shape) * SCALE
             np.testing.assert_array_equal(waits, draws)
-            assert waits.size == CASES[noisy][3]["maxiter"] + extra
+            assert waits.size == n_waits
         assert world == len(per_rank)
+
+
+@pytest.mark.parametrize("name", [n for n in DEPTH
+                                  if not CASES[n][3].get("precision")])
+def test_sharded_depth_matches_the_port_one_device(runs, name):
+    """The depth body on P ranks equals the port's one-device pipecg_l
+    through the chain kernel's plain version, block for block."""
+    _, per_rank = runs
+    got = per_rank[0][NAMES.index(name)]
+    _, op, rhs, kw, _ = CASES[name]
+    one = pipecg_l(_port_op(op), torch.from_numpy(RHS[rhs].copy()),
+                   options=SolverOptions(
+                       maxiter=kw["maxiter"], tol=kw.get("tol", 0.0),
+                       M=kw.get("M"), depth=kw["l"], engine="fused"))
+    _hist_close(one.res_history, got["res_history"])
+    np.testing.assert_array_equal(got["iters"], one.iters.numpy())
+    xw = one.x.numpy()
+    np.testing.assert_allclose(got["x"], xw, rtol=0,
+                               atol=1e-10 * np.abs(xw).max())
+
+
+@pytest.mark.parametrize("name", DEPTH)
+def test_depth_reduces_once_per_block(runs, name):
+    """One recorded all-reduce per block of l iterations and the depth
+    order on every rank; the blocking ones are the set-up's two (theta,
+    the tolerance scale) and the final residual's."""
+    _, per_rank = runs
+    i = NAMES.index(name)
+    kw = CASES[name][3]
+    blocks = -(-kw["maxiter"] // kw["l"])
+    for outcome in per_rank:
+        assert outcome[i]["reductions"] == blocks
+        assert outcome[i]["all_reduces"] == 3
+        assert outcome[i]["order_ok"] is True
+
+
+def test_bf16_storage_changes_the_depth_history(runs):
+    _, per_rank = runs
+    low = per_rank[0][NAMES.index("depth2-bf16")]["res_history"]
+    full = _np(pipecg_l(_port_op("spd"), torch.from_numpy(RHS["spd"].copy()),
+                        options=SolverOptions(maxiter=12, depth=2,
+                                              engine="fused")).res_history)
+    assert np.max(np.abs(low - full) / full) > 1e-3
+
+
+def test_depth_order_ok_rejects_wrong_orders():
+    good = []
+    for b in range(3):
+        good += [("halo", b), ("launch", b), ("issue", b), ("wait", b)]
+    assert depth_order_ok(good, 3)
+    swapped = list(good)
+    swapped[1], swapped[2] = swapped[2], swapped[1]    # issue before launch
+    assert not depth_order_ok(swapped, 3)
+    late = list(good)
+    late[3], late[4] = late[4], late[3]    # next halo before this wait
+    assert not depth_order_ok(late, 3)
+    assert not depth_order_ok(good + [("issue", 1)], 3)   # a second reduce
+    assert not depth_order_ok(good[:-1], 3)
+    assert not split_phase_ok(good, 3)
 
 
 def test_inline_pipebicgstab_reduces_once_per_iteration(runs):
@@ -380,7 +510,8 @@ def test_unsupported_options_raise(one_rank):
     T = _port_op("ex23")
     b = torch.from_numpy(RHS["ex23"].copy())
     cases = [
-        (NotImplementedError, "item 8", dict(engine="sharded_fused", l=2)),
+        (ValueError, "needs solver pipecg_l",
+         dict(engine="sharded_fused", l=2)),
         (NotImplementedError, "item 10",
          dict(engine="sharded_fused", precision="bf16_int8wire")),
         (NotImplementedError, "item 11",
@@ -410,8 +541,25 @@ def test_unsupported_options_raise(one_rank):
         distributed_solve(cg, T, b, maxiter=3, use_kernel=True)
     with pytest.raises(ValueError, match="supports pipecg"):
         distributed_solve(cg, T, b, engine="sharded_fused", maxiter=3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_engine("sharded_fused").body("pipecg_l")
+    from repro_torch.core.krylov.distributed import (
+        sharded_pipecg_depth_solve)
+    assert get_engine("sharded_fused").body("pipecg_l") is \
+        sharded_pipecg_depth_solve
+    # the depth body's own rejections, and the inline path's
+    for exc, match, kw in (
+            (ValueError, "mid-recurrence", dict(x0=torch.zeros(4096))),
+            (ValueError, "int8", dict(precision="bf16_int8wire")),
+            (ValueError, "M must be None", dict(M=lambda z: z)),
+            (TypeError, "unsupported kwargs", dict(rr=3)),
+            (ValueError, "chain reach", dict(l=3000))):
+        with pytest.raises(exc, match=match):
+            distributed_solve(pipecg_l, T, b, engine="sharded_fused",
+                              **dict(dict(maxiter=3, l=2), **kw))
+    with pytest.raises(ValueError, match="single-RHS"):
+        distributed_solve(pipecg_l, T, torch.stack([b, b]),
+                          engine="sharded_fused", maxiter=3, l=2)
+    with pytest.raises(ValueError, match="sharded_fused"):
+        distributed_solve(pipecg_l, T, b, maxiter=3, l=2)
     # the p-BiCGStab body is found now; its own rejections
     from repro_torch.core.krylov.distributed import sharded_pipebicgstab_solve
     assert get_engine("sharded_fused").body("pipebicgstab") is \

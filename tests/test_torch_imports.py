@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.kernels.pipecg_spmv_fused",
             "repro_torch.core.krylov.bicgstab",
             "repro_torch.core.perfmodel.sync",
-            "repro_torch.kernels.pipebicgstab_fused"} <= set(names)
+            "repro_torch.kernels.pipebicgstab_fused",
+            "repro_torch.core.krylov.pipeline",
+            "repro_torch.core.perfmodel.depth"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -78,4 +80,5 @@ def test_kernel_sources_are_in_the_package():
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
-        "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu"}
+        "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu",
+        "ghost_chain.cu"}

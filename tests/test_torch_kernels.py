@@ -6,7 +6,11 @@ and atol 1e-12; the halo sweeps' rank slices 1e-13 against the global
 sweep, and their partial rows and Gram payloads to 1e-12 of their terms'
 magnitudes), and
 ``fused_dots`` against the JAX package's Pallas kernel run in interpret
-mode.  tests/test_torch_cuda.py holds the CUDA kernels against
+mode.  The ghost-chain sweep's plain version multiplies by 1/theta where
+the reference's naive chain divides by theta: chains to rtol 1e-14 of
+their largest entry (1e-6 in float32), Grams to 1e-12 (1e-5) of their
+terms' magnitudes; its rank slices equal the one-device chain bit for
+bit.  tests/test_torch_cuda.py holds the CUDA kernels against
 the plain versions on the card.
 """
 import jax.numpy as jnp
@@ -23,7 +27,12 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels.checksum import dia_column_checksum
 from repro_torch.kernels.pipebicgstab_fused import (
     pipebicgstab_fused, pipebicgstab_fused_plain, pipebicgstab_halo_plain)
-from repro_torch.kernels.pipecg_spmv_fused import (pipecg_spmv_fused_plain,
+from repro_torch.kernels.pipecg_spmv_fused import (chain_plan,
+                                                   ghost_chain_fused,
+                                                   ghost_chain_fused_plain,
+                                                   ghost_chain_halo,
+                                                   ghost_chain_halo_plain,
+                                                   pipecg_spmv_fused_plain,
                                                    pipecg_spmv_halo_plain)
 from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
 
@@ -170,8 +179,8 @@ def test_build_is_lazy_and_names_sm90a():
     assert "arch=compute_90a,code=sm_90a" in build.ARCH
     assert build.library_path().parent == build.BUILD_DIR
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "fused_dots.cu", "pipebicgstab_fused.cu", "pipecg_fused.cu",
-        "pipecg_spmv_fused.cu", "spmv_dia.cu"]
+        "fused_dots.cu", "ghost_chain.cu", "pipebicgstab_fused.cu",
+        "pipecg_fused.cu", "pipecg_spmv_fused.cu", "spmv_dia.cu"]
 
 
 # -- the per-rank halo sweep --------------------------------------------------
@@ -535,3 +544,155 @@ def test_pipebicgstab_wrapper_rejects_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         pipebicgstab_fused(T.offsets, T.bands, T.bands[0], v, v, v, v, v, v,
                            v, v, 0.1, 0.2, 0.3)
+
+
+# -- the depth-l ghost-chain sweep -------------------------------------------
+
+def test_band_limit_is_shared_with_the_kernels():
+    """H10: the Python and CUDA band limits are one number, and the
+    21-band glen operator fits under it."""
+    import re
+    src = (build.CSRC / "common.cuh").read_text()
+    k_max = int(re.search(r"constexpr int kMaxBands = (\d+);", src).group(1))
+    assert build.MAX_BANDS == k_max >= 21
+    assert len(jops.glen_law_band(64, bandwidth=10).offsets) <= k_max
+
+
+def _chain_ops():
+    return {"tridiag": jops.tridiagonal_laplacian(130),
+            "lap2d": jops.laplacian_2d(9, 16),
+            "glen": jops.glen_law_band(150, bandwidth=10)}
+
+
+@pytest.mark.parametrize("dt", ["float64", "float32"])
+@pytest.mark.parametrize("l", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", ["tridiag", "lap2d", "glen"])
+def test_ghost_chain_plain_matches_the_reference_chain(name, l, dt):
+    from repro.core.krylov import pipeline as jpipe
+    from repro.core.krylov.engine import NaiveEngine
+    A = _chain_ops()[name]
+    A = jops.DiaMatrix(offsets=A.offsets, bands=A.bands.astype(dt))
+    T = convert.dia_from_numpy(A.offsets, np.asarray(A.bands), device="cpu")
+    rng = np.random.default_rng(20)
+    p, r = (rng.standard_normal(A.n).astype(dt) for _ in range(2))
+    theta = np.asarray(jpipe.dia_inf_norm(A))
+    C, G = jpipe._ghost_chain(A, jnp.asarray(p), jnp.asarray(r),
+                              jnp.asarray(theta), l, NaiveEngine())
+    C, G = np.asarray(C, np.float64), np.asarray(G, np.float64)
+    Ct, Gt = ghost_chain_fused_plain(T.offsets, T.bands, torch.from_numpy(p),
+                                     torch.from_numpy(r),
+                                     torch.from_numpy(theta), l)
+    assert Ct.shape == (2 * l + 1, A.n) and Ct.dtype == getattr(torch, dt)
+    assert Gt.shape == (2 * l + 1, 2 * l + 1)
+    ctol, gtol = (1e-14, 1e-12) if dt == "float64" else (1e-6, 1e-5)
+    assert np.abs(Ct.double().numpy() - C).max() <= ctol * np.abs(C).max()
+    mags = np.abs(C) @ np.abs(C).T
+    assert np.all(np.abs(Gt.double().numpy() - G) <= gtol * mags)
+    # the wrapper takes the plain version on the CPU and launches nothing
+    before = ghost_chain_fused.launches
+    again = ops.ghost_chain_step(T.offsets, T.bands, torch.from_numpy(p),
+                                 torch.from_numpy(r),
+                                 torch.from_numpy(theta), l)
+    assert ghost_chain_fused.launches == before
+    assert torch.equal(again[0], Ct) and torch.equal(again[1], Gt)
+
+
+def _chain_rank_operands(offsets, bands, p, r, l, P, q):
+    """Rank q of P's chain operands: the operator rows [lo - lh, hi + lh)
+    and the p/r strips [lo - lh, lo), [hi, hi + lh), zero beyond the
+    matrix, as the exchanges give them."""
+    H = l * max(abs(o) for o in offsets)
+    n = p.shape[-1]
+    lo, hi = q * n // P, (q + 1) * n // P
+    pad = torch.nn.functional.pad
+    ext = pad(bands, (H, H))[:, lo:hi + 2 * H].contiguous()
+    strips = []
+    for v in (p, r):
+        w = pad(v, (H, H))
+        strips += [w[lo:lo + H], w[hi + H:hi + 2 * H]]
+    return (ext, p[lo:hi], r[lo:hi], *strips), slice(lo, hi)
+
+
+@pytest.mark.parametrize("l", [1, 2, 4])
+@pytest.mark.parametrize("name", ["tridiag", "lap2d", "glen", "random"])
+def test_ghost_chain_halo_slices_equal_the_chain(name, l):
+    """4 ranks' chain sweeps on slices of one state: each chain equals the
+    one-device plain chain's rows bit for bit; the partial Grams sum to
+    its Gram to 1e-12 of the terms' magnitudes."""
+    A = dict(_chain_ops(), random=_random_banded(
+        256, (-3, -1, 0, 2), seed=21))[name]
+    T = convert.dia_from_numpy(A.offsets, np.asarray(A.bands), device="cpu")
+    rng = np.random.default_rng(22)
+    p, r = (torch.from_numpy(rng.standard_normal(A.n)) for _ in range(2))
+    theta = 2.5
+    C, G = ghost_chain_fused_plain(T.offsets, T.bands, p, r, theta, l)
+    total = torch.zeros_like(G)
+    P = 4 if 2 * l * A.halo <= A.n // 4 else 2
+    for q in range(P):
+        args, rows = _chain_rank_operands(T.offsets, T.bands, p, r, l, P, q)
+        Cq, Gq = ghost_chain_halo_plain(T.offsets, *args, theta, l)
+        assert torch.equal(Cq, C[:, rows])
+        total = total + Gq
+    mags = C.abs() @ C.abs().T
+    assert bool(((total - G).abs() <= 1e-12 * mags).all())
+    # the operator extension and the strips are read
+    args, _ = _chain_rank_operands(T.offsets, T.bands, p, r, l, P, 1)
+    cut = list(args)
+    cut[3] = torch.zeros_like(cut[3])            # p_lo
+    assert not torch.equal(ghost_chain_halo_plain(T.offsets, *cut, theta,
+                                                  l)[0],
+                           ghost_chain_halo_plain(T.offsets, *args, theta,
+                                                  l)[0])
+
+
+def test_ghost_chain_bf16_storage_narrows_only_the_store():
+    """bf16 p, r and bands: the links run at float32, only C narrows, and
+    the Gram is that of the chain before the store narrows it."""
+    T = convert.dia_from_numpy((-1, 0, 1), np.asarray(
+        jops.convection_diffusion(300).bands), device="cpu")
+    rng = np.random.default_rng(23)
+    bf = torch.bfloat16
+    p, r = (torch.from_numpy(rng.standard_normal(300)).to(bf)
+            for _ in range(2))
+    bands = T.bands.to(bf)
+    C, G = ghost_chain_fused_plain(T.offsets, bands, p, r, 3.3, 2)
+    wide, Gw = ghost_chain_fused_plain(T.offsets, bands.float(), p.float(),
+                                       r.float(), 3.3, 2)
+    assert C.dtype == bf and G.dtype == torch.float32
+    assert torch.equal(C, wide.to(bf))
+    assert torch.equal(G, Gw)
+    Cn = C.float()
+    assert not torch.allclose(Cn @ Cn.T, G, rtol=1e-6, atol=0)
+    C64, G64 = ghost_chain_halo_plain(
+        T.offsets, torch.nn.functional.pad(bands, (2, 2)), p, r,
+        *(torch.zeros(2, dtype=bf) for _ in range(4)), 3.3, 2,
+        accum_dtype=torch.float64)
+    assert C64.dtype == bf and G64.dtype == torch.float64
+
+
+def test_chain_plan_picks_the_workspace():
+    """Shared memory where the two windows and the link block fit, the
+    global scratch otherwise (laplacian_2d(1448, 1448) at l = 4, and
+    laplacian_2d(70, 50) at l = 8 in float64, which the card tests run);
+    tiles of 2048 rows once the reach passes 512."""
+    assert chain_plan(2, 5, 8) == (1024, 2 * 1028 + 5 * 1024, True)
+    tile, ws, shared = chain_plan(2 * 1448, 5, 8)
+    assert (tile, shared) == (2048, True) and ws * 8 <= build.SMEM_DYNAMIC
+    assert chain_plan(4 * 1448, 9, 8)[2] is False
+    assert chain_plan(8 * 70, 17, 8)[2] is False
+    assert chain_plan(8 * 70, 17, 4)[2] is True
+
+
+def test_chain_wrappers_reject_what_has_no_kernel():
+    T = convert.dia_from_numpy((-1, 0, 1), np.ones((3, 8)), device="cpu")
+    meta = torch.zeros(8, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ghost_chain_fused(T.offsets, T.bands.to("meta"), meta, meta, 2.0, 2)
+    with pytest.raises(ValueError, match="operands on"):
+        ghost_chain_fused(T.offsets, T.bands, torch.zeros(8).double(),
+                          meta, 2.0, 2)
+    z = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="chain reach"):
+        ops.ghost_chain_halo_step(T.offsets, torch.zeros(3, 12), z[:3],
+                                  z[:3], z[:2], z[:2], z[:2], z[:2], 2.0, 2)
+    assert ghost_chain_halo.launches == 0

@@ -149,6 +149,40 @@ def test_factories_default_to_the_card():
     """No device= means the card: without one the factory raises."""
     if torch.cuda.is_available():
         assert tops.tridiagonal_laplacian(64).bands.device.type == "cuda"
+        assert tops.glen_law_band(64).bands.device.type == "cuda"
         return
     with pytest.raises((RuntimeError, AssertionError)):
         tops.tridiagonal_laplacian(64)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tops.glen_law_band(64)
+
+
+def test_glen_law_band_structure():
+    """The port's ex48 stand-in has the reference's structure (its values
+    come from a torch.Generator, not jax.random): 21 sorted offsets,
+    symmetric, diagonally dominant by exactly 1 (so SPD), zero past the
+    edges, and the same bands for the same seed."""
+    n, bw = 300, 10
+    A = tops.glen_law_band(n, bandwidth=bw, seed=3, device="cpu")
+    assert A.offsets == tuple(range(-bw, bw + 1)) and len(A.offsets) == 21
+    assert A.dtype == torch.float64
+    D = A.to_dense()
+    assert torch.equal(D, D.T)
+    off_sum = D.abs().sum(1) - D.diagonal().abs()
+    torch.testing.assert_close(D.diagonal() - off_sum,
+                               torch.ones(n, dtype=torch.float64),
+                               rtol=0, atol=1e-13)
+    assert float(torch.linalg.eigvalsh(D).min()) > 0.5
+    for k, off in enumerate(A.offsets):
+        edge = A.bands[k, n - off:] if off > 0 else A.bands[k, :-off]
+        assert bool((edge == 0).all())
+        if off:
+            inner = A.bands[k, :n - off] if off > 0 else A.bands[k, -off:]
+            assert bool((inner < 0).all())
+    again = tops.glen_law_band(n, bandwidth=bw, seed=3, device="cpu")
+    assert again.fingerprint() == A.fingerprint()
+    assert tops.glen_law_band(n, bandwidth=bw, seed=4, device="cpu") \
+        .fingerprint() != A.fingerprint()
+    f32 = tops.glen_law_band(n, bandwidth=3, dtype=torch.float32,
+                             device="cpu")
+    assert f32.dtype == torch.float32 and len(f32.offsets) == 7

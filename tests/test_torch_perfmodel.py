@@ -180,3 +180,50 @@ def test_s_sync_table_ceiling_and_counts():
     assert tpm.SOLVER_SYNC_COUNTS == jpm.SOLVER_SYNC_COUNTS
     assert tpm.s_sync_speedup(d_t, 4, 4, red_latency=1e6, device=CPU) \
         == pytest.approx(4.0, rel=1e-3)
+
+
+# -- the depth-l model (core/perfmodel/depth.py) ---------------------------
+
+DEPTH_DISTS = [("exponential", lambda m: m.Exponential(1.0), 1e-12),
+               ("uniform", lambda m: m.Uniform(0.0, 2.0), 1e-12),
+               ("lognormal", lambda m: m.LogNormal(0.0, 0.5), 1e-10)]
+
+
+@pytest.mark.parametrize("l", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,make,rel", DEPTH_DISTS)
+def test_depth_model_matches_reference(name, make, rel, l):
+    """Same seed, same numpy draws: the block max, the modeled speedup and
+    the ceiling equal the reference's floats (1e-10 where E[max] comes
+    from quadrature)."""
+    jd, td = make(jpm), make(tpm)
+    kw = dict(red_latency=2.0, t0=0.3, trials=2000, seed=7)
+    assert tpm.block_expected_max(td, 4, l, trials=2000, seed=7,
+                                  device=CPU) == pytest.approx(
+        jpm.block_expected_max(jd, 4, l, trials=2000, seed=7), rel=rel)
+    assert tpm.modeled_depth_speedup(td, 4, l, device=CPU, **kw) == \
+        pytest.approx(jpm.modeled_depth_speedup(jd, 4, l, **kw), rel=rel)
+    assert tpm.depth_speedup_ceiling(td, 4, red_latency=2.0, t0=0.3,
+                                     device=CPU) == pytest.approx(
+        jpm.depth_speedup_ceiling(jd, 4, red_latency=2.0, t0=0.3), rel=rel)
+
+
+def test_depth_table_crossover_and_bracket():
+    """The reference's depth-model checks (tests/test_pipeline_depth.py):
+    monotone in l, below the Eq. 8 ceiling, above 2 at depth; the table
+    and the crossover depth equal the reference's."""
+    d_j, d_t = jpm.Exponential(1.0), tpm.Exponential(1.0)
+    want = jpm.depth_speedup_table(d_j, 4, (1, 2, 4, 8), red_latency=2.0,
+                                   seed=7)
+    got = tpm.depth_speedup_table(d_t, 4, (1, 2, 4, 8), red_latency=2.0,
+                                  seed=7, device=CPU)
+    assert got.keys() == want.keys()
+    for l in got:
+        assert got[l] == pytest.approx(want[l], rel=1e-12)
+    ceiling = tpm.depth_speedup_ceiling(d_t, 4, red_latency=2.0, device=CPU)
+    vals = [got[l] for l in sorted(got)]
+    assert all(a <= b + 1e-9 for a, b in zip(vals, vals[1:]))
+    assert vals[-1] <= ceiling * 1.02 and vals[-1] > 2.0
+    for frac in (0.5, 0.9, 0.99):
+        assert tpm.crossover_depth(got, ceiling, frac) == \
+            jpm.crossover_depth(want, ceiling, frac)
+    assert tpm.crossover_depth({1: 1.0}, 10.0) == -1

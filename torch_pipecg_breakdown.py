@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Where one fused PIPECG (or p-BiCGStab) iteration of the port spends its time.
+"""Where one fused PIPECG, p-BiCGStab or depth-l iteration spends its time.
 
-    python3 torch_pipecg_breakdown.py [pipecg | pipebicgstab]
+    python3 torch_pipecg_breakdown.py [pipecg | pipebicgstab | pipecg_l [L]]
 
 Run from the root of a checkout on one NVIDIA GPU (exits with 2 without
 one).  Solves ex23 (chip_smoke.py's problem: the tridiagonal Laplacian at
 n = 2,097,152, float64) for 200 iterations with ``pipecg(engine="fused")``
 or, given ``pipebicgstab``, the convection-diffusion problem of
 chip_smoke.py's ``[bicgstab]`` phase with ``pipebicgstab(M="jacobi",
-engine="fused")``, and reports
+engine="fused")``, or, given ``pipecg_l``, ex23 with
+``pipecg_l(engine="fused", depth=L)`` (L = 2 unless given: one ghost-chain
+sweep per block of L iterations), and reports
 
 * the host-clock time per iteration of a synchronised solve (best of 3),
   and of one solve with ``torch.profiler`` attached;
 * from the profiler's device events, the device time per iteration by
   group: the sweep kernel and its fixed-order reduce, ``torch.where``
-  (the masked freeze), the scalar recurrence and bookkeeping ops; and the
-  device's idle share of the profiled wall time.
+  (the masked freeze), cuBLAS (the depth path's block-end
+  reconstruction and coefficient-space products), the scalar recurrence
+  and bookkeeping ops; and the device's idle share of the profiled wall
+  time.
 
 Prints one JSON object as its last line.  Where the profiler's averages
 show no device time, the groups read "not measured".
@@ -31,10 +35,13 @@ import chip_smoke as smoke
 ITERS = 200
 GROUPS = (
     ("sweep kernel", ("pipecg_spmv_fused_kernel",
-                      "pipebicgstab_fused_kernel")),
-    ("sweep reduce", ("reduce_rows_kernel", "finish_gram_kernel")),
+                      "pipebicgstab_fused_kernel", "ghost_chain_kernel")),
+    ("sweep reduce", ("reduce_rows_kernel", "finish_gram_kernel",
+                      "finish_chain_gram_kernel")),
     ("spmv kernel", ("spmv_dia_kernel",)),
     ("torch.where (freeze)", ("where",)),
+    ("cuBLAS (reconstruction, small products)", ("gemv", "gemm", "dot_kernel",
+                                                 "cublas", "cutlass", "xmma")),
 )
 
 
@@ -55,18 +62,24 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.krylov import (SolverOptions, pipebicgstab,
-                                         pipecg)
+                                         pipecg, pipecg_l)
 
     solver = sys.argv[1] if len(sys.argv) > 1 else "pipecg"
-    if solver not in ("pipecg", "pipebicgstab"):
+    if solver not in ("pipecg", "pipebicgstab", "pipecg_l"):
         print(f"torch_pipecg_breakdown: unknown solver {solver!r}",
               file=sys.stderr)
         return 2
     _, card = smoke.card()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    depth = int(sys.argv[2]) if solver == "pipecg_l" and len(sys.argv) > 2 \
+        else 2
     if solver == "pipecg":
         A, b = smoke.ex23(gen)
         run, opts = pipecg, SolverOptions(engine="fused", maxiter=ITERS)
+    elif solver == "pipecg_l":
+        A, b = smoke.ex23(gen)
+        run, opts = pipecg_l, SolverOptions(engine="fused", maxiter=ITERS,
+                                            depth=depth)
     else:
         A, b = smoke.convdiff(gen)
         run, opts = pipebicgstab, SolverOptions(engine="fused", M="jacobi",
@@ -97,6 +110,7 @@ def main() -> int:
     per_iter = {g: us / ITERS for g, us in sorted(groups.items())}
     result = {
         "card": card, "solver": solver, "n": smoke.N_EX23, "iters": ITERS,
+        "depth": depth if solver == "pipecg_l" else 1,
         "wall_ms_per_iter": wall / ITERS * 1e3,
         "wall_ms_per_iter_profiled": wall_prof / ITERS * 1e3,
         "device_us_per_iter": per_iter if busy_us else "not measured",

@@ -13,7 +13,10 @@ bf16 storage) as CUDA-event medians of 25, after holding each call's
 vectors against its plain version.  Where the checkout has the p-BiCGStab
 sweep, it times ``pipebicgstab_fused`` at chip_smoke.py's shapes too
 (convection-diffusion and the 2-D Laplacian in float64, float32, float32
-with bf16 storage) and ``pipebicgstab_halo`` on rank 1 of 4.  Prints the
+with bf16 storage) and ``pipebicgstab_halo`` on rank 1 of 4, and where it
+has the depth-l ghost-chain sweep, ``ghost_chain_fused`` at chip_smoke.py's
+shapes (ex23 at l = 2 and 4, the 2-D Laplacian at l = 2, the 21-band glen
+operator at l = 4) and ``ghost_chain_halo`` on rank 1 of 4.  Prints the
 card's ``nvidia-smi`` name and power limit, one line per shape, and one
 JSON object as its last line.
 """
@@ -80,12 +83,48 @@ def main(argv) -> int:
                    storage=str(sto)[6:], ms=ms)
         smoke.say("sweep", **row)
         out.append(row)
-    bicg = []
+    bicg, chain = [], []
     if (src / "repro_torch" / "kernels" / "pipebicgstab_fused.py").exists():
         bicg = time_bicg(gen, lap)
+    if (src / "repro_torch" / "kernels" / "csrc" / "ghost_chain.cu").exists():
+        chain = time_chain(gen, tri, lap)
     print(json.dumps({"src": str(src), "library": so.name,
-                      "sweep": out, "bicg": bicg}), flush=True)
+                      "sweep": out, "bicg": bicg, "chain": chain}),
+          flush=True)
     return 0
+
+
+def time_chain(gen, tri, lap):
+    """CUDA-event medians of the ghost-chain sweeps (float64), each chain
+    held bit for bit against its plain version first."""
+    import torch
+    from repro_torch.core.krylov import dia_inf_norm, glen_law_band
+    from repro_torch.kernels.pipecg_spmv_fused import (
+        ghost_chain_fused, ghost_chain_fused_plain, ghost_chain_halo,
+        ghost_chain_halo_plain)
+    glen = glen_law_band(smoke.N_EX23, device=gen.device)
+    rows = []
+    for A, label, l, ranks in ((tri, "tridiag", 2, 1), (tri, "tridiag", 4, 1),
+                               (lap, "lap2d", 2, 1), (glen, "glen", 4, 1),
+                               (tri, "tridiag", 2, smoke.RANKS)):
+        p, r = (torch.randn(A.n, generator=gen, device=gen.device,
+                            dtype=torch.float64) for _ in range(2))
+        theta = dia_inf_norm(A)
+        if ranks == 1:
+            fn, plain = ghost_chain_fused, ghost_chain_fused_plain
+            args = (A.offsets, A.bands, p, r, theta, l)
+        else:
+            fn, plain = ghost_chain_halo, ghost_chain_halo_plain
+            opnds, _ = smoke.chain_rank_operands(A, ranks, 1, p, r, l)
+            args = (A.offsets, *opnds, theta, l)
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        smoke.chain_equal(f"{fn.__name__} {label}", got[0], want[0])
+        row = dict(kernel=fn.__name__, shape=label, l=l, ranks=ranks,
+                   ms=smoke.time_ms(lambda: fn(*args)))
+        smoke.say("sweep", **row)
+        rows.append(row)
+    return rows
 
 
 def time_bicg(gen, lap):
