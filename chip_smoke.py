@@ -26,7 +26,12 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    l = 2 and 4 on ``laplacian_2d(1448, 1448)`` (the latter in the
    global-memory workspace), l = 4 on glen, in float32 and with bf16
    storage; its per-rank form (#5) on rank 1 of 4, and 4 slices against
-   the one-device chain;
+   the one-device chain.  The BSR kernels (#10 ``spmv_bsr``, #11
+   ``pipecg_bsr_fused``) on ``dia_to_bsr`` of ex23 and of
+   ``laplacian_2d(1448, 1448)`` at bs 4 (ex23-bsr4, lap2d-bsr4; the
+   conversion's host seconds printed), k = 1, ex23-bsr4 at k = 8 and in
+   float32, ``spmv_bsr`` beside a ``torch.sparse`` mv of the same matrix
+   (BSR layout where torch runs it for float64 on the card, else CSR);
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
@@ -43,6 +48,15 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    200 residuals against ``engine="naive"`` and within the Cools bound
    1e-6 of depth-1 PIPECG, x's true residual against the recurrence's;
    ``pgmres_l(restart=40, l=2)`` through the SpMV kernel against naive;
+   then ``[bsr]``: ``pipecg(engine="fused", maxiter=5000)`` on ex23-bsr4
+   with the counts set to 0 just before it and read just after it (2
+   ``spmv_bsr`` + 5000 ``pipecg_bsr_fused``, no DIA kernel), its first
+   200 residuals against ``engine="naive"`` on the same BsrMatrix and
+   against the DIA PIPECG on the ex23 operator it came from, x's true
+   residual (``true_residual_norm``) against the recurrence's; then, each
+   with its counts, Jacobi on lap2d-bsr4, ``pipecg_multi`` (k=8) against
+   8 single solves, ``pipecr`` and a callable-M solve on the fallback
+   (``pipecg_fused`` + one ``spmv_bsr`` per iteration);
 5. ranks: ex23 on 4 ranks of one process group, all on this card
    (``distributed_solve(pipecg, engine="sharded_fused", maxiter=5000)``,
    gloo with host-staged strips on one card, NCCL with one card per
@@ -58,6 +72,11 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    iterates: 4 x 1000 chain sweeps, the depth order halo < launch < issue
    < wait per block, one all-reduce per block, the first 20 blocks against
    one device) and a tol solve on glen with Jacobi against one device;
+   ex23-bsr4 through the plain-torch BSR body on the chain of 4 ranks and
+   ``laplacian_2d(1448, 1448)`` on a (2, 2) grid of them, plain and
+   Jacobi (500 forced iterates each: the H5 order and one all-reduce per
+   iteration on every rank, the first 20 residuals against one device,
+   host microseconds per iteration between the recorded events);
 6. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
    ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card,
    the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``) and the depth
@@ -125,6 +144,14 @@ COOLS_RTOL = 1e-6
 COOLS_FLOOR = 1e-8
 DEPTH_GAP_MAX = 1e-8
 PGMRES_RESTART = 40
+# BSR and 2-D grids: the block size (the JAX package's default), the
+# 2-D Laplacian's lattice edge (n = 2,096,704), the rank solves' forced
+# iterates and the residuals held to one device
+BSR_BS = 4
+NX_LAP = 1448
+GEOM_RANK_ITERS = 500
+GEOM_CHECK = 20
+GRID = (2, 2)
 
 
 class SmokeFailure(RuntimeError):
@@ -416,6 +443,7 @@ def phase_kernels():
     glen_sweeps(gen, glen)
     chain_kernel(records, gen, tri, lap, glen)
     chain_halo_kernel(records, gen, tri)
+    bsr_kernels(records, gen, tri, lap)
     return records
 
 
@@ -950,6 +978,138 @@ def chain_halo_kernel(records, gen, tri):
         l=l, chain="bit-equal", gram_rel=f"{rel:.3e}")
 
 
+def sparse_yardstick(B, x):
+    """A ``torch.sparse`` copy of BsrMatrix ``B`` and its layout name: BSR
+    where torch runs its mv for ``x``'s dtype on this card, else CSR (the
+    library yardstick; the port never calls it)."""
+    import torch
+    nbr, deg, bs = B.n_block_rows, B.max_deg, B.bs
+    dev = B.device
+    rows = torch.arange(nbr, device=dev).repeat_interleave(deg)
+    with warnings.catch_warnings():  # torch.sparse's beta-state notices
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows, B.indices.reshape(-1).long()]),
+            B.blocks.reshape(-1, bs, bs), (nbr, nbr, bs, bs)).coalesce()
+        (r, c), vals = coo.indices(), coo.values()
+        crow = torch.zeros(nbr + 1, dtype=torch.long, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(r, minlength=nbr), 0)
+        bsr = torch.sparse_bsr_tensor(crow, c, vals, size=(B.n, B.n))
+        try:
+            torch.mv(bsr, x)
+            return bsr, "bsr"
+        except (RuntimeError, NotImplementedError):
+            pass
+        i, j = torch.meshgrid(torch.arange(bs, device=dev),
+                              torch.arange(bs, device=dev), indexing="ij")
+        srows = (r[:, None, None] * bs + i).reshape(-1)
+        scols = (c[:, None, None] * bs + j).reshape(-1)
+        return torch.sparse_coo_tensor(
+            torch.stack([srows, scols]), vals.reshape(-1),
+            (B.n, B.n)).coalesce().to_sparse_csr(), "csr"
+
+
+def bsr_kernels(records, gen, tri, lap):
+    """#10 spmv_bsr and #11 pipecg_bsr_fused against their plain versions
+    on ex23-bsr4 and lap2d-bsr4 (``dia_to_bsr`` at bs 4, timed on the
+    host), k = 1, ex23-bsr4 at k = 8 and in float32."""
+    import torch
+    from repro_torch.core.krylov import BsrMatrix, dia_to_bsr
+    from repro_torch.kernels.spmv_bsr import (pipecg_bsr_fused,
+                                              pipecg_bsr_fused_plain,
+                                              spmv_bsr, spmv_bsr_plain)
+    f64, f32 = torch.float64, torch.float32
+    ops_ = {}
+    for A, label in ((tri, "ex23-bsr4"), (lap, "lap2d-bsr4")):
+        t0 = time.perf_counter()
+        ops_[label] = dia_to_bsr(A, bs=BSR_BS)
+        B = ops_[label]
+        say("kernel", name="dia_to_bsr", shape=label, n=B.n,
+            block_rows=B.n_block_rows, deg=B.max_deg, bs=B.bs,
+            host_seconds=f"{time.perf_counter() - t0:.3f}")
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=gen.device,
+                           dtype=f64).to(dt)
+
+    cases = [("ex23-bsr4", 1, f64), ("lap2d-bsr4", 1, f64),
+             ("ex23-bsr4", 8, f64), ("ex23-bsr4", 1, f32)]
+    for label, k, dt in cases:
+        B = ops_[label]
+        B = BsrMatrix(indices=B.indices, blocks=B.blocks.to(dt))
+        n, deg, bs = B.n, B.max_deg, B.bs
+        x = randn((k, n), dt)
+        y = spmv_bsr(B.indices, B.blocks, x)
+        want = spmv_bsr_plain(B.indices, B.blocks, x)
+        torch.cuda.synchronize()
+        check(torch.equal(y, want), f"spmv_bsr {label} k={k} {dt} differs")
+        err = max_err([y], [want])
+        ms = time_ms(lambda: spmv_bsr(B.indices, B.blocks, x))
+        plain_ms = time_ms(lambda: spmv_bsr_plain(B.indices, B.blocks, x))
+        b_ms, b_by = bound(nbytes(B.indices, B.blocks, x, y),
+                           2.0 * k * n * deg * bs, dt)
+        lib_ms, layout = None, None
+        if k == 1:
+            mat, layout = sparse_yardstick(B, x[0])
+            lib = torch.mv(mat, x[0])
+            scale = float(want.abs().max())
+            check(max_err([lib], [want[0]]) <= 1e-5 * scale if dt == f32
+                  else max_err([lib], [want[0]]) <= 1e-12 * scale,
+                  f"{layout} yardstick disagrees")
+            lib_ms = time_ms(lambda: torch.mv(mat, x[0]))
+        say("kernel", name="spmv_bsr", shape=label, k=k, dtype=str(dt)[6:],
+            max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}" if lib_ms else None,
+            library=f"torch.sparse {layout} mv" if layout else None)
+        if (label, k, dt) == ("ex23-bsr4", 1, f64):
+            records["spmv_bsr"] = dict(
+                name="spmv_bsr", route="cuda",
+                source="src/repro_torch/kernels/csrc/spmv_bsr.cu",
+                replaces="src/repro/kernels/spmv_bsr.py:51",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+        r, u, p = (randn((k, n), dt) for _ in range(3))
+        a = torch.rand(k, generator=gen, device=gen.device, dtype=f64).to(dt)
+        b = torch.rand(k, generator=gen, device=gen.device, dtype=f64).to(dt)
+        invd = (1.0 / B.diagonal()).contiguous()
+        csum = B.column_checksum()
+        args = (B.indices, B.blocks, invd, csum, x, r, u, p, a, b)
+        got = pipecg_bsr_fused(*args)
+        want = pipecg_bsr_fused_plain(*args)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got[:4], want[:4])):
+            check(torch.equal(g, w),
+                  f"pipecg_bsr_fused {label} k={k} {dt} out{i} differs")
+        u2, r2 = want[2], want[1]
+        w2 = spmv_bsr_plain(B.indices, B.blocks, u2)
+        mags = torch.stack(
+            [t.abs().sum(-1) for t in (r2 * u2, w2 * u2, r2 * r2, r2 * w2,
+                                       w2 * w2)]
+            + [w2.abs().sum(-1) + (csum * u2).abs().sum(-1)], -1)
+        rel = float(((got[4] - want[4]).abs() / mags).max())
+        check(rel <= {f64: 1e-10, f32: 1e-5}[dt],
+              f"pipecg_bsr_fused partials {label}: {rel}")
+        err = max_err(got, want)
+        ms = time_ms(lambda: pipecg_bsr_fused(*args))
+        plain_ms = time_ms(lambda: pipecg_bsr_fused_plain(*args))
+        b_ms, b_by = bound(nbytes(*args, *got), k * n * (4.0 * deg * bs + 21),
+                           dt)
+        say("kernel", name="pipecg_bsr_fused", shape=label, k=k,
+            dtype=str(dt)[6:], max_abs_err=f"{err:.3e}",
+            partial_rel=f"{rel:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            words_per_row=B.words_per_iter())
+        if (label, k, dt) == ("ex23-bsr4", 1, f64):
+            records["pipecg_bsr_fused"] = dict(
+                name="pipecg_bsr_fused", route="cuda",
+                source="src/repro_torch/kernels/csrc/spmv_bsr.cu",
+                replaces="src/repro/kernels/spmv_bsr.py:146",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def phase_main_path(records):
     """The ex23 solve and its siblings, with the launch counts around them.
 
@@ -1242,6 +1402,118 @@ def phase_depth(records):
         max_rel_gap=f"{gap:.3e}", true_rel_res=f"{true_res:.6e}")
 
 
+def phase_bsr(records):
+    """PIPECG on BSR operators on one device: the 5000-iterate ex23-bsr4
+    solve with the launch counts set to 0 just before it and read just
+    after it, held to naive on the same BsrMatrix and to the DIA PIPECG
+    on ex23; then Jacobi on lap2d-bsr4, pipecg_multi (k=8), pipecr and
+    the callable-M fallback, each with its counts."""
+    import torch
+    from repro_torch.core.krylov import (SolverOptions, dia_to_bsr,
+                                         laplacian_2d, pipecg, pipecg_multi,
+                                         pipecr, true_residual_norm)
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    A, b = ex23(gen)
+    B = dia_to_bsr(A, bs=BSR_BS)
+    L = dia_to_bsr(laplacian_2d(NX_LAP, NX_LAP, device=dev), bs=BSR_BS)
+    bl = torch.randn(L.n, generator=gen, device=dev, dtype=torch.float64)
+    BB = torch.randn(8, B.n, generator=gen, device=dev, dtype=torch.float64)
+    half = lambda z: 0.5 * z  # noqa: E731  an opaque callable M
+    cb_iters = 100
+    bn = float(torch.linalg.norm(b))
+
+    def run(fn):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts()
+
+    def only(counts, want, what):
+        extra = {k: v for k, v in counts.items() if v and k not in want}
+        check(all(counts[k] == v for k, v in want.items()) and not extra,
+              f"{what}: launches {counts}, expected {want}")
+
+    def fused(**kw):
+        return SolverOptions(engine="fused", **kw)
+
+    res, dt, counts = run(lambda: pipecg(B, b, options=fused(
+        maxiter=MAXITER)))
+    only(counts, {"spmv_bsr": 2, "pipecg_bsr_fused": MAXITER}, "bsr main")
+    for name in ("spmv_bsr", "pipecg_bsr_fused"):
+        records[name]["launches"] = counts[name]
+    hist = res.res_history
+    check(tuple(hist.shape) == (MAXITER,), f"history {tuple(hist.shape)}")
+    check(bool(torch.isfinite(hist).all())
+          and bool(torch.isfinite(res.x).all()), "non-finite BSR solve")
+    check(int(res.iters) == MAXITER, f"iters {int(res.iters)}")
+    true_res = true_residual_norm(B, b, res.x) / bn
+    rec_res = float(res.res_norm) / bn
+    check(abs(true_res - rec_res) <= DEPTH_GAP_MAX,
+          f"BSR: true {true_res} vs recurrence {rec_res}")
+    say("bsr", solve="pipecg fused", shape="ex23-bsr4", n=B.n,
+        maxiter=MAXITER, seconds=f"{dt:.3f}",
+        ms_per_iter=f"{dt / MAXITER * 1e3:.4f}",
+        kernel_ms=f"{records['pipecg_bsr_fused']['ms']:.4f}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        true_rel_res=f"{true_res:.6e}", rec_rel_res=f"{rec_res:.6e}",
+        max_abs_detect=f"{float(res.detect_history.abs().max()):.3e}")
+    naive = pipecg(B, b, options=SolverOptions(engine="naive",
+                                               maxiter=CHECK_ITERS))
+    gap_n = hist_close(naive.res_history, hist[:CHECK_ITERS])
+    dia = pipecg(A, b, options=fused(maxiter=CHECK_ITERS))
+    gap_d = hist_close(dia.res_history, hist[:CHECK_ITERS])
+    say("bsr", check="ex23-bsr4 fused vs naive and vs DIA PIPECG on ex23",
+        iters=CHECK_ITERS, naive_max_rel_gap=f"{gap_n:.3e}",
+        dia_max_rel_gap=f"{gap_d:.3e}")
+
+    jac, dt, counts = run(lambda: pipecg(L, bl, options=fused(
+        maxiter=CHECK_ITERS, M="jacobi")))
+    only(counts, {"spmv_bsr": 2, "pipecg_bsr_fused": CHECK_ITERS},
+         "bsr jacobi")
+    jn = pipecg(L, bl, options=SolverOptions(engine="naive", M="jacobi",
+                                             maxiter=CHECK_ITERS))
+    gap = hist_close(jn.res_history, jac.res_history)
+    say("bsr", check="lap2d-bsr4 jacobi fused vs naive", n=L.n,
+        deg=L.max_deg, max_rel_gap=f"{gap:.3e}",
+        ms_per_iter=f"{dt / CHECK_ITERS * 1e3:.4f}")
+
+    multi, dt, counts = run(lambda: pipecg_multi(B, BB, maxiter=CHECK_ITERS,
+                                                 engine="fused"))
+    only(counts, {"spmv_bsr": 2, "pipecg_bsr_fused": CHECK_ITERS},
+         "bsr pipecg_multi: one sweep per iteration for all 8 systems")
+    gaps = [hist_close(pipecg(B, BB[j], options=fused(
+        maxiter=CHECK_ITERS)).res_history, multi.res_history[j], rtol=1e-12)
+        for j in range(8)]
+    say("bsr", check="pipecg_multi k=8 vs 8 single solves",
+        max_rel_gap=f"{max(gaps):.3e}",
+        ms_per_iter=f"{dt / CHECK_ITERS * 1e3:.4f}")
+
+    pcr, _, counts = run(lambda: pipecr(B, b, options=fused(
+        maxiter=CHECK_ITERS)))
+    only(counts, {"spmv_bsr": 2, "pipecg_bsr_fused": CHECK_ITERS},
+         "bsr pipecr")
+    pcrn = pipecr(B, b, options=SolverOptions(engine="naive",
+                                              maxiter=CHECK_ITERS))
+    gap = hist_close(pcrn.res_history, pcr.res_history)
+    say("bsr", check="pipecr fused vs naive", max_rel_gap=f"{gap:.3e}")
+
+    cb, dt, counts = run(lambda: pipecg(B, b, options=fused(
+        maxiter=cb_iters, M=half)))
+    only(counts, {"pipecg_fused": cb_iters, "spmv_bsr": cb_iters + 3},
+         "bsr callable-M fallback")
+    cbn = pipecg(B, b, options=SolverOptions(engine="naive",
+                                             maxiter=cb_iters, M=half))
+    gap = hist_close(cbn.res_history, cb.res_history)
+    say("bsr", check="callable-M fallback vs naive", max_rel_gap=f"{gap:.3e}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        ms_per_iter=f"{dt / cb_iters * 1e3:.4f}")
+
+
 def wall(per_rank, i: int) -> float:
     """Wall seconds of case i: the slowest rank's."""
     return max(outcomes[i]["seconds"] for outcomes in per_rank)
@@ -1255,8 +1527,9 @@ def phase_ranks(records):
     one-device counterparts run here afterwards.
     """
     import torch
-    from repro_torch.core.krylov import (SolverOptions, cg, glen_law_band,
-                                         pipecg, pipecg_multi, pipecr,
+    from repro_torch.core.krylov import (SolverOptions, cg, dia_to_bsr,
+                                         glen_law_band, laplacian_2d, pipecg,
+                                         pipecg_multi, pipecr,
                                          tridiagonal_laplacian)
     from repro_torch.core.perfmodel import Exponential, asymptotic_speedup
     from repro_torch.distributed import ranks
@@ -1298,11 +1571,27 @@ def phase_ranks(records):
                            tol=DEPTH_TOL, M="jacobi"), None),
     }
     cases.update(depth)
+    # the plain-torch geometry bodies: BSR on the chain, DIA on a grid
+    A_bsr = dia_to_bsr(A, bs=BSR_BS)
+    A_lap = laplacian_2d(NX_LAP, NX_LAP, device="cpu")
+    b_lap = torch.randn(A_lap.n, generator=cpu, dtype=torch.float64)
+    geometry = {
+        "bsr": ("pipecg", b, dict(sharded, maxiter=GEOM_RANK_ITERS), None),
+        "grid": ("pipecg", b_lap, dict(sharded, maxiter=GEOM_RANK_ITERS),
+                 None),
+        "grid jacobi": ("pipecg", b_lap, dict(sharded, M="jacobi",
+                                              maxiter=GEOM_RANK_ITERS),
+                        None),
+    }
+    cases.update(geometry)
     names = list(cases)
     ops_of = dict.fromkeys(bicg, A_cd)
     ops_of["depth tol"] = A_glen
+    ops_of.update({"bsr": A_bsr, "grid": A_lap, "grid jacobi": A_lap})
+    grids = {"grid": GRID, "grid jacobi": GRID}
     spec = [dict(solver=sv, A=ops_of.get(name, A), b=rhs, kw=kw,
-                 noise=nz) for name, (sv, rhs, kw, nz) in cases.items()]
+                 noise=nz, grid=grids.get(name))
+            for name, (sv, rhs, kw, nz) in cases.items()]
     backend = ranks.backend_for(RANKS, DEVICE)
     t0 = time.perf_counter()
     out = ranks.run(ranks.solve_cases, RANKS, spec, DEVICE, device=DEVICE)
@@ -1398,6 +1687,7 @@ def phase_ranks(records):
 
     bicg_ranks(out, names, records, A_cd, b_cd)
     depth_ranks(out, names, records, b, A_glen, b_cd)
+    geometry_ranks(out, names, A_bsr, b, A_lap, b_lap)
 
     qi, ni = names.index("quiet"), names.index("noisy")
     for rank, outcomes in enumerate(out):
@@ -1553,6 +1843,54 @@ def depth_ranks(out, names, records, b, A_glen, b_glen):
         ms_per_iter=f"{wall(out, i_t) / max(int(got['iters']), 1) * 1e3:.4f}")
 
 
+def geometry_ranks(out, names, A_bsr, b, A_lap, b_lap):
+    """The BSR-chain and (2, 2)-grid rank cases against one device."""
+    import torch
+    from repro_torch.core.krylov import (BsrMatrix, DiaMatrix, SolverOptions,
+                                         pipecg)
+    dev = torch.device(DEVICE)
+    Bd = BsrMatrix(indices=A_bsr.indices.to(dev),
+                   blocks=A_bsr.blocks.to(dev))
+    Ld = DiaMatrix(offsets=A_lap.offsets, bands=A_lap.bands.to(dev),
+                   grid_shape=A_lap.grid_shape)
+    for name, Ad, rhs, M, layout in (
+            ("bsr", Bd, b, None, f"chain of {RANKS} ranks"),
+            ("grid", Ld, b_lap, None, f"{GRID} grid"),
+            ("grid jacobi", Ld, b_lap, "jacobi", f"{GRID} grid")):
+        i = names.index(name)
+        for rank, outcomes in enumerate(out):
+            o = outcomes[i]
+            check(o["reductions"] == GEOM_RANK_ITERS + 1,
+                  f"rank {rank} {name}: {o['reductions']} reductions, not "
+                  "one per iteration")
+            check(o["all_reduces"] == 1,
+                  f"rank {rank} {name}: {o['all_reduces']} blocking "
+                  "all-reduces")
+            check(sum(o["launches"].values()) == 0,
+                  f"rank {rank} {name}: the plain-torch body launched "
+                  f"{o['launches']}")
+        got = out[0][i]
+        h = torch.from_numpy(got["res_history"])
+        check(bool(torch.isfinite(h).all())
+              and bool(np.isfinite(got["x"]).all()),
+              f"non-finite {name} rank solve")
+        one = pipecg(Ad, rhs.to(dev), options=SolverOptions(
+            engine="fused", maxiter=GEOM_CHECK, M=M))
+        gap = hist_close(one.res_history, h[:GEOM_CHECK])
+        seg = {k: np.mean([o[i]["segments"][k] for o in out]) * 1e6
+               for k in got["segments"]}
+        say("ranks", solve=f"pipecg sharded_fused {name}", n=Ad.n,
+            layout=layout, maxiter=GEOM_RANK_ITERS,
+            seconds=f"{wall(out, i):.3f}",
+            ms_per_iter=f"{wall(out, i) / GEOM_RANK_ITERS * 1e3:.4f}",
+            reductions_per_rank=got["reductions"],
+            max_rel_gap_first=f"{gap:.3e}",
+            max_abs_detect=f"{float(np.abs(got['detect_history']).max()):.3e}",
+            order="issue(i)<halo(i+1)<wait(i)<launch(i+1) on every rank")
+        say("ranks", case=repr(name), host_us_per_iter=" ".join(
+            f"{k}={v:.1f}" for k, v in seg.items()))
+
+
 def phase_model():
     import torch
     from repro_torch.core.perfmodel import (SOLVER_SYNC_COUNTS, Exponential,
@@ -1636,11 +1974,13 @@ def main() -> int:
     phase_main_path(records)
     phase_bicgstab(records)
     phase_depth(records)
+    phase_bsr(records)
     phase_ranks(records)
     phase_model()
     order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
              "ghost_chain_fused", "ghost_chain_halo", "pipecg_fused",
-             "fused_dots", "pipebicgstab_fused", "pipebicgstab_halo")
+             "fused_dots", "pipebicgstab_fused", "pipebicgstab_halo",
+             "spmv_bsr", "pipecg_bsr_fused")
     print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

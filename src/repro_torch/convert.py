@@ -2,7 +2,9 @@
 
 Works on plain numpy arrays and names, so it needs nothing of the
 reference at run time: ``dia_from_numpy(A.offsets, np.asarray(A.bands))``
-rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``.
+rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``,
+``bsr_from_numpy(np.asarray(A.indices), np.asarray(A.blocks))`` a
+reference ``BsrMatrix``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 from repro_torch.core.krylov.options import PrecisionPolicy
 
@@ -24,6 +27,16 @@ def dia_from_numpy(offsets: Sequence[int], bands: np.ndarray,
                      bands=torch.from_numpy(arr.copy()).to(device),
                      grid_shape=None if grid_shape is None
                      else (int(grid_shape[0]), int(grid_shape[1])))
+
+
+def bsr_from_numpy(indices: np.ndarray, blocks: np.ndarray,
+                   device="cuda") -> BsrMatrix:
+    """A ``BsrMatrix`` over copies of ``indices`` (as int32) and ``blocks``
+    (dtype and bytes kept)."""
+    ind = np.ascontiguousarray(indices, dtype=np.int32)
+    blk = np.ascontiguousarray(blocks)
+    return BsrMatrix(indices=torch.from_numpy(ind.copy()).to(device),
+                     blocks=torch.from_numpy(blk.copy()).to(device))
 
 
 def policy_from_name(name: str) -> PrecisionPolicy:

@@ -1,5 +1,6 @@
 """The paper's solvers: classical + pipelined CG/CR, BiCGStab and the
-depth-l pipelined CG/GMRES on one device or on the ranks of a process group
+depth-l pipelined CG/GMRES on DIA and BSR operators, on one device or on
+the ranks of a process group, a chain or a 2-D grid
 (``distributed_solve``)."""
 from repro_torch.core.krylov.abft import DetectionReport  # noqa: F401
 from repro_torch.core.krylov.base import (  # noqa: F401
@@ -23,10 +24,13 @@ from repro_torch.core.krylov.distributed import (  # noqa: F401
     dia_matvec_local,
     distributed_solve,
     halo_exchange,
+    halo_exchange_2d,
     halo_exchange_cols,
     sharded_pipebicgstab_solve,
+    sharded_pipecg_bsr_solve,
     sharded_pipecg_depth_solve,
     sharded_pipecg_solve,
+    sharded_pipecg_solve_2d,
 )
 from repro_torch.core.krylov.engine import (  # noqa: F401
     ENGINES,
@@ -37,10 +41,16 @@ from repro_torch.core.krylov.engine import (  # noqa: F401
     get_engine,
     register_engine,
 )
+from repro_torch.core.krylov.hostops import (  # noqa: F401
+    dia_matvec_np,
+    true_residual_norm,
+)
 from repro_torch.core.krylov.operator import (  # noqa: F401
+    BsrMatrix,
     HaloSpec,
     SparseOperator,
     as_operator,
+    dia_to_bsr,
 )
 from repro_torch.core.krylov.operators import (  # noqa: F401
     DiaMatrix,

@@ -141,8 +141,8 @@ def pipecg(A, b, x0=None, *, maxiter=UNSET, tol=UNSET, M=UNSET,
 
     ``engine`` ("naive" / "fused" / Engine / None) routes the iteration
     through an iteration engine (core/krylov/engine.py);
-    ``engine="fused"`` with a DIA operator and identity/Jacobi M runs each
-    iteration as ONE CUDA kernel sweep.  ``engine=None`` keeps the inline
+    ``engine="fused"`` with a DIA or BSR operator and identity/Jacobi M
+    runs each iteration as ONE CUDA kernel sweep.  ``engine=None`` keeps the inline
     path.  ``rr_tau > 0`` enables adaptive residual replacement and
     ``precision`` (a PrecisionPolicy / preset name) demotes the carried
     basis and the operator to the storage dtype; both need an engine.
@@ -384,8 +384,8 @@ def pipecg_multi(A, B, X0=None, *, maxiter=100, tol=0.0, M=None,
                  rr_tau: float = 0.0, precision=None) -> SolveResult:
     """Batched PIPECG: solve A x_j = b_j for every row of ``B`` (k, n).
 
-    With ``engine="fused"`` and a DIA operator the k systems share one
-    kernel sweep per iteration (the kernel's grid.y); each RHS keeps its
+    With ``engine="fused"`` and a DIA or BSR operator the k systems share
+    one kernel sweep per iteration (the kernel's grid.y); each RHS keeps its
     own alpha/beta trajectory.  Other engines solve the rows one by one,
     as the reference's ``vmap`` over the single-RHS iteration does.
 

@@ -24,6 +24,13 @@ ghost-basis blocks (:func:`sharded_pipecg_depth_solve`): one l*h strip
 exchange, one chain sweep (kernels/pipecg_spmv_fused.py::ghost_chain_halo)
 and one all-reduce per l iterations; the inline path rejects it.
 
+A ``BsrMatrix`` runs PIPECG on block rows over the chain
+(:func:`sharded_pipecg_bsr_solve`), and a DIA lattice operator on a
+``(py, px)`` grid of ranks (``group=(process_group, (py, px))``) runs it
+tile by tile with N/S/W/E strips (:func:`sharded_pipecg_solve_2d`); both
+are plain torch with the split-phase all-reduce, as the JAX package's
+bodies are plain jnp.
+
 Where the JAX package takes a mesh, this one takes a process ``group``
 (None: the default group).  Each rank slices its rows of the global ``A``
 and ``b``; the result's ``x`` is the global vector (one all-gather per
@@ -40,6 +47,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from repro_torch.core.krylov.base import SolveResult, make_allreduce_dot
+from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 from repro_torch.core.krylov.options import SolverOptions, as_policy
 from repro_torch.distributed import comm
@@ -60,28 +68,16 @@ def halo_exchange_cols(x: torch.Tensor, halo: int, group=None
     the chain neighbours; the chain's end ranks receive zeros (the zero
     extension of the DIA bands at the matrix boundary).
     """
+    return _chain_exchange(x, halo, -1, group)
+
+
+def _chain_exchange(v: torch.Tensor, w: int, axis: int, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`comm.exchange_along` with the chain neighbours rank -+ 1."""
     rank, world = comm.rank_and_size(group)
-    shape = x.shape[:-1] + (halo,)
-    left = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    right = torch.zeros_like(left)
-    if world == 1 or halo == 0:
-        return left, right
-    staged = comm.host_staged(x.device, group)
-    sends, recvs = [], []
-    if rank > 0:
-        buf_l = comm.wire_buffer(shape, x, staged)
-        sends.append((rank - 1, comm.to_wire(x[..., :halo], staged)))
-        recvs.append((rank - 1, buf_l))
-    if rank < world - 1:
-        buf_r = comm.wire_buffer(shape, x, staged)
-        sends.append((rank + 1, comm.to_wire(x[..., -halo:], staged)))
-        recvs.append((rank + 1, buf_r))
-    comm.exchange(sends, recvs, group)
-    if rank > 0:
-        left = buf_l.to(x.device)
-    if rank < world - 1:
-        right = buf_r.to(x.device)
-    return left, right
+    return comm.exchange_along(v, w, axis, rank - 1 if rank > 0 else None,
+                               rank + 1 if rank < world - 1 else None,
+                               group)
 
 
 def halo_exchange(x_local: torch.Tensor, halo: int, group=None):
@@ -602,6 +598,347 @@ def sharded_pipecg_depth_solve(offsets: Tuple[int, ...], bands_local,
                        res_norm=res, res_history=hist, detect_history=det)
 
 
+# ---------------------------------------------------------------------------
+# Plain-torch split-phase PIPECG bodies: BSR on a chain, DIA on a 2-D grid
+# ---------------------------------------------------------------------------
+
+def _recompute_pipecg(b_local, invd, csum, mv, exchange, sweep, *, group,
+                      maxiter: int, tol: float, noise, recorder
+                      ) -> SolveResult:
+    """The split-phase PIPECG loop the BSR-chain and 2-D-grid bodies share.
+
+    Single right-hand side, ``b_local`` this rank's block of any shape;
+    ``invd`` and ``csum`` (this rank's slice of the GLOBAL c = A^T 1) have
+    its shape.  ``mv(v)`` is this rank's rows of ``A v`` (set-up only);
+    ``exchange(u, p)`` returns u and p extended by twice the operator's
+    reach (the strips of the neighbours); ``sweep(u_e, p_e, alpha, beta)``
+    returns ``(p', s', u', w')`` on this rank's rows, contracting the
+    extension as p' = u + beta p -> s' = A p' -> u' = u - alpha diag^-1 s'
+    -> w' = A u' (the recompute that spares a second exchange).  Per
+    iteration, in the order of :func:`sharded_pipecg_solve`: the exchange
+    (recorder ``halo``), the wait for the (6,) row issued last iteration
+    (``wait``), the recurrence, the sweep (``launch``), ``noise``, then the
+    issue of this iteration's row (``issue``): one all-reduce per
+    iteration, H5.  The history is rolled into the local solvers'
+    alignment, the checksum column with it as ``detect_history``.
+    """
+    rank, _ = comm.rank_and_size(group)
+    dt, dev = b_local.dtype, b_local.device
+
+    def partials(r, u, w):
+        return torch.stack([torch.sum(r * u), torch.sum(w * u),
+                            torch.sum(r * r), torch.sum(r * w),
+                            torch.sum(w * w),
+                            torch.sum(w) - torch.sum(csum * u)])
+
+    x = torch.zeros_like(b_local)
+    r = b_local
+    u = invd * r
+    p = torch.zeros_like(b_local)
+    red = partials(r, u, mv(u))
+    tol2 = torch.as_tensor(tol, dtype=dt, device=dev) ** 2 \
+        * comm.all_reduce(torch.sum(b_local * b_local), group)
+    reducer = SplitPhaseReduce(group, recorder)
+    pending = reducer.issue(red, iteration=-1)
+    one = torch.ones((), dtype=dt, device=dev)
+    gamma_prev, alpha_prev = one, one
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    hist, chk_hist = [], []
+    for i in range(maxiter):
+        u_e, p_e = exchange(u, p)
+        if recorder is not None:
+            recorder("halo", i)
+        red_sum = pending.wait()
+        gamma, delta, rr = red_sum[0], red_sum[1], red_sum[2]
+        if i == 0:
+            beta = torch.zeros_like(gamma)
+            alpha = gamma / delta
+        else:
+            beta = gamma / gamma_prev
+            alpha = gamma / (delta - beta * gamma / alpha_prev)
+        p2, s2, u2, w2 = sweep(u_e, p_e, alpha, beta)
+        x2 = x + alpha * p2
+        r2 = r - alpha * s2
+        red_new = partials(r2, u2, w2)
+        if recorder is not None:
+            recorder("launch", i)
+        if noise is not None:
+            noise(rank)   # the stall delays this rank's contribution
+        mask = done
+        done = mask | (rr <= tol2)
+        x, r, u, p, red, gamma_prev, alpha_prev = (
+            torch.where(mask, ov, nv) for nv, ov in
+            ((x2, x), (r2, r), (u2, u), (p2, p), (red_new, red),
+             (gamma, gamma_prev), (alpha, alpha_prev)))
+        iters = iters + (~done).to(torch.int32)
+        pending = reducer.issue(red, iteration=i)
+        hist.append(torch.sqrt(torch.clamp(rr, min=0.0)))
+        chk_hist.append(red_sum[5])
+
+    red_fin = pending.wait()
+    res = torch.sqrt(torch.clamp(red_fin[2], min=0.0))
+    if maxiter:
+        hist = torch.stack(hist[1:] + [res])
+        chk_hist = torch.stack(chk_hist[1:] + [red_fin[5]])
+    else:
+        hist = chk_hist = torch.zeros((0,), dtype=dt, device=dev)
+    return SolveResult(x=x, iters=iters, res_norm=res, res_history=hist,
+                       detect_history=chk_hist)
+
+
+def _sweep_invd(M, b_local, diag: Callable[[], torch.Tensor],
+                what: str) -> torch.Tensor:
+    """diag^-1 (``diag()`` gives the local diagonal) for M="jacobi", ones
+    for M=None: the bodies precondition in their sweep."""
+    if M is None:
+        return torch.ones_like(b_local)
+    if isinstance(M, str) and M == "jacobi":
+        return 1.0 / diag().to(b_local.dtype)
+    raise ValueError(f"{what} preconditions in the sweep: M must be None "
+                     f"or 'jacobi', got {M!r}")
+
+
+def _bsr_apply(boffs, bblocks_e: torch.Tensor, v_e: torch.Tensor,
+               hb: int) -> torch.Tensor:
+    """Block-banded ``y = A v`` on a halo-extended block-row range.
+
+    ``bblocks_e`` (n_boff, obr, bs, bs) holds the blocks of the OUTPUT
+    block rows (``BsrMatrix.block_bands``) and ``v_e`` (obr + 2 hb, bs)
+    the input extended ``hb`` block rows beyond them:
+    ``y[i] = sum_m bblocks_e[m, i] @ v_e[i + hb + boffs[m]]``.
+    """
+    obr = bblocks_e.shape[1]
+    y = torch.zeros((obr, v_e.shape[-1]), dtype=v_e.dtype,
+                    device=v_e.device)
+    for m, off in enumerate(boffs):
+        y = y + torch.einsum("rij,rj->ri", bblocks_e[m],
+                             v_e[hb + off:hb + off + obr])
+    return y
+
+
+def _bsr_column_checksum_local(boffs, bblocks_e: torch.Tensor,
+                               hb: int) -> torch.Tensor:
+    """This rank's (lbr, bs) slice of the GLOBAL column sums A^T 1.
+
+    Block column j is written by block row j - boffs[m], whose blocks lie
+    inside the hb-extended local block bands: a gather in offset order,
+    no scatter and no communication.
+    """
+    lbr = bblocks_e.shape[1] - 2 * hb
+    colsums = bblocks_e.sum(dim=-2)               # (n_boff, lbr + 2hb, bs)
+    c = torch.zeros((lbr, bblocks_e.shape[-1]), dtype=bblocks_e.dtype,
+                    device=bblocks_e.device)
+    for m, off in enumerate(boffs):
+        c = c + colsums[m, hb - off:hb - off + lbr]
+    return c
+
+
+def sharded_pipecg_bsr_solve(boffs, bblocks_local, b_local, *, group=None,
+                             ip: str = "id", M=None, maxiter: int = 100,
+                             tol: float = 0.0, noise=None, recorder=None
+                             ) -> SolveResult:
+    """Per-rank PIPECG body for a BSR operator, sharded on block rows.
+
+    ``_engine_solve_bsr`` hands each rank its block rows of the block-DIA form
+    (``BsrMatrix.block_bands``: static block offsets ``boffs`` and
+    (n_boff, lbr, bs, bs) dense blocks) and of ``b`` as (lbr, bs).  The
+    halo is ``hb = max|boffs|`` block rows: the operator and diag^-1 are
+    extended by hb once per solve, u and p travel at 2 hb every
+    iteration, and the split-phase loop is :func:`_recompute_pipecg`'s.
+    Single right-hand side, PIPECG only (``ip="id"``), ``M`` None or
+    "jacobi"; plain torch, as the JAX package's body is plain jnp.
+    """
+    if ip != "id":
+        raise ValueError("the sharded BSR body implements the pipecg ('id') "
+                         f"inner-product pairing only; got ip={ip!r}")
+    if b_local.dim() != 2:
+        raise ValueError("sharded_pipecg_bsr_solve is single-RHS: b_local "
+                         "must be this rank's (lbr, bs) block rows, got "
+                         f"shape {tuple(b_local.shape)}")
+    hb = max(abs(int(o)) for o in boffs)
+    lbr = b_local.shape[0]
+    dt = b_local.dtype
+    if lbr < 2 * hb:
+        raise ValueError(f"sharded BSR engine: local shard of {lbr} block "
+                         f"rows is narrower than the 2*hb={2 * hb} reach")
+    invd = _sweep_invd(M, b_local, lambda: torch.diagonal(
+        bblocks_local[list(boffs).index(0)], dim1=-2, dim2=-1),
+        "the sharded BSR engine")
+
+    def ext(v, w, axis):
+        lo, hi = _chain_exchange(v, w, axis, group)
+        return torch.cat([lo, v, hi], dim=axis)
+
+    # loop-invariant operator extension: one exchange per solve
+    bblocks_h = ext(bblocks_local, hb, -3)
+    invd_h = ext(invd, hb, -2)
+    csum = _bsr_column_checksum_local(boffs, bblocks_h, hb).to(dt)
+
+    def crop(v, c):
+        return v[c:v.shape[0] - c]
+
+    def mv(v):
+        return _bsr_apply(boffs, bblocks_local, ext(v, hb, -2), hb)
+
+    def exchange(u, p):
+        return ext(u, 2 * hb, -2), ext(p, 2 * hb, -2)
+
+    def sweep(u_e, p_e, alpha, beta):
+        pp_e = u_e + beta * p_e                        # extent 2hb
+        s_e = _bsr_apply(boffs, bblocks_h, pp_e, hb)   # extent hb
+        u2_e = crop(u_e, hb) - alpha * (invd_h * s_e)
+        w2 = _bsr_apply(boffs, bblocks_local, u2_e, hb)
+        return crop(pp_e, 2 * hb), crop(s_e, hb), crop(u2_e, hb), w2
+
+    return _recompute_pipecg(b_local, invd, csum, mv, exchange, sweep,
+                             group=group, maxiter=maxiter, tol=tol,
+                             noise=noise, recorder=recorder)
+
+
+def _grid_neighbours(group, grid: Tuple[int, int]):
+    """((north, south), (west, east)) group ranks of this rank on the
+    row-major ``(py, px)`` grid; None past the grid's edge."""
+    rank, _ = comm.rank_and_size(group)
+    py, px = grid
+    gy, gx = divmod(rank, px)
+    return ((rank - px if gy > 0 else None,
+             rank + px if gy < py - 1 else None),
+            (rank - 1 if gx > 0 else None,
+             rank + 1 if gx < px - 1 else None))
+
+
+def halo_exchange_2d(v: torch.Tensor, wy: int, wx: int,
+                     grid: Tuple[int, int], group=None) -> torch.Tensor:
+    """Two-phase, corner-carrying halo exchange on a 2-D process grid.
+
+    ``v`` is (..., ly, lx), this rank's tile of a (ny, nx) field.  Phase 1
+    exchanges N/S row strips of width ``wy``; phase 2 exchanges W/E column
+    strips of width ``wx`` of the ROW-EXTENDED tile, so the corners ride
+    through the edge neighbours: 4 messages per field and no diagonal one
+    (``HaloSpec.neighbors``).  Returns the (..., ly + 2 wy, lx + 2 wx)
+    extension, zeros past the grid's edge.
+    """
+    (north, south), (west, east) = _grid_neighbours(group, grid)
+    n_, s_ = comm.exchange_along(v, wy, -2, north, south, group)
+    v = torch.cat([n_, v, s_], dim=-2)
+    w_, e_ = comm.exchange_along(v, wx, -1, west, east, group)
+    return torch.cat([w_, v, e_], dim=-1)
+
+
+def _apply2d(doffs, bands_e: torch.Tensor, v_e: torch.Tensor,
+             hy: int, hx: int) -> torch.Tensor:
+    """Stencil ``y = A v`` on a (possibly halo-extended) 2-D tile.
+
+    ``doffs`` are the bands' (dy, dx) lattice steps
+    (``DiaMatrix.grid_offsets``); ``bands_e`` (nb, oy, ox) holds the band
+    values at the OUTPUT rows and ``v_e`` (oy + 2 hy, ox + 2 hx) the input
+    extended beyond them:
+    ``y[i, j] = sum_k bands_e[k, i, j] * v_e[i + hy + dy_k, j + hx + dx_k]``.
+    """
+    oy, ox = bands_e.shape[-2], bands_e.shape[-1]
+    y = torch.zeros((oy, ox), dtype=v_e.dtype, device=v_e.device)
+    for k, (dy, dx) in enumerate(doffs):
+        y = y + bands_e[k] * v_e[hy + dy:hy + dy + oy, hx + dx:hx + dx + ox]
+    return y
+
+
+def _dia2d_column_checksum(doffs, bands_e: torch.Tensor, hy: int,
+                           hx: int) -> torch.Tensor:
+    """This rank's (ly, lx) slice of the GLOBAL column sums A^T 1.
+
+    Column (i, j) is written by row (i - dy, j - dx) of band k, and every
+    such row lies inside the (hy, hx)-extended local bands.
+    """
+    ly, lx = bands_e.shape[-2] - 2 * hy, bands_e.shape[-1] - 2 * hx
+    c = torch.zeros((ly, lx), dtype=bands_e.dtype, device=bands_e.device)
+    for k, (dy, dx) in enumerate(doffs):
+        c = c + bands_e[k, hy - dy:hy - dy + ly, hx - dx:hx - dx + lx]
+    return c
+
+
+def _crop2d(v: torch.Tensor, cy: int, cx: int) -> torch.Tensor:
+    """Drop a (cy, cx)-wide frame from the trailing two axes."""
+    return v[..., cy:v.shape[-2] - cy, cx:v.shape[-1] - cx]
+
+
+def sharded_pipecg_solve_2d(doffs, bands_local, b_local, *,
+                            grid: Tuple[int, int], group=None,
+                            ip: str = "id", M=None, maxiter: int = 100,
+                            tol: float = 0.0, noise=None, recorder=None
+                            ) -> SolveResult:
+    """Per-rank PIPECG body on a ``(py, px)`` grid of ranks.
+
+    Each rank holds an (ly, lx) tile of the (ny, nx) lattice: ``b_local``
+    and ``bands_local`` (nb, ly, lx).  The chain body's W/E strip pair
+    becomes the N/S/W/E exchange of :func:`halo_exchange_2d`: the operator
+    and diag^-1 extend by (hy, hx) once per solve, u and p by (2 hy, 2 hx)
+    every iteration, and the split-phase loop is
+    :func:`_recompute_pipecg`'s, its one all-reduce spanning the whole
+    grid.  Single right-hand side, PIPECG only (``ip="id"``), ``M`` None
+    or "jacobi"; plain torch, as the JAX package's body is plain jnp.
+    """
+    if ip != "id":
+        raise ValueError("the 2-D grid body implements the pipecg ('id') "
+                         f"inner-product pairing only; got ip={ip!r}")
+    if b_local.dim() != 2:
+        raise ValueError("sharded_pipecg_solve_2d is single-RHS: b_local "
+                         "must be this rank's (ly, lx) tile, got shape "
+                         f"{tuple(b_local.shape)}")
+    hy = max(abs(dy) for dy, _ in doffs)
+    hx = max(abs(dx) for _, dx in doffs)
+    ly, lx = b_local.shape
+    dt = b_local.dtype
+    if ly < 2 * hy or lx < 2 * hx:
+        raise ValueError(f"2-D grid engine: local tile ({ly}, {lx}) is "
+                         f"narrower than the (2*hy, 2*hx) = ({2 * hy}, "
+                         f"{2 * hx}) stencil reach")
+    invd = _sweep_invd(M, b_local,
+                       lambda: bands_local[list(doffs).index((0, 0))],
+                       "the 2-D grid engine")
+    bands_h = halo_exchange_2d(bands_local, hy, hx, grid, group)
+    invd_h = halo_exchange_2d(invd, hy, hx, grid, group)
+    csum = _dia2d_column_checksum(doffs, bands_h, hy, hx).to(dt)
+
+    def mv(v):
+        return _apply2d(doffs, bands_local,
+                        halo_exchange_2d(v, hy, hx, grid, group), hy, hx)
+
+    def exchange(u, p):
+        return (halo_exchange_2d(u, 2 * hy, 2 * hx, grid, group),
+                halo_exchange_2d(p, 2 * hy, 2 * hx, grid, group))
+
+    def sweep(u_e, p_e, alpha, beta):
+        pp_e = u_e + beta * p_e                          # extent 2h
+        s_e = _apply2d(doffs, bands_h, pp_e, hy, hx)     # extent h
+        u2_e = _crop2d(u_e, hy, hx) - alpha * (invd_h * s_e)
+        w2 = _apply2d(doffs, bands_local, u2_e, hy, hx)
+        return (_crop2d(pp_e, 2 * hy, 2 * hx), _crop2d(s_e, hy, hx),
+                _crop2d(u2_e, hy, hx), w2)
+
+    return _recompute_pipecg(b_local, invd, csum, mv, exchange, sweep,
+                             group=group, maxiter=maxiter, tol=tol,
+                             noise=noise, recorder=recorder)
+
+
+def _group_and_grid(group):
+    """``(process_group, (py, px) or None)`` from ``distributed_solve``'s
+    ``group``: one process group (a chain), or such a group and a grid
+    shape whose ``py * px`` is the group's size."""
+    if not isinstance(group, (tuple, list)):
+        return group, None
+    pg, grid = group if len(group) == 2 else (None, None)
+    if not (isinstance(grid, (tuple, list)) and len(grid) == 2
+            and all(isinstance(g, int) and g >= 1 for g in grid)):
+        raise ValueError("a 2-D process grid is group=(process_group, "
+                         f"(py, px)) with positive ints; got {group!r}")
+    _, world = comm.rank_and_size(pg)
+    if grid[0] * grid[1] != world:
+        raise ValueError(f"a {tuple(grid)} grid needs {grid[0] * grid[1]} "
+                         f"ranks; the group has {world}")
+    return pg, (grid[0], grid[1])
+
+
 def _rows(n: int, group) -> slice:
     """This rank's contiguous block of the n rows (even split)."""
     rank, world = comm.rank_and_size(group)
@@ -616,21 +953,123 @@ def _gather_x(res: SolveResult, group) -> SolveResult:
     return res._replace(x=comm.all_gather_cols(res.x, group))
 
 
-def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
-                              recorder=None, **solver_kw) -> SolveResult:
-    """The ShardedFusedEngine path: the 1-D DIA body on a chain of ranks."""
+def _pop_basic_kw(solver_kw, path: str):
+    """(M, maxiter, tol) of a plain-torch body; raises for what it lacks.
+
+    The BSR-chain and 2-D-grid bodies are depth 1 at the solve dtype:
+    ``l > 1`` and a non-default precision raise ValueError, any other
+    keyword (a warm start, say) TypeError.
+    """
+    M = solver_kw.pop("M", None)
+    maxiter = solver_kw.pop("maxiter", 100)
+    tol = solver_kw.pop("tol", 0.0)
+    depth = int(solver_kw.pop("l", 1))
+    if depth > 1:
+        raise ValueError(
+            f"the {path} sharded body is depth-1 only (got l={depth}); "
+            "depth-l ghost blocks are implemented for the 1-D DIA path")
+    if not as_policy(solver_kw.pop("precision", None)).is_default:
+        raise ValueError(
+            f"the {path} sharded body runs at the solve dtype only; "
+            "mixed-precision policies are implemented for the 1-D DIA path")
+    if solver_kw:
+        raise TypeError(f"unsupported kwargs for the {path} sharded path: "
+                        f"{sorted(solver_kw)}")
+    return M, maxiter, tol
+
+
+def _engine_solve_bsr(name, A, b, group, eng, *, grid=None, noise=None,
+                      recorder=None, **solver_kw) -> SolveResult:
+    """Drive :func:`sharded_pipecg_bsr_solve` over the block rows.
+
+    The block-DIA form (``BsrMatrix.block_bands``) is taken once; each
+    rank gets its contiguous block rows of it and of ``b`` as (nbr, bs).
+    """
+    if grid is not None:
+        raise ValueError(
+            "the sharded BSR body shards block rows over a chain of ranks; "
+            "pass one process group, not a (py, px) grid")
+    if name != "pipecg":
+        raise ValueError(
+            f"the sharded BSR body implements pipecg only; got {name!r}")
+    if b.dim() != 1:
+        raise ValueError("the sharded BSR body is single-RHS; got batched b "
+                         f"of shape {tuple(b.shape)}")
+    M, maxiter, tol = _pop_basic_kw(solver_kw, "BSR")
+    sl = _rows(A.n_block_rows, group)
+    boffs, bblocks = A.block_bands()
+    body = eng.body("pipecg", "bsr")
+    res = body(boffs, bblocks[:, sl].contiguous(),
+               b.reshape(A.n_block_rows, A.bs)[sl].contiguous(), group=group,
+               M=M, maxiter=maxiter, tol=tol, noise=noise,
+               recorder=recorder)
+    return _gather_x(res._replace(x=res.x.reshape(-1)), group)
+
+
+def _engine_solve_2d(name, A, b, group, grid, eng, *, noise=None,
+                     recorder=None, **solver_kw) -> SolveResult:
+    """Drive :func:`sharded_pipecg_solve_2d` over a ``(py, px)`` grid.
+
+    The operator's (ny, nx) lattice (``grid_shape``) is tiled over the
+    grid: rank r owns the (ny/py, nx/px) tile at grid position
+    ``(r // px, r % px)``, the JAX mesh's ``devices.reshape(py, px)``
+    order; the result's ``x`` is gathered back into lattice order.
+    """
+    if A.grid_shape is None:
+        raise ValueError(
+            "a (py, px) process grid needs a DiaMatrix built with "
+            "grid_shape=(ny, nx) (e.g. operators.laplacian_2d) so its "
+            "offsets decompose into (dy, dx) grid displacements")
+    if name != "pipecg":
+        raise ValueError(
+            f"the 2-D grid sharded body implements pipecg only; got {name!r}")
+    if b.dim() != 1:
+        raise ValueError("the 2-D grid sharded body is single-RHS; got "
+                         f"batched b of shape {tuple(b.shape)}")
+    M, maxiter, tol = _pop_basic_kw(solver_kw, "2-D grid")
+    (ny, nx), (py, px) = A.grid_shape, grid
+    if ny % py or nx % px:
+        raise ValueError(f"grid {A.grid_shape} does not tile evenly over "
+                         f"the ({py}, {px}) process grid")
+    rank, _ = comm.rank_and_size(group)
+    gy, gx = divmod(rank, px)
+    ly, lx = ny // py, nx // px
+    rows = slice(gy * ly, (gy + 1) * ly)
+    cols = slice(gx * lx, (gx + 1) * lx)
+    bands = A.bands.reshape(len(A.offsets), ny, nx)[:, rows, cols]
+    body = eng.body("pipecg", "dia2d")
+    res = body(A.grid_offsets(), bands.contiguous(),
+               b.reshape(ny, nx)[rows, cols].contiguous(), grid=grid,
+               group=group, M=M, maxiter=maxiter, tol=tol, noise=noise,
+               recorder=recorder)
+    tiles = comm.all_gather_cols(res.x.reshape(-1), group)
+    x = tiles.reshape(py, px, ly, lx).permute(0, 2, 1, 3).reshape(-1)
+    return res._replace(x=x)
+
+
+def _distributed_engine_solve(solver, A, b, group, eng, *, grid=None,
+                              noise=None, recorder=None, **solver_kw
+                              ) -> SolveResult:
+    """The ShardedFusedEngine path, routed on the operator's format and
+    the process grid: a BsrMatrix to the BSR body on a chain of ranks, a
+    DiaMatrix with a ``(py, px)`` grid to the 2-D body, else the 1-D DIA
+    bodies (through ``ShardedFusedEngine.body``)."""
     name = getattr(solver, "__name__", str(solver))
     family = "pipecg" if name in _SHARDED_IP else _SHARDED_FAMILY.get(name)
     if family is None:
         raise ValueError(
             "engine='sharded_fused' supports pipecg / pipecg_multi / "
             f"pipecr / pipecg_l / pipebicgstab; got solver {name!r}")
-    fmt = "bsr" if getattr(A, "format", None) == "bsr" else "dia"
-    body = eng.body(family, fmt)   # raises for the bodies not ported yet
+    kw = dict(noise=noise, recorder=recorder, **solver_kw)
+    if isinstance(A, BsrMatrix):
+        return _engine_solve_bsr(name, A, b, group, eng, grid=grid, **kw)
     if not isinstance(A, DiaMatrix):
         raise ValueError(
-            "engine='sharded_fused' needs a DiaMatrix operator; got "
-            f"{type(A).__name__}")
+            "engine='sharded_fused' needs a DiaMatrix or BsrMatrix "
+            f"operator; got {type(A).__name__}")
+    if grid is not None:
+        return _engine_solve_2d(name, A, b, group, grid, eng, **kw)
+    body = eng.body(family)
     M = solver_kw.pop("M", None)
     maxiter = solver_kw.pop("maxiter", 100)
     tol = solver_kw.pop("tol", 0.0)
@@ -672,7 +1111,7 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
                    precision=precision, recorder=recorder)
         return _gather_x(res, group)
     if family == "pipecg_l":   # depth 1: the PIPECG body itself
-        body = eng.body("pipecg", fmt)
+        body = eng.body("pipecg")
     if solver_kw:
         raise TypeError("unsupported kwargs for the sharded_fused path: "
                         f"{sorted(solver_kw)}")
@@ -684,7 +1123,7 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, noise=None,
     return _gather_x(res, group)
 
 
-def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
+def distributed_solve(solver: Callable, A, b: torch.Tensor,
                       group=None, *, use_kernel: bool = False, noise=None,
                       engine=None, options=None, recorder=None,
                       **solver_kw) -> SolveResult:
@@ -701,17 +1140,21 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
     :func:`sharded_pipebicgstab_solve`), and pipecg_l (``l=``) as one
     chain sweep and one all-reduce per block
     (:func:`sharded_pipecg_depth_solve`); ``recorder`` logs their order.
-    ``options`` (a SolverOptions) bundles engine, maxiter/tol, M, depth,
-    noise and precision; it cannot be mixed with the loose spellings.
-    ``precision`` needs the sharded engine. A 2-D process grid (``group``
-    given as a pair) is not ported yet.
+    A ``BsrMatrix`` runs pipecg on its block rows over the chain of ranks
+    (:func:`sharded_pipecg_bsr_solve`, sharded engine only).
+    ``group=(process_group, (py, px))`` lays the group's ranks on a
+    row-major ``(py, px)`` grid (rank r at ``(r // px, r % px)``): the
+    sharded engine then runs pipecg on a DiaMatrix with ``grid_shape``
+    tile by tile (:func:`sharded_pipecg_solve_2d`, N/S/W/E strips), the
+    inline path on the flattened chain.  The BSR and 2-D bodies are plain
+    torch, single-RHS, depth 1 at the solve dtype.  ``options`` (a
+    SolverOptions) bundles engine, maxiter/tol, M, depth, noise and
+    precision; it cannot be mixed with the loose spellings.
+    ``precision`` needs the sharded engine.
     """
     from repro_torch.core.krylov.engine import ShardedFusedEngine, get_engine
 
-    if isinstance(group, (tuple, list)):
-        raise NotImplementedError(
-            "2-D process grids come with the 2-D/BSR slice (ROADMAP.md "
-            "queue 1, item 9); pass one process group (a 1-D chain)")
+    group, grid = _group_and_grid(group)
     if options is not None:
         if not isinstance(options, SolverOptions):
             raise TypeError(
@@ -743,13 +1186,17 @@ def distributed_solve(solver: Callable, A: DiaMatrix, b: torch.Tensor,
     eng = get_engine(engine)
     if isinstance(eng, ShardedFusedEngine):
         return _distributed_engine_solve(solver, A, b, group, eng,
-                                         noise=noise, recorder=recorder,
-                                         **solver_kw)
+                                         grid=grid, noise=noise,
+                                         recorder=recorder, **solver_kw)
     if eng is not None:
         raise ValueError(
             "distributed_solve supports engine=None (historical inline "
             "path) or 'sharded_fused'; single-device engines compute "
             f"local reductions and cannot shard (got {eng.name!r})")
+    if not isinstance(A, DiaMatrix):
+        raise ValueError(
+            "the inline path (engine=None) applies DIA bands on every rank; "
+            f"a {type(A).__name__} runs under engine='sharded_fused'")
     if getattr(solver, "__name__", "") == "pipecg_l":
         raise ValueError(
             "pipecg_l's ghost-basis blocks need the depth-aware sharded "

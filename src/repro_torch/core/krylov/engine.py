@@ -1,15 +1,16 @@
 """Pluggable iteration engines: WHO executes a solver iteration's vector work.
 
 * ``NaiveEngine`` — plain torch ops, one op per AXPY/dot/SpMV.
-* ``FusedEngine`` — kernel-backed.  For a DIA operator with identity or
-  Jacobi preconditioning a whole PIPECG iteration (8 updates + M-apply +
-  SpMV + the fused reduction) is ONE kernel sweep
-  (kernels/pipecg_spmv_fused.py); otherwise it falls back to the
-  update-only kernel (kernels/pipecg_fused.py) with explicit operator /
-  preconditioner applications.  Operator applications outside the sweep
-  go through the DIA SpMV kernel (kernels/spmv_dia.py).
-* ``ShardedFusedEngine`` — the per-rank halo sweep with a split-phase
-  all-reduce.  Its reductions are PARTIAL per rank, so it runs only under
+* ``FusedEngine`` — kernel-backed.  For a DIA or BSR operator with
+  identity or Jacobi preconditioning a whole PIPECG iteration (8 updates +
+  M-apply + SpMV + the fused reduction) is ONE kernel sweep
+  (kernels/pipecg_spmv_fused.py, kernels/spmv_bsr.py::pipecg_bsr_fused);
+  otherwise it falls back to the update-only kernel
+  (kernels/pipecg_fused.py) with explicit operator / preconditioner
+  applications.  Operator applications outside the sweep go through the
+  format's SpMV kernel (kernels/spmv_dia.py, kernels/spmv_bsr.py).
+* ``ShardedFusedEngine`` — the per-rank bodies with a split-phase
+  all-reduce (DIA on a chain or a 2-D grid of ranks, BSR on a chain).  Its reductions are PARTIAL per rank, so it runs only under
   ``distributed_solve(..., engine="sharded_fused")``
   (core/krylov/distributed.py); the local solver entry points reject it.
 
@@ -28,12 +29,13 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 
 ENGINES: Dict[str, "Engine"] = {}
 
 # operator formats whose fused single-sweep kernel exists
-_SWEEP_FORMATS = ("dia",)
+_SWEEP_FORMATS = ("dia", "bsr")
 
 
 def register_engine(cls):
@@ -70,13 +72,6 @@ def _resolve_M(A, M) -> Callable:
         inv_d = 1.0 / A.diagonal()
         return lambda z: inv_d * z
     return M
-
-
-def _reject_bsr(A) -> None:
-    if getattr(A, "format", None) == "bsr":
-        raise NotImplementedError(
-            "BSR operators need the blocked-ELL kernels, which are not "
-            "ported yet (ROADMAP.md queue 2, items 8-9)")
 
 
 @dataclasses.dataclass
@@ -213,10 +208,11 @@ class FusedEngine(Engine):
     name = "fused"
 
     def spmv(self, A, x):
-        _reject_bsr(A)
+        from repro_torch.kernels import ops as kops
         if isinstance(A, DiaMatrix):
-            from repro_torch.kernels import ops as kops
             return kops.spmv_dia_step(A.offsets, A.bands, x)
+        if isinstance(A, BsrMatrix):
+            return kops.spmv_bsr_step(A.indices, A.blocks, x)
         return A.matvec(x) if hasattr(A, "matvec") else A(x)
 
     def dots(self, V, z):
@@ -224,9 +220,15 @@ class FusedEngine(Engine):
         return kops.fused_dots(V, z)
 
     def prepare(self, A, M, dtype):
-        _reject_bsr(A)
         if not sweep_ok(A, M):
             return super().prepare(A, M, dtype)
+        if A.format == "bsr":
+            # a BSR operator rides at x's dtype: no storage demotion
+            inv_d = (torch.ones((A.n,), dtype=A.dtype, device=A.device)
+                     if M is None else 1.0 / A.diagonal())
+            return IterOperands(A=A, Mf=_resolve_M(A, M),
+                                inv_diag=inv_d.contiguous(),
+                                csum=A.column_checksum().contiguous())
         # dtype follows the OPERATOR: under a storage-demoting policy the
         # operator, diag^-1 and c ride at the storage dtype the kernel
         # streams, while x stays at the accumulator dtype.  diag^-1 and c
@@ -242,7 +244,6 @@ class FusedEngine(Engine):
                             .contiguous())
 
     def pipecg_init(self, A, b, x0, M, ip):
-        _reject_bsr(A)
         if not sweep_ok(A, M):
             # fallback: update-kernel path carries the full 10-vector state
             return self._init10(A, b, x0, M, ip)
@@ -260,10 +261,15 @@ class FusedEngine(Engine):
         from repro_torch.kernels import ops as kops
 
         A = ops.A
-        if "w" not in st:  # single-sweep state
-            x, r, u, p, red = kops.pipecg_spmv_fused_step(
-                A.offsets, A.bands, ops.inv_diag, ops.csum,
-                st["x"], st["r"], st["u"], st["p"], alpha, beta)
+        if "w" not in st:  # single-sweep state: the format's sweep
+            if A.format == "bsr":
+                x, r, u, p, red = kops.pipecg_bsr_fused_step(
+                    A.indices, A.blocks, ops.inv_diag, ops.csum,
+                    st["x"], st["r"], st["u"], st["p"], alpha, beta)
+            else:
+                x, r, u, p, red = kops.pipecg_spmv_fused_step(
+                    A.offsets, A.bands, ops.inv_diag, ops.csum,
+                    st["x"], st["r"], st["u"], st["p"], alpha, beta)
             gamma, delta = _ip_pick(ip, red[..., 0], red[..., 1],
                                     red[..., 3], red[..., 4])
             # checksum residual 1^T w' - c^T u' rode the same sweep (col 5)
@@ -286,7 +292,11 @@ class ShardedFusedEngine(Engine):
     solver loop: its reductions are PARTIAL per rank and need the group to
     finish them, so it runs only under
     ``distributed_solve(..., engine="sharded_fused")``, which calls the
-    per-rank body that :meth:`body` names on every rank.  Requesting it on a local solver raises
+    per-rank body that :meth:`body` names on every rank: PIPECG/PIPECR,
+    p-BiCGStab and depth-l CG on DIA over a chain of ranks (halo sweep
+    kernels), and PIPECG on BSR over a chain of ranks ("bsr") and on DIA
+    over a ``(py, px)`` grid of ranks ("dia2d"), both in plain torch as
+    in the JAX package.  Requesting it on a local solver raises
     with a pointer to the right entry point.
     """
 
@@ -303,26 +313,20 @@ class ShardedFusedEngine(Engine):
     spmv = dots = prepare = pipecg_init = pipecg_iter = _reject
 
     # table-driven dispatch: (solver family, operator format) -> the name
-    # of the per-rank body in core/krylov/distributed.py.  The 1-D DIA
-    # PIPECG/PIPECR, p-BiCGStab and depth-l bodies are ported; the others
-    # raise with their ROADMAP.md items.
+    # of the per-rank body in core/krylov/distributed.py; "dia2d" is the
+    # DIA format on a 2-D process grid
     _BODIES = {
         ("pipecg", "dia"): "sharded_pipecg_solve",
+        ("pipecg", "dia2d"): "sharded_pipecg_solve_2d",
+        ("pipecg", "bsr"): "sharded_pipecg_bsr_solve",
         ("pipebicgstab", "dia"): "sharded_pipebicgstab_solve",
         ("pipecg_l", "dia"): "sharded_pipecg_depth_solve",
-    }
-    _LATER = {
-        ("pipecg", "bsr"): "queue 1, item 9",
     }
 
     def body(self, family: str, fmt: str = "dia"):
         """Per-rank solve body for a (solver family, operator format)."""
         from repro_torch.core.krylov import distributed
         key = (family, fmt)
-        if key in self._LATER:
-            raise NotImplementedError(
-                f"the sharded {family!r} body for format {fmt!r} is not "
-                f"ported yet (ROADMAP.md {self._LATER[key]})")
         try:
             return getattr(distributed, self._BODIES[key])
         except KeyError:

@@ -6,7 +6,9 @@ are.  Gloo reads host memory: a CUDA tensor on a gloo group goes through
 an explicit host copy each way (never a CUDA pointer handed to gloo), as
 do strips sliced from a vector, which must be contiguous.  Every helper
 here takes a process ``group`` (None: the default group) and works in
-that group's ranks.
+that group's ranks.  A 2-D process grid is the same group read row-major:
+rank r sits at grid position ``(r // px, r % px)``, and
+:func:`exchange_along` names the two neighbours along one grid axis.
 """
 from __future__ import annotations
 
@@ -82,6 +84,40 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+
+
+def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,
+                   group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge strips of width ``w`` along ``axis`` from two neighbours.
+
+    ``low`` and ``high`` are group ranks (None: no neighbour there).
+    Returns ``(from_low, from_high)``: the last ``w`` entries along
+    ``axis`` of ``low``'s ``v`` and the first ``w`` of ``high``'s, zeros
+    where there is no neighbour (the zero extension at the matrix edge).
+    This rank sends its first ``w`` entries to ``low`` and its last ``w``
+    to ``high`` in the same exchange.
+    """
+    shape = list(v.shape)
+    shape[axis] = w
+    from_low = torch.zeros(shape, dtype=v.dtype, device=v.device)
+    from_high = torch.zeros_like(from_low)
+    if w == 0 or (low is None and high is None):
+        return from_low, from_high
+    staged = host_staged(v.device, group)
+    ext = v.shape[axis]
+    sends, recvs, bufs = [], [], {}
+    for peer, start in ((low, 0), (high, ext - w)):
+        if peer is None:
+            continue
+        bufs[peer] = wire_buffer(shape, v, staged)
+        sends.append((peer, to_wire(v.narrow(axis, start, w), staged)))
+        recvs.append((peer, bufs[peer]))
+    exchange(sends, recvs, group)
+    if low is not None:
+        from_low = bufs[low].to(v.device)
+    if high is not None:
+        from_high = bufs[high].to(v.device)
+    return from_low, from_high
 
 
 def wire_buffer(shape, like: torch.Tensor, staged: bool) -> torch.Tensor:

@@ -12,7 +12,10 @@ here ``OrderRecorder`` logs, per iteration, the order of the four events
 ``issue``, ``halo``, ``wait`` and ``launch`` with their host times, and
 ``split_phase_ok`` checks ``issue(i) < halo(i+1) < wait(i) < launch(i+1)``
 with exactly one reduction issued per iteration.  Iteration -1 is the
-solve's set-up, whose row the first iteration waits for.
+solve's set-up, whose row the first iteration waits for.  The plain-torch
+BSR-chain and 2-D-grid bodies (core/krylov/distributed.py::
+sharded_pipecg_bsr_solve, ::sharded_pipecg_solve_2d) log the same four
+events, ``launch`` marking the issue of their local sweep's torch ops.
 
 The depth-l body (core/krylov/distributed.py::sharded_pipecg_depth_solve)
 logs the same four events once per block of l iterations, with the block

@@ -93,10 +93,12 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     """Rank body: run ``distributed_solve`` once per case, report as numpy.
 
     A case is a dict with ``solver`` (a name in ``core.krylov``), ``A`` (a
-    ``DiaMatrix``) and ``b`` (a tensor), both global and moved to
-    ``device`` here, ``kw`` (keyword arguments of ``distributed_solve``)
-    and optionally ``noise``, the ``(dist, scale, seed)`` of a
-    ``NoiseHook`` built on this rank.  Each outcome holds the result's
+    ``DiaMatrix`` or a ``BsrMatrix``) and ``b`` (a tensor), both global and
+    moved to ``device`` here, ``kw`` (keyword arguments of
+    ``distributed_solve``) and optionally ``noise``, the ``(dist, scale,
+    seed)`` of a ``NoiseHook`` built on this rank, and ``grid``, a
+    ``(py, px)`` process grid the group's ranks are laid on
+    (``group=(None, grid)``).  Each outcome holds the result's
     fields, the kernel launches, the blocking all-reduces
     (``comm.all_reduce`` calls) and the wall seconds of the solve (ranks
     start together; the card is synchronised around it) and this rank's
@@ -108,6 +110,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     """
     from repro_torch.core import krylov
     from repro_torch.core.krylov.distributed import distributed_solve
+    from repro_torch.core.krylov.operator import BsrMatrix
     from repro_torch.core.krylov.operators import DiaMatrix
     from repro_torch.core.noise import NoiseHook
     from repro_torch.distributed import comm
@@ -120,8 +123,11 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     outcomes = []
     for case in cases:
         A = case["A"]
-        A = DiaMatrix(offsets=A.offsets, bands=A.bands.to(dev),
-                      grid_shape=A.grid_shape)
+        if isinstance(A, BsrMatrix):
+            A = BsrMatrix(indices=A.indices.to(dev), blocks=A.blocks.to(dev))
+        else:
+            A = DiaMatrix(offsets=A.offsets, bands=A.bands.to(dev),
+                          grid_shape=A.grid_shape)
         b = case["b"].to(dev)
         kw = dict(case.get("kw", {}))
         noise = case.get("noise")
@@ -135,7 +141,10 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
         ops.reset_launch_counts()
         comm.all_reduce.calls = 0
         t0 = time.perf_counter()
-        res = distributed_solve(solver, A, b, noise=hook, recorder=rec, **kw)
+        grid = case.get("grid")
+        res = distributed_solve(solver, A, b, None if grid is None
+                                else (None, tuple(grid)), noise=hook,
+                                recorder=rec, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0

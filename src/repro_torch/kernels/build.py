@@ -63,6 +63,11 @@ _SIGNATURES = {
                               _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _P, _P],
+    "rt_spmv_bsr": [_I, _L, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rt_pipecg_bsr_fused": [_I, _L, _I, _I, _I, _P,
+                            _P, _P, _P, _P,
+                            _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "rt_ghost_chain": [_I, _I, _P, _I, _L, _I,
                        _P, _I, _P, _P,
                        _P, _P, _P, _P, _I, _L,

@@ -100,6 +100,15 @@ template <typename F> int with_types(int acc, int sto, F &&f) {
   }
 }
 
+// f(Tag<T>) for T in {f32, f64}: kernels that store nothing narrower
+template <typename F> int with_accum(int acc, F &&f) {
+  switch (acc) {
+    case kF32: return f(Tag<float>{});
+    case kF64: return f(Tag<double>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // row m of right-hand side j of a carried (k, n) vector: the local rows,
 // else the (k, h2) strips to the left and right (null: zero), else zero
 template <typename T, typename S>

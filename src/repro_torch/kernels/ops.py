@@ -20,6 +20,7 @@ from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
                                                    ghost_chain_halo,
                                                    pipecg_spmv_fused,
                                                    pipecg_spmv_halo)
+from repro_torch.kernels.spmv_bsr import pipecg_bsr_fused, spmv_bsr
 from repro_torch.kernels.spmv_dia import spmv_dia
 
 #: every kernel wrapper of the package, by kernel name
@@ -33,6 +34,8 @@ KERNELS = {
     "pipebicgstab_halo": pipebicgstab_halo,
     "ghost_chain_fused": ghost_chain_fused,
     "ghost_chain_halo": ghost_chain_halo,
+    "spmv_bsr": spmv_bsr,
+    "pipecg_bsr_fused": pipecg_bsr_fused,
 }
 
 
@@ -61,6 +64,11 @@ def spmv_dia_step(offsets: Sequence[int], bands, x) -> torch.Tensor:
     return spmv_dia(tuple(offsets), bands, x.contiguous())
 
 
+def spmv_bsr_step(indices, blocks, x) -> torch.Tensor:
+    """Blocked-ELL SpMV for x (n,) or (k, n) (kernel-backed on CUDA)."""
+    return spmv_bsr(indices, blocks, x.contiguous())
+
+
 def fused_dots(V, z) -> torch.Tensor:
     """One-pass multi-dot ``V @ z`` for V (m, n), z (n,) (kernel-backed)."""
     return _fused_dots(V.contiguous(), z.contiguous())
@@ -74,6 +82,19 @@ def pipecg_spmv_fused_step(offsets: Sequence[int], bands, inv_diag, csum,
     (x2, r2, u2, p2), (a, b) = _batch(x, (x, r, u, p), alpha, beta)
     outs = pipecg_spmv_fused(tuple(offsets), bands, inv_diag, csum,
                              x2, r2, u2, p2, a, b)
+    if squeeze:
+        outs = tuple(o[0] for o in outs)
+    return outs
+
+
+def pipecg_bsr_fused_step(indices, blocks, inv_diag, csum, x, r, u, p,
+                          alpha, beta) -> Tuple[torch.Tensor, ...]:
+    """Single-sweep PIPECG iteration on a BSR operator: the contract of
+    :func:`pipecg_spmv_fused_step` (the same (k, 6) reduction row)."""
+    squeeze = x.dim() == 1
+    (x2, r2, u2, p2), (a, b) = _batch(x, (x, r, u, p), alpha, beta)
+    outs = pipecg_bsr_fused(indices, blocks, inv_diag, csum,
+                            x2, r2, u2, p2, a, b)
     if squeeze:
         outs = tuple(o[0] for o in outs)
     return outs

@@ -12,7 +12,9 @@ and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes, as
 ``fused_dots``'s coefficients to 1e-12 and 1e-5.  The ghost-chain sweep's
 chains bit for bit (bf16 ones too: the links run at float32 in both), its
 Gram as the partials.  The 21-band glen operator (H10) runs through every
-sweep.
+sweep.  The BSR kernels run on ``dia_to_bsr`` of the 1-D and 2-D
+Laplacians at bs 2, 4 and 8 (bs 3 through the SpMV only: the sweep
+takes powers of two).
 """
 import pytest
 import torch
@@ -391,4 +393,88 @@ def test_depth_solve_on_card_matches_naive(cuda):
         naive = pipecg_l(A, b, options=SolverOptions(engine="naive",
                                                      maxiter=60, depth=l))
         torch.testing.assert_close(fused.res_history, naive.res_history,
+                                   rtol=1e-10, atol=0)
+
+
+def _bsr_operands(A, bs, k, acc, g, cuda):
+    from repro_torch.core.krylov import dia_to_bsr
+    B = dia_to_bsr(A, bs=bs)
+    B = type(B)(indices=B.indices, blocks=B.blocks.to(acc))
+    x, r, u, p = (torch.randn(k, B.n, generator=g, device=cuda, dtype=acc)
+                  for _ in range(4))
+    a, b = (torch.rand(k, generator=g, device=cuda, dtype=acc)
+            for _ in range(2))
+    invd = (1.0 / B.diagonal()).contiguous()
+    return B, (B.indices, B.blocks, invd, B.column_checksum(), x, r, u, p,
+               a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bs", [2, 4, 8])
+def test_bsr_kernels_match_plain_on_card(cuda, bs, acc):
+    from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
+    from repro_torch.kernels.spmv_bsr import (pipecg_bsr_fused,
+                                              pipecg_bsr_fused_plain,
+                                              spmv_bsr, spmv_bsr_plain)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for A in (tridiagonal_laplacian(4096, device=cuda),
+              laplacian_2d(72, 50, device=cuda)):
+        B, args = _bsr_operands(A, bs, 3, acc, g, cuda)
+        x = args[4]
+        for v in (x, x[0]):
+            assert torch.equal(spmv_bsr(B.indices, B.blocks, v),
+                               spmv_bsr_plain(B.indices, B.blocks, v))
+        got = pipecg_bsr_fused(*args)
+        want = pipecg_bsr_fused_plain(*args)
+        torch.cuda.synchronize()
+        for gv, wv in zip(got[:4], want[:4]):
+            assert torch.equal(gv, wv)
+        u2, r2 = want[2], want[1]
+        w2 = spmv_bsr_plain(B.indices, B.blocks, u2)
+        mags = torch.stack(
+            [t.abs().sum(-1) for t in (r2 * u2, w2 * u2, r2 * r2, r2 * w2,
+                                       w2 * w2)]
+            + [w2.abs().sum(-1) + (args[3] * u2).abs().sum(-1)], -1)
+        rel = float(((got[4] - want[4]).abs() / mags).max())
+        assert rel <= (1e-10 if acc == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_bsr_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.core.krylov import dia_to_bsr, tridiagonal_laplacian
+    from repro_torch.kernels.spmv_bsr import (pipecg_bsr_fused, spmv_bsr,
+                                              spmv_bsr_plain)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B3 = dia_to_bsr(tridiagonal_laplacian(300, device=cuda), bs=3)
+    x = torch.randn(300, generator=g, device=cuda, dtype=torch.float64)
+    assert torch.equal(spmv_bsr(B3.indices, B3.blocks, x),
+                       spmv_bsr_plain(B3.indices, B3.blocks, x))
+    _, args = _bsr_operands(tridiagonal_laplacian(300, device=cuda), 3, 1,
+                            torch.float64, g, cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        pipecg_bsr_fused(*args)
+    with pytest.raises(ValueError, match="float32"):
+        spmv_bsr(B3.indices, B3.blocks.half(), x.half())
+
+
+@pytest.mark.cuda
+def test_bsr_fused_solve_on_card_matches_naive_and_dia(cuda):
+    from repro_torch.core.krylov import (SolverOptions, dia_to_bsr, pipecg,
+                                         tridiagonal_laplacian)
+    from repro_torch.kernels import ops
+    A = tridiagonal_laplacian(4096, device=cuda)
+    B = dia_to_bsr(A, bs=4)
+    b = torch.randn(4096, generator=torch.Generator(device=cuda)
+                    .manual_seed(13), device=cuda, dtype=torch.float64)
+    ops.reset_launch_counts()
+    fused = pipecg(B, b, options=SolverOptions(engine="fused", maxiter=60))
+    counts = ops.launch_counts()
+    assert counts["pipecg_bsr_fused"] == 60 and counts["spmv_bsr"] == 2
+    assert counts["pipecg_spmv_fused"] == counts["spmv_dia"] == 0
+    for want in (pipecg(B, b, options=SolverOptions(engine="naive",
+                                                    maxiter=60)),
+                 pipecg(A, b, options=SolverOptions(engine="fused",
+                                                    maxiter=60))):
+        torch.testing.assert_close(fused.res_history, want.res_history,
                                    rtol=1e-10, atol=0)

@@ -27,6 +27,20 @@ package's local ``pipecg_l(engine="naive")`` and the port's one-device
 the same block; the bf16 depth case against the JAX package's sharded
 depth body on a one-device mesh with its chain kernel replaced by the
 TPU kernel's arithmetic in jnp (:func:`_jax_sharded_depth_low_precision`).
+
+The geometry cases are the JAX package's own
+(tests/test_engine_equivalence.py::test_operator_geometry_distributed_equivalence):
+``dia_to_bsr(glen_law_band(256, bandwidth=8), bs=4)`` on the chain of
+ranks, 80 iterates, and ``laplacian_2d(16, 8)`` on (1, 2) and (2, 2)
+grids, or (2, 1) and (4, 1), 60 iterates, plain and Jacobi, through the
+plain-torch BSR and 2-D bodies, and a tol solve of each (the reference's
+BSR Jacobi case at tol 1e-12; the grid at 1e-3, where the state it
+freezes on still moves), which freezes one iteration after the local
+solve, as the chain body's does.  Their x is held within the reference's
+``TOL = 1e-10`` of the JAX package's single-device naive solve; these
+small operators converge within 15-45 iterations, so their histories are
+held to rtol 1e-10 above 1e-4 of the first residual (H6), where the
+rounding-order tail past it is measured at 1e-10 to 3e-8.
 """
 import numpy as np
 import pytest
@@ -43,9 +57,11 @@ from repro.kernels.checksum import dia_column_checksum as jcolsum
 from repro.core.noise.injection import NoiseHook as JNoiseHook
 from repro.core.perfmodel.distributions import Exponential as JExponential
 from repro_torch import convert
+from repro.core.krylov.operator import dia_to_bsr as j_dia_to_bsr
 from repro_torch.core.krylov import (PrecisionPolicy, SolverOptions, cg,
                                      distributed_solve, pipebicgstab, pipecg,
                                      pipecg_l, pipecg_multi, pipecr)
+from repro_torch.distributed import comm
 from repro_torch.core.krylov.engine import get_engine
 from repro_torch.core.noise import NoiseHook, sample_np, scale_distribution
 from repro_torch.core.noise.traces import EmpiricalDistribution
@@ -70,12 +86,19 @@ def _spd_tridiag(n, seed):
 OPS = {"ex23": jk.tridiagonal_laplacian(4096),
        "lap2d": jk.laplacian_2d(16, 16),
        "spd": _spd_tridiag(512, seed=3),
-       "cd": jk.convection_diffusion(4096)}
+       "cd": jk.convection_diffusion(4096),
+       "glen-bsr": j_dia_to_bsr(jk.glen_law_band(256, bandwidth=8), bs=4),
+       "lap2d-16x8": jk.laplacian_2d(16, 8)}
 RHS = {"ex23": np.random.default_rng(0).standard_normal(4096),
        "lap2d": np.random.default_rng(1).standard_normal(256),
        "spd": np.random.default_rng(2).standard_normal(512),
        "multi": np.random.default_rng(3).standard_normal((3, 4096)),
-       "cd": np.random.default_rng(4).standard_normal(4096)}
+       "cd": np.random.default_rng(4).standard_normal(4096),
+       "glen-bsr": np.random.default_rng(0).standard_normal(256),
+       "lap2d-16x8": np.random.default_rng(0).standard_normal(128)}
+# (py, px) process grids of the 2-D cases, by world size
+GRIDS = {"wide": {1: (1, 1), 2: (1, 2), 4: (2, 2)},
+         "tall": {1: (1, 1), 2: (2, 1), 4: (4, 1)}}
 SHARDED = dict(engine="sharded_fused")
 
 # name: (solver, operator, rhs, distributed_solve kwargs, noise?)
@@ -129,24 +152,51 @@ CASES = {
                     dict(SHARDED, maxiter=12, l=2, precision="bf16"), False),
     "depth2-noise": ("pipecg_l", "ex23", "ex23",
                      dict(SHARDED, maxiter=80, l=2), True),
+    "bsr": ("pipecg", "glen-bsr", "glen-bsr", dict(SHARDED, maxiter=80),
+            False),
+    "bsr-jacobi": ("pipecg", "glen-bsr", "glen-bsr",
+                   dict(SHARDED, maxiter=80, M="jacobi"), False),
+    "bsr-jacobi-tol": ("pipecg", "glen-bsr", "glen-bsr",
+                       dict(SHARDED, maxiter=80, M="jacobi", tol=1e-12),
+                       False),
+    "grid-wide": ("pipecg", "lap2d-16x8", "lap2d-16x8",
+                  dict(SHARDED, maxiter=60, grid="wide"), False),
+    "grid-wide-jacobi": ("pipecg", "lap2d-16x8", "lap2d-16x8",
+                         dict(SHARDED, maxiter=60, grid="wide", M="jacobi"),
+                         False),
+    "grid-tall": ("pipecg", "lap2d-16x8", "lap2d-16x8",
+                  dict(SHARDED, maxiter=60, grid="tall"), False),
+    "grid-tall-jacobi": ("pipecg", "lap2d-16x8", "lap2d-16x8",
+                         dict(SHARDED, maxiter=60, grid="tall", M="jacobi"),
+                         False),
+    "grid-wide-tol": ("pipecg", "lap2d-16x8", "lap2d-16x8",
+                      dict(SHARDED, maxiter=60, grid="wide", tol=1e-3),
+                      False),
 }
+GEOMETRY = [n for n, c in CASES.items() if c[1] in ("glen-bsr", "lap2d-16x8")]
 DEPTH = [n for n, c in CASES.items() if c[0] == "pipecg_l"]
 NAMES = list(CASES)
 
 
 def _port_op(name):
     A = OPS[name]
+    if A.format == "bsr":
+        return convert.bsr_from_numpy(np.asarray(A.indices),
+                                      np.asarray(A.blocks), device="cpu")
     return convert.dia_from_numpy(A.offsets, np.asarray(A.bands),
                                   grid_shape=A.grid_shape, device="cpu")
 
 
-def _cases():
+def _cases(world):
     out = []
     for solver, op, rhs, kw, noisy in CASES.values():
+        kw = dict(kw)
+        grid = kw.pop("grid", None)
         out.append(dict(solver=solver, A=_port_op(op),
                         b=torch.from_numpy(RHS[rhs].copy()), kw=kw,
                         noise=(Exponential(1.0), SCALE, 0) if noisy
-                        else None))
+                        else None,
+                        grid=None if grid is None else GRIDS[grid][world]))
     return out
 
 
@@ -168,6 +218,9 @@ def _reference(name):
                       options=SolverOptions(maxiter=it, engine="fused",
                                             precision=kw["precision"]))
     opts = dict(maxiter=it, tol=kw.get("tol", 0.0), M=kw.get("M"))
+    if name in GEOMETRY:   # the reference's own oracle: the naive solve
+        return getattr(jk, solver)(A, b, options=jk.SolverOptions(
+            engine="naive", **opts))
     if kw.get("engine"):
         opts["engine"] = "naive"
     if "l" in kw:
@@ -254,7 +307,7 @@ def references():
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
 def runs(request):
     world = request.param
-    return world, ranks.run(ranks.solve_cases, world, _cases(), "cpu",
+    return world, ranks.run(ranks.solve_cases, world, _cases(world), "cpu",
                             device="cpu")
 
 
@@ -284,16 +337,19 @@ def test_distributed_solve_matches_reference(runs, references, name):
         lag = int(want.iters) + 1
         assert int(got["iters"]) == lag < CASES[name][3]["maxiter"]
         _hist_close(_np(want.res_history)[:lag - 1],
-                    got["res_history"][:lag - 1])
+                    got["res_history"][:lag - 1],
+                    floor_rel=1e-4 if name in GEOMETRY else 1e-10)
         solver, op, rhs, kw, _ = CASES[name]
         want = jk.pipecg(OPS[op], jnp.asarray(RHS[rhs]),
                          options=jk.SolverOptions(maxiter=lag + 1,
-                                                  engine="naive"))
+                                                  engine="naive",
+                                                  M=kw.get("M")))
     else:
         # p-BiCGStab detects convergence from the carried Gram on one
         # device too, and the depth body consumes its Gram in the block
         # that takes it, so a tol case freezes at the same iteration
-        _hist_close(want.res_history, got["res_history"])
+        _hist_close(want.res_history, got["res_history"],
+                    floor_rel=1e-4 if name in GEOMETRY else 1e-10)
         np.testing.assert_array_equal(got["iters"], _np(want.iters))
         if CASES[name][3].get("tol"):
             assert int(got["iters"]) < CASES[name][3]["maxiter"]
@@ -301,6 +357,8 @@ def test_distributed_solve_matches_reference(runs, references, name):
     assert got["x"].shape == xw.shape
     np.testing.assert_allclose(got["x"], xw, rtol=0,
                                atol=1e-10 * np.abs(xw).max())
+    if name in GEOMETRY:   # the reference's own gate, TOL = 1e-10
+        assert np.abs(got["x"] - xw).max() < 1e-10
     for other in per_rank[1:]:
         for key in ("x", "iters", "res_norm", "res_history"):
             np.testing.assert_array_equal(other[i][key], got[key])
@@ -366,6 +424,22 @@ def test_noise_only_delays(runs):
             np.testing.assert_array_equal(waits, draws)
             assert waits.size == n_waits
         assert world == len(per_rank)
+
+
+@pytest.mark.parametrize("name", GEOMETRY)
+def test_geometry_bodies_reduce_once_per_iteration(runs, name):
+    """The BSR and 2-D bodies: one recorded all-reduce per iteration (and
+    the set-up's) in the H5 order on every rank, the tolerance scale the
+    one blocking all-reduce; on a grid, every rank holds its tile."""
+    world, per_rank = runs
+    i = NAMES.index(name)
+    maxiter = CASES[name][3]["maxiter"]
+    for outcome in per_rank:
+        assert outcome[i]["order_ok"] is True
+        assert outcome[i]["reductions"] == maxiter + 1
+        assert outcome[i]["all_reduces"] == 1
+        assert outcome[i]["res_history"].shape == (maxiter,)
+    assert len(per_rank) == world
 
 
 @pytest.mark.parametrize("name", [n for n in DEPTH
@@ -530,7 +604,10 @@ def test_unsupported_options_raise(one_rank):
                                      options=SolverOptions(maxiter=3))),
         (ValueError, "rr_tau", dict(options=SolverOptions(maxiter=3,
                                                           rr_tau=1.0))),
-        (NotImplementedError, "item 9", dict(group=(None, None))),
+        (ValueError, "positive ints", dict(group=(None, None))),
+        (ValueError, "needs 4 ranks", dict(group=(None, (2, 2)))),
+        (ValueError, "grid_shape", dict(engine="sharded_fused",
+                                        group=(None, (1, 1)))),
     ]
     for exc, match, kw in cases:
         with pytest.raises(exc, match=match):
@@ -577,10 +654,54 @@ def test_unsupported_options_raise(one_rank):
     with pytest.raises(ValueError, match="single-RHS"):
         distributed_solve(pipebicgstab, T, torch.stack([b, b]),
                           engine="sharded_fused", maxiter=3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_engine("sharded_fused").body("pipecg", "bsr")
     with pytest.raises(ValueError, match="distributed_solve"):
         get_engine("sharded_fused").dots(b[None], b)
+
+
+def test_geometry_routes_raise_as_the_reference(one_rank, monkeypatch):
+    """The BSR-chain and 2-D-grid routes reject what their bodies do not
+    implement, with the reference's errors."""
+    from repro_torch.core.krylov.distributed import (
+        sharded_pipecg_bsr_solve, sharded_pipecg_solve_2d)
+    eng = get_engine("sharded_fused")
+    assert eng.body("pipecg", "bsr") is sharded_pipecg_bsr_solve
+    assert eng.body("pipecg", "dia2d") is sharded_pipecg_solve_2d
+    with pytest.raises(ValueError, match="no sharded body"):
+        eng.body("pipebicgstab", "bsr")
+    Bs = _port_op("glen-bsr")
+    bb = torch.from_numpy(RHS["glen-bsr"].copy())
+    L = _port_op("lap2d-16x8")
+    bl = torch.from_numpy(RHS["lap2d-16x8"].copy())
+    grid = (None, (1, 1))
+    for A, b, group in ((Bs, bb, None), (L, bl, grid)):
+        for exc, match, solver, rhs, kw in (
+                (ValueError, "single-RHS", pipecg, torch.stack([b, b]), {}),
+                (ValueError, "pipecg only", pipecr, b, {}),
+                (ValueError, "pipecg only", pipecg_multi, b, {}),
+                (ValueError, "depth-1 only", pipecg, b, dict(l=2)),
+                (ValueError, "solve dtype only", pipecg, b,
+                 dict(precision="bf16")),
+                (TypeError, "unsupported kwargs", pipecg, b,
+                 dict(x0=torch.zeros_like(b))),
+                (ValueError, "M must be None", pipecg, b,
+                 dict(M=lambda z: z))):
+            with pytest.raises(exc, match=match):
+                distributed_solve(solver, A, rhs, group,
+                                  engine="sharded_fused", maxiter=3, **kw)
+    with pytest.raises(ValueError, match="chain of ranks"):
+        distributed_solve(pipecg, Bs, bb, grid, engine="sharded_fused",
+                          maxiter=3)
+    with pytest.raises(ValueError, match="inline path"):
+        distributed_solve(pipecg, Bs, bb, maxiter=3)
+    # uneven block rows and an uneven grid raise before any message: seen
+    # from a 3-rank group
+    monkeypatch.setattr(comm, "rank_and_size", lambda group=None: (0, 3))
+    with pytest.raises(ValueError, match="shard evenly"):
+        distributed_solve(pipecg, Bs, bb, engine="sharded_fused",
+                          maxiter=3)
+    with pytest.raises(ValueError, match="tile evenly"):
+        distributed_solve(pipecg, L, bl, (None, (3, 1)),
+                          engine="sharded_fused", maxiter=3)
 
 
 def test_one_rank_solves_in_process(one_rank):
@@ -603,3 +724,21 @@ def test_one_rank_solves_in_process(one_rank):
     inline = distributed_solve(pipecr, T, b, maxiter=15)
     _hist_close(pipecr(T, b, options=SolverOptions(maxiter=15)).res_history,
                 inline.res_history, rtol=1e-14)
+    # a (1, 1) grid runs the 2-D body, a flattened chain the inline path
+    L = _port_op("lap2d-16x8")
+    bl = torch.from_numpy(RHS["lap2d-16x8"].copy())
+    one = pipecg(L, bl, options=SolverOptions(maxiter=15, engine="fused"))
+    tile = distributed_solve(pipecg, L, bl, (None, (1, 1)),
+                             engine="sharded_fused", maxiter=15)
+    _hist_close(one.res_history, tile.res_history)
+    flat = distributed_solve(pipecg, L, bl, (None, (1, 1)), maxiter=15)
+    _hist_close(pipecg(L, bl, options=SolverOptions(maxiter=15)).res_history,
+                flat.res_history, rtol=1e-14)
+    Bs = _port_op("glen-bsr")
+    bb = torch.from_numpy(RHS["glen-bsr"].copy())
+    one = pipecg(Bs, bb, options=SolverOptions(maxiter=15, engine="fused"))
+    chain = distributed_solve(pipecg, Bs, bb, engine="sharded_fused",
+                              maxiter=15)
+    _hist_close(one.res_history, chain.res_history, floor_rel=1e-4)
+    np.testing.assert_allclose(chain.x.numpy(), one.x.numpy(), rtol=0,
+                               atol=1e-10)

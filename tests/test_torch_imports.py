@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.core.perfmodel.sync",
             "repro_torch.kernels.pipebicgstab_fused",
             "repro_torch.core.krylov.pipeline",
-            "repro_torch.core.perfmodel.depth"} <= set(names)
+            "repro_torch.core.perfmodel.depth",
+            "repro_torch.core.krylov.hostops",
+            "repro_torch.kernels.spmv_bsr"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -81,4 +83,4 @@ def test_kernel_sources_are_in_the_package():
     assert {p.name for p in csrc.iterdir()} >= {
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
         "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu",
-        "ghost_chain.cu"}
+        "ghost_chain.cu", "spmv_bsr.cu"}

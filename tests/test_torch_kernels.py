@@ -180,7 +180,8 @@ def test_build_is_lazy_and_names_sm90a():
     assert build.library_path().parent == build.BUILD_DIR
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
         "fused_dots.cu", "ghost_chain.cu", "pipebicgstab_fused.cu",
-        "pipecg_fused.cu", "pipecg_spmv_fused.cu", "spmv_dia.cu"]
+        "pipecg_fused.cu", "pipecg_spmv_fused.cu", "spmv_bsr.cu",
+        "spmv_dia.cu"]
 
 
 # -- the per-rank halo sweep --------------------------------------------------

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one fused PIPECG, p-BiCGStab or depth-l iteration spends its time.
 
-    python3 torch_pipecg_breakdown.py [pipecg | pipebicgstab | pipecg_l [L]]
+    python3 torch_pipecg_breakdown.py [pipecg | pipecg_bsr | pipebicgstab |
+                                       pipecg_l [L]]
 
 Run from the root of a checkout on one NVIDIA GPU (exits with 2 without
 one).  Solves ex23 (chip_smoke.py's problem: the tridiagonal Laplacian at
@@ -10,7 +11,9 @@ or, given ``pipebicgstab``, the convection-diffusion problem of
 chip_smoke.py's ``[bicgstab]`` phase with ``pipebicgstab(M="jacobi",
 engine="fused")``, or, given ``pipecg_l``, ex23 with
 ``pipecg_l(engine="fused", depth=L)`` (L = 2 unless given: one ghost-chain
-sweep per block of L iterations), and reports
+sweep per block of L iterations), or, given ``pipecg_bsr``, ex23 as a
+``BsrMatrix`` at bs 4 (chip_smoke.py's ``[bsr]`` phase: one BSR sweep per
+iteration), and reports
 
 * the host-clock time per iteration of a synchronised solve (best of 3),
   and of one solve with ``torch.profiler`` attached;
@@ -35,10 +38,11 @@ import chip_smoke as smoke
 ITERS = 200
 GROUPS = (
     ("sweep kernel", ("pipecg_spmv_fused_kernel",
-                      "pipebicgstab_fused_kernel", "ghost_chain_kernel")),
+                      "pipebicgstab_fused_kernel", "ghost_chain_kernel",
+                      "pipecg_bsr_fused_kernel")),
     ("sweep reduce", ("reduce_rows_kernel", "finish_gram_kernel",
                       "finish_chain_gram_kernel")),
-    ("spmv kernel", ("spmv_dia_kernel",)),
+    ("spmv kernel", ("spmv_dia_kernel", "spmv_bsr_kernel")),
     ("torch.where (freeze)", ("where",)),
     ("cuBLAS (reconstruction, small products)", ("gemv", "gemm", "dot_kernel",
                                                  "cublas", "cutlass", "xmma")),
@@ -61,11 +65,11 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.krylov import (SolverOptions, pipebicgstab,
-                                         pipecg, pipecg_l)
+    from repro_torch.core.krylov import (SolverOptions, dia_to_bsr,
+                                         pipebicgstab, pipecg, pipecg_l)
 
     solver = sys.argv[1] if len(sys.argv) > 1 else "pipecg"
-    if solver not in ("pipecg", "pipebicgstab", "pipecg_l"):
+    if solver not in ("pipecg", "pipecg_bsr", "pipebicgstab", "pipecg_l"):
         print(f"torch_pipecg_breakdown: unknown solver {solver!r}",
               file=sys.stderr)
         return 2
@@ -73,8 +77,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     depth = int(sys.argv[2]) if solver == "pipecg_l" and len(sys.argv) > 2 \
         else 2
-    if solver == "pipecg":
+    if solver in ("pipecg", "pipecg_bsr"):
         A, b = smoke.ex23(gen)
+        if solver == "pipecg_bsr":
+            A = dia_to_bsr(A, bs=smoke.BSR_BS)
         run, opts = pipecg, SolverOptions(engine="fused", maxiter=ITERS)
     elif solver == "pipecg_l":
         A, b = smoke.ex23(gen)
