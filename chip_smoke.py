@@ -31,7 +31,13 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    ``laplacian_2d(1448, 1448)`` at bs 4 (ex23-bsr4, lap2d-bsr4; the
    conversion's host seconds printed), k = 1, ex23-bsr4 at k = 8 and in
    float32, ``spmv_bsr`` beside a ``torch.sparse`` mv of the same matrix
-   (BSR layout where torch runs it for float64 on the card, else CSR);
+   (BSR layout where torch runs it for float64 on the card, else CSR).
+   The LM kernels: ``flash_attention`` (#12) at the ``[serve]`` prefill's
+   shape (64, 2048, 128) bf16 causal (one bf16 ulp), (3, 200, 64) f32
+   causal and (2, 256, 64) f32 non-causal (2e-5), timed beside
+   ``scaled_dot_product_attention``; ``wkv_recurrent`` (#13) at rwkv6-7b's
+   (256, 2048, 64) with f32 and bf16 inputs, random decays and logw = -8
+   and -1e-4 (2e-5 of max |o|, finite);
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
@@ -77,12 +83,23 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    Jacobi (500 forced iterates each: the H5 order and one all-reduce per
    iteration on every rank, the first 20 residuals against one device,
    host microseconds per iteration between the recorded events);
-6. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
+6. LM: ``[wkv]``, the ``ops.wkv_recurrent`` entry once at rwkv6-7b's
+   shape with the counts set to 0 just before it and read just after it;
+   ``[serve]``, ``launch.serve.serve`` of qwen3-1.7b at full width (28
+   layers, d_model 2048, random weights from seed 0) with
+   ``attn_kernel=True``, batch 4, prompt 2048, 32 greedy decode steps,
+   after a 2-step warm-up, with the counts set to 0 just before it and
+   read just after it (28 flash launches in prefill, none in decode):
+   prefill ms, decode p50/p99 ms per token, peak memory; its prefill
+   logits against the dense route's on the same weights and prompt and
+   its second token against a prefill over prompt + first token, at the
+   JAX package's bf16 bars (|diff| <= 0.15, argmax agreement >= 0.5);
+7. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
    ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card,
    the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``) and the depth
    model (``depth_speedup_table``, ``depth_speedup_ceiling``,
    ``crossover_depth``);
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises: the script exits non-zero and prints no result when a
 kernel does not build, does not launch or disagrees, when no CUDA device
@@ -109,7 +126,7 @@ ONE_DEVICE = ("spmv_dia", "pipecg_spmv_fused", "pipecg_fused")
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): memory 3.35 TB/s;
 # float64 and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 N_EX23 = 2_097_152
 MAXITER = 5000
 CHECK_ITERS = 200
@@ -152,6 +169,21 @@ NX_LAP = 1448
 GEOM_RANK_ITERS = 500
 GEOM_CHECK = 20
 GRID = (2, 2)
+# LM serving (qwen3-1.7b at full width): the [serve] phase's batch, prompt
+# and decode steps; the flash kernel's shape is that prefill's attention
+# with KV repeated to 16 heads; the wkv kernel's is rwkv6-7b's 64 heads of
+# 64 at batch 4, T 2048.  Bars: flash f32 2e-5, bf16 one ulp of
+# max(|want|, 2^-10); wkv 2e-5 of max |o|; the kernel-vs-dense prefill
+# logits at the JAX package's bf16 bars (tests/test_models_smoke.py)
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_STEPS = 32
+FLASH_SHAPE = (64, 2048, 128)
+WKV_SHAPE = (256, 2048, 64)
+FLASH_F32_TOL = 2e-5
+WKV_REL_TOL = 2e-5
+LOGIT_TOL = 0.15
+ARGMAX_AGREE = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -175,7 +207,8 @@ def nbytes(*tensors) -> int:
 def bound(bytes_moved: int, flops: float, dtype) -> tuple:
     """(bound_ms, bound_by): the larger of bytes/HBM rate, flops/peak."""
     import torch
-    key = "float64" if dtype == torch.float64 else "float32"
+    key = {torch.float64: "float64",
+           torch.bfloat16: "bfloat16"}.get(dtype, "float32")
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[key] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -444,6 +477,7 @@ def phase_kernels():
     chain_kernel(records, gen, tri, lap, glen)
     chain_halo_kernel(records, gen, tri)
     bsr_kernels(records, gen, tri, lap)
+    lm_kernels(records, gen)
     return records
 
 
@@ -1108,6 +1142,112 @@ def bsr_kernels(records, gen, tri, lap):
                 replaces="src/repro/kernels/spmv_bsr.py:146",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bf16_ulps(got, want) -> float:
+    """|got - want| in bf16 ulps of max(|want|, 2^-10)."""
+    import torch
+    w = want.float().abs().clamp(min=2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def lm_kernels(records, gen):
+    """#12 flash_attention and #13 wkv_recurrent against their plain
+    versions: flash at the [serve] prefill's shape (bf16, causal, timed
+    beside SDPA), ragged f32 causal and f32 non-causal; wkv at rwkv6-7b's
+    shape with f32 and bf16 inputs, random decays and logw = -8, -1e-4."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.wkv import wkv_recurrent, wkv_recurrent_plain
+    dev = gen.device
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for shape, dt, causal in ((FLASH_SHAPE, bf16, True),
+                              ((3, 200, 64), f32, True),
+                              ((2, 256, 64), f32, False)):
+        q, k, v = (randn(shape, dt) for _ in range(3))
+        got = flash_attention(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        if dt == bf16:
+            ulps = bf16_ulps(got, want)
+            check(ulps <= 1.0, f"flash_attention {shape}: {ulps} bf16 ulps")
+        else:
+            ulps = None
+            check(err <= FLASH_F32_TOL, f"flash_attention {shape}: {err}")
+        BH, S, D = shape
+        flops = 4.0 * BH * D * (S * (S + 1) / 2 if causal else S * S)
+        b_ms, b_by = bound(nbytes(q, k, v, got), flops, dt)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal))
+        q4, k4, v4 = (t.view(1, *shape) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)[0]
+        lib_err = max_err([lib], [want])
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        say("kernel", name="flash_attention", shape="x".join(map(str, shape)),
+            dtype=str(dt)[6:], causal=causal, max_abs_err=f"{err:.3e}",
+            bf16_ulps=f"{ulps:.3f}" if ulps is not None else None,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            library_ms=f"{lib_ms:.4f}", library_max_abs_err=f"{lib_err:.3e}",
+            tflops=f"{flops / ms / 1e9:.2f}")
+        if shape == FLASH_SHAPE:
+            records["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn.py:64",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    BH, T, D = WKV_SHAPE
+    for dt in (f32, bf16):
+        r, k, v = (randn(WKV_SHAPE, dt) for _ in range(3))
+        u = (0.3 * torch.randn((BH, D), generator=gen, device=dev)).to(dt)
+        rand_w = -torch.exp(torch.randn(WKV_SHAPE, generator=gen, device=dev)
+                            - 2.0)
+        for label, logw in (("random", rand_w),
+                            ("-8", torch.full(WKV_SHAPE, -8.0, device=dev)),
+                            ("-1e-4", torch.full(WKV_SHAPE, -1e-4,
+                                                 device=dev))):
+            logw = logw.to(dt)
+            got = wkv_recurrent(r, k, v, logw, u)
+            want = wkv_recurrent_plain(r, k, v, logw, u)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"wkv {label} not finite")
+            err = max_err([got], [want])
+            scale = float(want.abs().max())
+            check(err <= WKV_REL_TOL * scale,
+                  f"wkv_recurrent {dt} logw={label}: {err} of {scale}")
+            line = dict(name="wkv_recurrent", shape="x".join(map(str,
+                                                                 WKV_SHAPE)),
+                        dtype=str(dt)[6:], logw=label,
+                        max_abs_err=f"{err:.3e}",
+                        rel_to_max=f"{err / scale:.3e}")
+            if label == "random":
+                flops = 5.0 * BH * T * D * D
+                b_ms, b_by = bound(nbytes(r, k, v, logw, u, got), flops, f32)
+                ms = time_ms(lambda: wkv_recurrent(r, k, v, logw, u))
+                plain_ms = time_ms(lambda: wkv_recurrent_plain(
+                    r, k, v, logw, u), reps=3)
+                line.update(ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                            bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+                if dt == f32:
+                    records["wkv_recurrent"] = dict(
+                        name="wkv_recurrent", route="cuda",
+                        source="src/repro_torch/kernels/csrc/wkv.cu",
+                        replaces="src/repro/kernels/wkv.py:37",
+                        launches=0, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None)
+            say("kernel", **line)
 
 
 def phase_main_path(records):
@@ -1891,6 +2031,128 @@ def geometry_ranks(out, names, A_bsr, b, A_lap, b_lap):
             f"{k}={v:.1f}" for k, v in seg.items()))
 
 
+def phase_wkv_entry(records):
+    """``ops.wkv_recurrent``, the kernel's entry (no model path calls it:
+    the JAX package's RWKV blocks use a chunked jnp form), once at
+    rwkv6-7b's shape with the counts set to 0 just before and read just
+    after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv import wkv_recurrent_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    BH, T, D = WKV_SHAPE
+    r, k, v = (torch.randn(WKV_SHAPE, generator=gen, device=DEVICE)
+               for _ in range(3))
+    logw = -torch.exp(torch.randn(WKV_SHAPE, generator=gen, device=DEVICE)
+                      - 2.0)
+    u = 0.3 * torch.randn((BH, D), generator=gen, device=DEVICE)
+    ops.reset_launch_counts()
+    o = ops.wkv_recurrent(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["wkv_recurrent"] == 1 and sum(counts.values()) == 1,
+          f"wkv entry launches {counts}")
+    records["wkv_recurrent"]["launches"] = counts["wkv_recurrent"]
+    want = wkv_recurrent_plain(r, k, v, logw, u)
+    err = max_err([o], [want])
+    check(err <= WKV_REL_TOL * float(want.abs().max()), f"wkv entry {err}")
+    say("wkv", entry="ops.wkv_recurrent", shape="x".join(map(str, WKV_SHAPE)),
+        launches=counts["wkv_recurrent"], max_abs_err=f"{err:.3e}")
+
+
+def phase_serve(records):
+    """LM serving of qwen3-1.7b at full width (28 layers, d_model 2048,
+    random weights from seed 0): ``launch.serve.serve`` with
+    ``attn_kernel=True``, batch 4, prompt 2048, 32 greedy decode steps,
+    the counts set to 0 just before it and read just after it (one flash
+    launch per layer in prefill, none in decode); its prefill logits held
+    to the dense route's on the same weights and prompt, and its second
+    token to a prefill over prompt + first token."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.models import init_params, prefill
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_kernel=True)
+    plain = dataclasses.replace(cfg, attn_kernel=False)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
+        params=n_params, param_gb=f"{n_params * 4 / 1e9:.3f}",
+        init_seconds=f"{time.perf_counter() - t0:.2f}")
+    # a short warm-up run, so cuBLAS has its plans before the timed one
+    serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, decode_steps=2,
+          device=dev, params=params, progress=lambda line: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    out = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                decode_steps=SERVE_STEPS, device=dev, params=params,
+                progress=print)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_flash = counts["flash_attention"]
+    say("serve", launches=json.dumps(counts, separators=(",", ":")))
+    check(out["launches"]["prefill"]["flash_attention"] == cfg.num_layers,
+          f"prefill flash launches {out['launches']['prefill']}")
+    check(out["launches"]["decode"]["flash_attention"] == 0,
+          f"decode launched flash {out['launches']['decode']}")
+    check(n_flash == cfg.num_layers and sum(counts.values()) == n_flash,
+          f"serve launches {counts}")
+    records["flash_attention"]["launches"] = n_flash
+    toks = out["tokens"]
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_STEPS),
+          f"tokens {tuple(toks.shape)}")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "token ids out of range")
+    logits = out["logits"].float()
+    check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    lat = out["step_latency"]
+    check(lat["n"] == SERVE_STEPS - 1, f"latency samples {lat['n']}")
+
+    prompt = prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, _ = prefill(params, plain, {"tokens": prompt})
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        lp = lp.float()
+        ext = torch.cat([prompt, toks[:, :1]], dim=1)
+        l2, _ = prefill(params, plain, {"tokens": ext})
+    gap = float((logits - lp).abs().max())
+    agree = float((logits.argmax(-1) == lp.argmax(-1)).float().mean())
+    check(gap <= LOGIT_TOL and agree >= ARGMAX_AGREE,
+          f"kernel vs dense prefill logits: gap {gap}, argmax {agree}")
+    agree2 = float((l2[:, -1].float().argmax(-1) == toks[:, 1]).float()
+                   .mean())
+    check(agree2 >= ARGMAX_AGREE,
+          f"second token vs prefill over prompt + first: {agree2}")
+    flash_ms = records["flash_attention"]["ms"]
+    share = cfg.num_layers * flash_ms / (out["t_prefill"] * 1e3)
+    say("serve", batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        decode_steps=SERVE_STEPS,
+        prefill_ms=f"{out['t_prefill'] * 1e3:.3f}",
+        dense_prefill_ms=f"{plain_s * 1e3:.3f}",
+        decode_p50_ms=f"{lat['p50'] * 1e3:.3f}",
+        decode_p99_ms=f"{lat['p99'] * 1e3:.3f}",
+        decode_mean_ms=f"{lat['mean'] * 1e3:.3f}",
+        peak_memory_gb=f"{peak / 1e9:.3f}",
+        flash_ms_per_launch=f"{flash_ms:.4f}",
+        flash_share_of_prefill=f"{share:.3f}")
+    say("serve", check="kernel vs dense prefill logits",
+        max_abs_gap=f"{gap:.4f}", argmax_agree=f"{agree:.2f}",
+        second_token_vs_prefill=f"{agree2:.2f}")
+
+
 def phase_model():
     import torch
     from repro_torch.core.perfmodel import (SOLVER_SYNC_COUNTS, Exponential,
@@ -1976,11 +2238,14 @@ def main() -> int:
     phase_depth(records)
     phase_bsr(records)
     phase_ranks(records)
+    phase_wkv_entry(records)
+    phase_serve(records)
     phase_model()
     order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
              "ghost_chain_fused", "ghost_chain_halo", "pipecg_fused",
              "fused_dots", "pipebicgstab_fused", "pipebicgstab_halo",
-             "spmv_bsr", "pipecg_bsr_fused")
+             "spmv_bsr", "pipecg_bsr_fused", "flash_attention",
+             "wkv_recurrent")
     print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,11 +4,12 @@ Works on plain numpy arrays and names, so it needs nothing of the
 reference at run time: ``dia_from_numpy(A.offsets, np.asarray(A.bands))``
 rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``,
 ``bsr_from_numpy(np.asarray(A.indices), np.asarray(A.blocks))`` a
-reference ``BsrMatrix``.
+reference ``BsrMatrix``, and ``lm_params_from_numpy(cfg, tree)`` the LM of
+a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +17,9 @@ import torch
 from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 from repro_torch.core.krylov.options import PrecisionPolicy
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import MLP, Linear, RMSNorm
+from repro_torch.models.transformer import LM, Block, check_supported
 
 
 def dia_from_numpy(offsets: Sequence[int], bands: np.ndarray,
@@ -42,3 +46,59 @@ def bsr_from_numpy(indices: np.ndarray, blocks: np.ndarray,
 def policy_from_name(name: str) -> PrecisionPolicy:
     """The port's ``PrecisionPolicy`` for a reference preset name."""
     return PrecisionPolicy.from_name(name)
+
+
+def layers_in_order(cfg, tree) -> List[Any]:
+    """Per-layer entries of a reference ``{"scan": .., "rem": ..}`` tree
+    in layer order.
+
+    ``scan`` holds one subtree per pattern position whose leaves carry a
+    leading group axis (the reference's ``vmap`` / ``lax.scan`` stacking):
+    layer ``g * len(pattern) + i`` is leaf ``[g]`` of position ``i``.  The
+    ``rem`` layers follow them.  Works for parameters and decode states.
+    """
+    pat = cfg.block_pattern
+    n_groups = cfg.num_layers // len(pat)
+
+    def take(t, g):
+        if isinstance(t, dict):
+            return {k: take(v, g) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):  # NamedTuple
+            return type(t)(*(take(v, g) for v in t))
+        return t[g]
+
+    layers = [take(tree["scan"][i], g)
+              for g in range(n_groups) for i in range(len(pat))]
+    return layers + list(tree["rem"])
+
+
+def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
+    """The port's model over copies of a reference ``init_params`` tree
+    whose leaves are numpy arrays (dtypes kept)."""
+    check_supported(cfg)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def lin(p):
+        return Linear(t(p["w"]), t(p["b"]) if "b" in p else None)
+
+    def norm(p):
+        return RMSNorm(t(p["scale"]))
+
+    def block(kind, p):
+        a = p["attn"]
+        attn = Attention(lin(a["wq"]), lin(a["wk"]), lin(a["wv"]),
+                         lin(a["wo"]),
+                         norm(a["qnorm"]) if "qnorm" in a else None,
+                         norm(a["knorm"]) if "knorm" in a else None)
+        f = p["ffn"]
+        ffn = MLP(lin(f["up"]), lin(f["down"]),
+                  lin(f["gate"]) if "gate" in f else None)
+        return Block(kind, norm(p["norm1"]), norm(p["norm2"]), attn, ffn)
+
+    blocks = [block(kind, p) for kind, p in
+              zip(cfg.layer_kinds(), layers_in_order(cfg, tree["blocks"]))]
+    head = lin(tree["head"]) if "head" in tree else None
+    return LM(cfg, t(tree["embed"]["tokens"]), blocks,
+              norm(tree["final_norm"]), head)

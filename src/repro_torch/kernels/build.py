@@ -72,6 +72,9 @@ _SIGNATURES = {
                        _P, _I, _P, _P,
                        _P, _P, _P, _P, _I, _L,
                        _P, _P, _I, _P, _L, _P, _I, _P, _P],
+    "rt_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+                           _I, _P],
+    "rt_wkv_recurrent": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,6 +12,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_dots import fused_dots as _fused_dots
 from repro_torch.kernels.pipebicgstab_fused import (pipebicgstab_fused,
                                                     pipebicgstab_halo)
@@ -22,6 +23,7 @@ from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
                                                    pipecg_spmv_halo)
 from repro_torch.kernels.spmv_bsr import pipecg_bsr_fused, spmv_bsr
 from repro_torch.kernels.spmv_dia import spmv_dia
+from repro_torch.kernels.wkv import wkv_recurrent as _wkv_recurrent
 
 #: every kernel wrapper of the package, by kernel name
 KERNELS = {
@@ -36,6 +38,8 @@ KERNELS = {
     "ghost_chain_halo": ghost_chain_halo,
     "spmv_bsr": spmv_bsr,
     "pipecg_bsr_fused": pipecg_bsr_fused,
+    "flash_attention": flash_attention,
+    "wkv_recurrent": _wkv_recurrent,
 }
 
 
@@ -190,3 +194,16 @@ def ghost_chain_halo_step(offsets: Sequence[int], bands_ext, p, r, p_left,
                                           r_right))
     return ghost_chain_halo(tuple(offsets), bands_ext, *vecs, theta, l,
                             accum_dtype)
+
+
+def flash_mha(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Flash attention forward on (BH, S, D) q/k/v (kernel-backed on
+    CUDA).  The kernel masks the ragged S edge itself: nothing pads."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal)
+
+
+def wkv_recurrent(r, k, v, logw, u) -> torch.Tensor:
+    """Exact RWKV-6 recurrence on (BH, T, D) inputs and (BH, D) u; returns
+    (BH, T, D) float32 (kernel-backed on CUDA)."""
+    return _wkv_recurrent(*(t.contiguous() for t in (r, k, v, logw, u)))

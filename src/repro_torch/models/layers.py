@@ -1,0 +1,140 @@
+"""Common neural-net primitives: parameter modules and the functions on them.
+
+The port of the JAX package's ``models/layers.py``.  Parameters live in
+small ``nn.Module`` s (``Linear``, ``RMSNorm``, ``MLP``) stored in
+``param_dtype`` (fp32 masters by default); the functions keep the JAX
+names and cast a weight to the compute ``dtype`` (bf16) at each use, as
+the reference does.  Norm statistics and rotary angles run in fp32.
+
+Parameters are made with ``requires_grad=False``: the port serves and
+does not train yet (training is ROADMAP.md queue 1 item 8).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(shape, stddev, dtype, generator, device) -> torch.Tensor:
+    z = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (stddev * z).to(dtype)
+
+
+class Linear(nn.Module):
+    """``y = x @ w (+ b)`` with w (d_in, d_out), the JAX package's layout."""
+
+    def __init__(self, w: torch.Tensor, b: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.w = _param(w)
+        self.b = None if b is None else _param(b)
+
+
+class RMSNorm(nn.Module):
+    """Per-feature scale of an RMS norm."""
+
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.scale = _param(scale)
+
+
+class MLP(nn.Module):
+    """SwiGLU (gate, up, down) or GeLU (up, down) feed-forward weights."""
+
+    def __init__(self, up: Linear, down: Linear, gate: Optional[Linear] = None):
+        super().__init__()
+        self.up = up
+        self.down = down
+        self.gate = gate
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def init_linear(d_in, d_out, dtype, use_bias=False, stddev=None, *,
+                generator: torch.Generator, device="cuda") -> Linear:
+    stddev = stddev if stddev is not None else 1.0 / math.sqrt(d_in)
+    w = _normal((d_in, d_out), stddev, dtype, generator, device)
+    b = torch.zeros((d_out,), dtype=dtype, device=device) if use_bias else None
+    return Linear(w, b)
+
+
+def linear(p: Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    y = x @ p.w.to(dtype)
+    if p.b is not None:
+        y = y + p.b.to(dtype)
+    return y
+
+
+def init_rmsnorm(d, dtype, *, device="cuda") -> RMSNorm:
+    return RMSNorm(torch.ones((d,), dtype=dtype, device=device))
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    return torch.exp(-math.log(theta) * i / half)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Apply rotary embedding.  x: (..., S, H, D); positions: (S,) or (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = _freqs(half, theta, x.device)
+    ang = positions[..., None].float() * freqs  # (S, half) or (B, S, half)
+    if ang.dim() == 2:  # (S, half) -> broadcast over batch
+        ang = ang[None]
+    cos = torch.cos(ang)[..., None, :]  # (B?, S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """Classic transformer sinusoidal embedding; positions (S,) -> (S, d)."""
+    freqs = _freqs(d // 2, 10_000.0, positions.device)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(d_model, d_ff, gated, dtype, use_bias=False, *,
+             generator: torch.Generator, device="cuda") -> MLP:
+    kw = dict(generator=generator, device=device)
+    down = init_linear(d_ff, d_model, dtype, use_bias, **kw)
+    up = init_linear(d_model, d_ff, dtype, use_bias, **kw)
+    gate = init_linear(d_model, d_ff, dtype, use_bias, **kw) if gated else None
+    return MLP(up, down, gate)
+
+
+def mlp(p: MLP, x: torch.Tensor, gated: bool, dtype) -> torch.Tensor:
+    up = linear(p.up, x, dtype)
+    if gated:
+        h = torch.nn.functional.silu(linear(p.gate, x, dtype)) * up
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = torch.nn.functional.gelu(up, approximate="tanh")
+    return linear(p.down, h, dtype)

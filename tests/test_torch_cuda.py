@@ -14,7 +14,10 @@ chains bit for bit (bf16 ones too: the links run at float32 in both), its
 Gram as the partials.  The 21-band glen operator (H10) runs through every
 sweep.  The BSR kernels run on ``dia_to_bsr`` of the 1-D and 2-D
 Laplacians at bs 2, 4 and 8 (bs 3 through the SpMV only: the sweep
-takes powers of two).
+takes powers of two).  The LM kernels sum in another order than their
+plain versions' matmuls: ``flash_attention`` is held to 2e-5 in float32
+and to one bf16 ulp of max(|want|, 2^-10) in bfloat16, ``wkv_recurrent``
+to 2e-5 of max |o|.
 """
 import pytest
 import torch
@@ -478,3 +481,104 @@ def test_bsr_fused_solve_on_card_matches_naive_and_dia(cuda):
                                                     maxiter=60))):
         torch.testing.assert_close(fused.res_history, want.res_history,
                                    rtol=1e-10, atol=0)
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of max(|want|, 2^-10)."""
+    w = want.float().abs().clamp(min=2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,D,dt,causal", [
+    (4, 256, 64, torch.float32, True), (2, 384, 128, torch.float32, True),
+    (3, 200, 64, torch.float32, True), (2, 256, 64, torch.float32, False),
+    (2, 200, 64, torch.float32, False), (1, 1, 64, torch.float32, True),
+    (8, 1000, 128, torch.bfloat16, True), (4, 129, 64, torch.bfloat16, False)])
+def test_flash_kernel_matches_plain_on_card(cuda, BH, S, D, dt, causal):
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda).to(dt)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    if dt == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain_on_card(cuda, D, dt):
+    from repro_torch.kernels.wkv import wkv_recurrent, wkv_recurrent_plain
+    g = torch.Generator(device=cuda).manual_seed(21)
+    BH, T = 5, 300
+    r, k, v = (torch.randn(BH, T, D, generator=g, device=cuda).to(dt)
+               for _ in range(3))
+    u = (0.3 * torch.randn(BH, D, generator=g, device=cuda)).to(dt)
+    for logw in (-torch.exp(torch.randn(BH, T, D, generator=g, device=cuda)
+                            - 2.0),
+                 torch.full((BH, T, D), -8.0, device=cuda),
+                 torch.full((BH, T, D), -1e-4, device=cuda)):
+        logw = logw.to(dt)
+        got = wkv_recurrent(r, k, v, logw, u)
+        want = wkv_recurrent_plain(r, k, v, logw, u)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+def test_lm_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.wkv import wkv_recurrent
+    q = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                        q[..., :32].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(64, 2, 64, device=cuda).transpose(0, 1)
+        flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="one"):
+        flash_attention(q, q[:, :32], q)
+    x = torch.zeros(2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_recurrent(x, x, x, x, x[:, 0])
+    x = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wkv_recurrent(x, x, x.half(), x, x[:, 0])
+
+
+@pytest.mark.cuda
+def test_serve_prefill_goes_through_the_flash_kernel(cuda):
+    import dataclasses
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(smoke_config("qwen3-1.7b"), head_dim=64,
+                              attn_kernel=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    out = serve(cfg, batch=2, prompt_len=100, decode_steps=4, device=cuda,
+                params=params, progress=lambda s: None)
+    assert out["launches"]["prefill"]["flash_attention"] == cfg.num_layers
+    assert out["launches"]["decode"]["flash_attention"] == 0
+    assert tuple(out["tokens"].shape) == (2, 4)
+    from repro_torch.launch.serve import prompt_tokens
+    plain = dataclasses.replace(cfg, attn_kernel=False)
+    with torch.inference_mode():
+        lp, _ = prefill(params, plain, {"tokens": prompt_tokens(
+            cfg, 2, 100, cuda)})
+    gap = (out["logits"].float() - lp.float()).abs()
+    assert float(gap.max()) <= 0.15

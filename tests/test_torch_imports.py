@@ -3,7 +3,8 @@
 A fresh interpreter imports every ``repro_torch`` module and must find
 neither ``jax`` nor ``repro`` in ``sys.modules``; an AST scan of the
 package and of the port's scripts at the root (``chip_smoke.py``,
-``torch_pipecg_breakdown.py``, ``torch_sweep_time.py``) finds no import
+``torch_pipecg_breakdown.py``, ``torch_sweep_time.py``,
+``torch_serve_breakdown.py``) finds no import
 of either.
 """
 import ast
@@ -20,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                        ROOT / "torch_pipecg_breakdown.py",
-                                       ROOT / "torch_sweep_time.py"]
+                                       ROOT / "torch_sweep_time.py",
+                                       ROOT / "torch_serve_breakdown.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -51,7 +53,19 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.core.krylov.pipeline",
             "repro_torch.core.perfmodel.depth",
             "repro_torch.core.krylov.hostops",
-            "repro_torch.kernels.spmv_bsr"} <= set(names)
+            "repro_torch.kernels.spmv_bsr",
+            "repro_torch.configs.base",
+            "repro_torch.configs.registry",
+            "repro_torch.configs.qwen3_1p7b",
+            "repro_torch.models.layers",
+            "repro_torch.models.attention",
+            "repro_torch.models.transformer",
+            "repro_torch.launch.steps",
+            "repro_torch.launch.serve",
+            "repro_torch.serve.metrics",
+            "repro_torch.kernels.flash_attn",
+            "repro_torch.kernels.wkv",
+            "repro_torch.convert"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -83,4 +97,4 @@ def test_kernel_sources_are_in_the_package():
     assert {p.name for p in csrc.iterdir()} >= {
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
         "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu",
-        "ghost_chain.cu", "spmv_bsr.cu"}
+        "ghost_chain.cu", "spmv_bsr.cu", "flash_attn.cu", "wkv.cu"}

@@ -179,9 +179,9 @@ def test_build_is_lazy_and_names_sm90a():
     assert "arch=compute_90a,code=sm_90a" in build.ARCH
     assert build.library_path().parent == build.BUILD_DIR
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "fused_dots.cu", "ghost_chain.cu", "pipebicgstab_fused.cu",
-        "pipecg_fused.cu", "pipecg_spmv_fused.cu", "spmv_bsr.cu",
-        "spmv_dia.cu"]
+        "flash_attn.cu", "fused_dots.cu", "ghost_chain.cu",
+        "pipebicgstab_fused.cu", "pipecg_fused.cu", "pipecg_spmv_fused.cu",
+        "spmv_bsr.cu", "spmv_dia.cu", "wkv.cu"]
 
 
 # -- the per-rank halo sweep --------------------------------------------------
