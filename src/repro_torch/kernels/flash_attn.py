@@ -4,15 +4,24 @@
 ``repro/kernels/flash_attn.py::flash_attention``: causal or full softmax
 attention over (BH, S, D) q/k/v with the S x S scores kept on chip.  Its
 kernel (csrc/flash_attn.cu) is bound by operations on the H100 (about S/2
-flops per byte in bf16): one CTA per (bh, 64-row q tile), k/v tiles in
-shared memory, the softmax online in fp32, the causal kv loop ending at
-the diagonal tile.  It masks the ragged S edge itself, so nothing pads
-(the reference pads S to 128, which lets the padded keys into a
-non-causal softmax: ROADMAP.md H12).
+flops per byte in bf16).  bfloat16 inputs run on the tensor cores
+(``wgmma`` bf16 -> fp32, two warpgroups per 128-row q tile, k/v tiles by
+``cp.async`` into two 128-byte-swizzled shared-memory stages, the softmax
+online in registers, P rounded to bf16 in registers as the A operand of
+the P V product); float32 inputs on the CUDA cores.
+Both stop the causal kv loop at the diagonal tile and mask the ragged S
+edge themselves, so nothing pads (the reference pads S to 128, which lets
+the padded keys into a non-causal softmax: ROADMAP.md H12).
+
+Rounding P to bf16 is what FlashAttention does, and what the Pallas
+kernel's ``p @ v`` gets at the TPU's default matmul precision; it takes
+the bf16 kernel off one-ulp agreement with the fp32-P plain version.
+:func:`bf16_error` states the bar it is held to instead.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -20,8 +29,6 @@ from repro_torch.kernels import build as _b
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
-#: q rows per CTA (kFlashBq in csrc/flash_attn.cu)
-BLOCK_Q = 64
 NEG_INF = -1e30
 
 
@@ -38,6 +45,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def bf16_error(got: torch.Tensor, want: torch.Tensor,
+               v: torch.Tensor) -> Tuple[float, float]:
+    """How far a bf16 ``got`` lies from the float32 oracle ``want``, as
+    fractions of the bar (the bar holds when both are at most 1; NaN fails).
+
+    Rounding each probability to bf16 moves an output by at most
+    2^-9 sum_j p_j |v_j| / l <= 2^-9 max_j |v_j| (the max over the head's
+    keys, column by column), and rounding the output to bf16 by at most
+    2^-8 |o|.  So the elementwise bar is
+    |got - want| <= 2^-8 |want| + 2^-8 max_j |v_j|, and the aggregate bar
+    rms(got - want) <= 2^-8 rms(want), which catches a dropped kv tile or
+    an off-by-one mask that moves only late rows by a few percent.
+
+    Returns (max of |got - want| over its elementwise bar,
+    rms(got - want) over 2^-8 rms(want)).
+    """
+    gap = (got.float() - want.float()).abs()
+    vmax = v.float().abs().amax(dim=-2, keepdim=True)
+    elem = gap / (2.0 ** -8 * (want.float().abs() + vmax))
+    rms = gap.pow(2).mean().sqrt() / (
+        2.0 ** -8 * want.float().pow(2).mean().sqrt())
+    return float(elem.max()), float(rms)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,9 +13,12 @@ p', r' = r - alpha s', u' = u - alpha q', w' = A u' and the (k, 6)
 reduction row of the DIA sweep (<r',u'>, <w',u'>, <r',r'>, <r',w'>,
 <w',w'>, 1^T w' - c^T u'), storing only x, r, u and p.  Bound by bytes:
 10 vectors + blocks + indices per row (``BsrMatrix.words_per_iter``).
-Its kernel forms w' = A u' through the two-level gather
-``indices[indices[br]]``, a group of bs lanes per block row swapping u'
-values by warp shuffle, so bs must be a power of two up to 32.
+Its kernel computes u' once per row into a shared-memory tile of the
+CTA's block rows and forms w' = A u' from it; a block column outside that
+range (the two-level gather ``indices[indices[br]]``) has u' recomputed
+and swapped across the bs lanes of a block row by warp shuffle, so bs
+must be a power of two up to 32.  Blocks, u and p are read by 16-byte
+loads and must start on 16-byte boundaries.
 
 Both take float32 or float64, the operator at x's dtype: the JAX package
 never demotes a BSR operator.  The plain versions add the terms in the
@@ -151,6 +154,11 @@ def pipecg_bsr_fused(indices, blocks, inv_diag, csum, x, r, u, p, alpha,
         raise ValueError(f"{name}: block size {bs}; the kernel swaps a block "
                          "row's values across bs lanes of a warp, so bs "
                          "must be a power of two up to 32")
+    for key, t in (("blocks", blocks), ("u", u), ("p", p)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             "boundary (the kernel reads it in 16-byte "
+                             "loads)")
     nblk = -(-n // _b.BLOCK)
     xo, ro, uo, po = (torch.empty_like(v) for v in (x, r, u, p))
     partials = torch.empty((k, nblk, NRED), dtype=x.dtype, device=x.device)

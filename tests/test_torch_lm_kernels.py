@@ -8,7 +8,15 @@ Pallas kernel in interpret mode (these two use no ``pl.load``, so they
 run under this jax; ROADMAP.md H1), at the JAX tests' own bars: flash
 2e-5 in float32 and 5e-2 in bfloat16, wkv 2e-5 against the recurrence
 and 3e-4 against the model's chunked algebra.
+
+The bf16 flash kernel rounds P to bf16 on the tensor cores, so on the card
+it is held to the two-part bar of ``flash_attn.bf16_error`` instead of one
+ulp.  Here an emulation of its rounding points in plain torch shows, against
+the reference oracle, that the bar admits that rounding and rejects a
+dropped kv tile or a causal mask off by one.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +26,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.wkv import wkv_recurrent as j_wkv
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attn import (flash_attention,
+from repro_torch.kernels.flash_attn import (bf16_error, flash_attention,
                                             flash_attention_plain)
 from repro_torch.kernels.wkv import wkv_recurrent, wkv_recurrent_plain
 
@@ -84,6 +92,78 @@ def test_flash_plain_is_the_wrapper_on_cpu(rng):
         assert torch.equal(flash_attention(q, q, q, causal),
                            flash_attention_plain(q, q, q, causal))
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+def _emulate_tc(q, k, v, causal, drop_tile=None, mask_shift=0, tile=64):
+    """The bf16 kernel's rounding points in plain torch: bf16 q/k/v, fp32
+    scores per 64-key tile, the online softmax in fp32 with the scale folded
+    into exp2, each tile's P rounded to bf16 before an fp32 P V product, row
+    sums of the unrounded P, a bf16 output.  ``drop_tile`` skips one kv tile
+    and ``mask_shift`` moves the causal mask: faults the bar must catch."""
+    BH, S, D = q.shape
+    sl = math.log2(math.e) / math.sqrt(D)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((BH, S, 1), -math.inf)
+    l = torch.zeros(BH, S, 1)
+    acc = torch.zeros(BH, S, D)
+    rows = torch.arange(S)[:, None]
+    for j in range(0, S, tile):
+        if j // tile == drop_tile:
+            continue
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, j:j + tile])
+        if causal:
+            cols = torch.arange(j, min(j + tile, S))[None, :]
+            s = torch.where(cols <= rows + mask_shift, s, -math.inf)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        ms = torch.where(mx == -math.inf, 0.0, mx * sl)
+        corr = torch.exp2(m * sl - ms)
+        p = torch.exp2(s * sl - ms)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bqk,bkd->bqd", p.bfloat16().float(), vf[:, j:j + tile])
+        m = mx
+    return (acc / l).bfloat16()
+
+
+def _bf16_oracle(rng, BH, S, D, causal):
+    """bf16 q, k, v and the reference oracle on their values in float32."""
+    qkv = [torch.tensor(rng.standard_normal((BH, S, D)),
+                        dtype=torch.float32).bfloat16() for _ in range(3)]
+    want = ref.flash_attention_ref(*(jnp.asarray(t.float().numpy())
+                                     for t in qkv), causal=causal)
+    return qkv, torch.tensor(np.asarray(want))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,S,D", [(4, 256, 64), (2, 384, 128)])
+def test_flash_bf16_bar_admits_the_kernels_rounding(rng, BH, S, D, causal):
+    (q, k, v), want = _bf16_oracle(rng, BH, S, D, causal)
+    elem, rms = bf16_error(_emulate_tc(q, k, v, causal), want, v)
+    assert elem <= 1.0 and rms <= 1.0, (elem, rms)
+    # the plain version's bf16 output (fp32 P) passes it too
+    elem, rms = bf16_error(flash_attention(q, k, v, causal), want, v)
+    assert elem <= 1.0 and rms <= 1.0, (elem, rms)
+
+
+@pytest.mark.parametrize("BH,S,D,causal,fault", [
+    (4, 256, 64, True, "drop"), (4, 256, 64, True, "shift"),
+    (2, 384, 128, True, "drop"), (2, 384, 128, True, "shift"),
+    (4, 256, 64, False, "drop"), (2, 384, 128, False, "drop")])
+def test_flash_bf16_bar_rejects_a_dropped_tile_or_shifted_mask(
+        rng, BH, S, D, causal, fault):
+    (q, k, v), want = _bf16_oracle(rng, BH, S, D, causal)
+    kw = {"drop_tile": 1} if fault == "drop" else {"mask_shift": 1}
+    elem, rms = bf16_error(_emulate_tc(q, k, v, causal, **kw), want, v)
+    assert elem > 1.0 or rms > 1.0, (elem, rms)
+
+
+def test_flash_bf16_bar_fails_nan():
+    """A row with no key (tile 0 dropped under the causal mask) is 0/0: NaN
+    must fail the bar, not slip past a comparison."""
+    rng = np.random.default_rng(3)
+    (q, k, v), want = _bf16_oracle(rng, 1, 128, 64, True)
+    elem, rms = bf16_error(_emulate_tc(q, k, v, True, drop_tile=0), want, v)
+    assert not (elem <= 1.0 and rms <= 1.0)
 
 
 def _wkv_inputs(rng, BH, T, D):

@@ -30,7 +30,7 @@ import chip_smoke as smoke
 
 DECODE_STEPS = 8
 GROUPS = (
-    ("flash kernel", ("flash_fwd_kernel",)),
+    ("flash kernel", ("flash_fwd_kernel", "flash_tc_kernel")),
     ("cuBLAS products", ("gemm", "gemv", "cublas", "cutlass", "xmma",
                          "nvjet", "sm90_")),
     ("casts and copies", ("copy", "cat", "index")),

@@ -16,9 +16,13 @@ sweep, it times ``pipebicgstab_fused`` at chip_smoke.py's shapes too
 with bf16 storage) and ``pipebicgstab_halo`` on rank 1 of 4, and where it
 has the depth-l ghost-chain sweep, ``ghost_chain_fused`` at chip_smoke.py's
 shapes (ex23 at l = 2 and 4, the 2-D Laplacian at l = 2, the 21-band glen
-operator at l = 4) and ``ghost_chain_halo`` on rank 1 of 4.  Prints the
-card's ``nvidia-smi`` name and power limit, one line per shape, and one
-JSON object as its last line.
+operator at l = 4) and ``ghost_chain_halo`` on rank 1 of 4; where it has
+the BSR sweep, ``pipecg_bsr_fused`` on ex23-bsr4 and lap2d-bsr4 (k = 1,
+float64, vectors bit for bit against the plain version first); where it
+has the flash kernel, ``flash_attention`` at the ``[serve]`` prefill's
+(64, 2048, 128) bf16 causal (finite, and within 2^-8 of the float32 plain
+version's rms first).  Prints the card's ``nvidia-smi`` name and power
+limit, one line per shape, and one JSON object as its last line.
 """
 from __future__ import annotations
 
@@ -83,15 +87,74 @@ def main(argv) -> int:
                    storage=str(sto)[6:], ms=ms)
         smoke.say("sweep", **row)
         out.append(row)
-    bicg, chain = [], []
-    if (src / "repro_torch" / "kernels" / "pipebicgstab_fused.py").exists():
+    kdir = src / "repro_torch" / "kernels"
+    bicg, chain, bsr, flash = [], [], [], []
+    if (kdir / "pipebicgstab_fused.py").exists():
         bicg = time_bicg(gen, lap)
-    if (src / "repro_torch" / "kernels" / "csrc" / "ghost_chain.cu").exists():
+    if (kdir / "csrc" / "ghost_chain.cu").exists():
         chain = time_chain(gen, tri, lap)
+    if (kdir / "spmv_bsr.py").exists():
+        bsr = time_bsr(gen, tri, lap)
+    if (kdir / "flash_attn.py").exists():
+        flash = time_flash(gen)
     print(json.dumps({"src": str(src), "library": so.name,
-                      "sweep": out, "bicg": bicg, "chain": chain}),
+                      "sweep": out, "bicg": bicg, "chain": chain,
+                      "bsr": bsr, "flash": flash}),
           flush=True)
     return 0
+
+
+def time_bsr(gen, tri, lap):
+    """CUDA-event medians of ``pipecg_bsr_fused`` (float64, k = 1) on
+    ex23-bsr4 and lap2d-bsr4, each call's vectors held bit for bit against
+    its plain version first."""
+    import torch
+    from repro_torch.core.krylov import dia_to_bsr
+    from repro_torch.kernels.spmv_bsr import (pipecg_bsr_fused,
+                                              pipecg_bsr_fused_plain)
+    rows = []
+    for A, label in ((tri, "ex23-bsr4"), (lap, "lap2d-bsr4")):
+        B = dia_to_bsr(A, bs=smoke.BSR_BS)
+        x, r, u, p = (torch.randn((1, B.n), generator=gen, device=gen.device,
+                                  dtype=torch.float64) for _ in range(4))
+        a, b = (torch.rand(1, generator=gen, device=gen.device,
+                           dtype=torch.float64) for _ in range(2))
+        args = (B.indices, B.blocks, (1.0 / B.diagonal()).contiguous(),
+                B.column_checksum(), x, r, u, p, a, b)
+        got, want = pipecg_bsr_fused(*args), pipecg_bsr_fused_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got[:4], want[:4]):
+            smoke.check(torch.equal(g, w), f"pipecg_bsr_fused {label} differs")
+        row = dict(kernel="pipecg_bsr_fused", shape=label, k=1,
+                   accum="float64",
+                   ms=smoke.time_ms(lambda: pipecg_bsr_fused(*args)))
+        smoke.say("sweep", **row)
+        rows.append(row)
+    return rows
+
+
+def time_flash(gen):
+    """CUDA-event median of ``flash_attention`` at the [serve] prefill's
+    shape, bf16 causal, after a finiteness and rms check against the
+    float32 plain version (chip_smoke.py holds it to the full bar)."""
+    import torch
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    q, k, v = (torch.randn(smoke.FLASH_SHAPE, generator=gen,
+                           device=gen.device).to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention(q, k, v, True)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), True)
+    gap = (got.float() - want).pow(2).mean().sqrt()
+    smoke.check(bool(torch.isfinite(got).all())
+                and float(gap) <= 2.0 ** -8 * float(want.pow(2).mean().sqrt()),
+                f"flash_attention disagrees: rms gap {float(gap)}")
+    row = dict(kernel="flash_attention",
+               shape="x".join(map(str, smoke.FLASH_SHAPE)), dtype="bfloat16",
+               causal=True, ms=smoke.time_ms(lambda: flash_attention(
+                   q, k, v, True)))
+    smoke.say("sweep", **row)
+    return [row]
 
 
 def time_chain(gen, tri, lap):
