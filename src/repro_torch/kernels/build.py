@@ -9,7 +9,9 @@ source never reuses a stale build.  Nothing is compiled on import.
 
 The build turns FMA contraction off (``--fmad=false``): the kernels are
 bound by memory traffic, and without contraction each kernel rounds
-exactly as its plain PyTorch version does.
+exactly as its plain PyTorch version does.  ``-Xptxas -v`` puts each
+kernel's registers, shared memory and spills into the build log
+(:func:`ptxas_usage` reads them).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
 
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -53,7 +56,8 @@ _SIGNATURES = {
                              _P, _P, _P, _P,
                              _P, _P, _P, _P, _I, _L,
                              _P, _P,
-                             _P, _P, _P, _P, _P, _I, _P, _P],
+                             _P, _P, _P, _P, _P, _I, _I, _I,
+                             _P, _I, _P, _P, _P],
     "rt_pipecg_fused": [_I, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "rt_fused_dots": [_I, _P, _P, _L, _I, _P, _I, _P, _P],
     "rt_pipebicgstab_fused": [_I, _I, _P, _I, _L,
@@ -62,7 +66,7 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P, _P, _I, _L,
                               _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _P, _P],
+                              _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "rt_spmv_bsr": [_I, _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "rt_pipecg_bsr_fused": [_I, _L, _I, _I, _I, _P,
                             _P, _P, _P, _P,
@@ -153,6 +157,29 @@ def build() -> Tuple[Path, str]:
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     return so, "\n".join(log)
+
+
+def ptxas_usage(log: str, keys: Sequence[str]) -> dict:
+    """{mangled kernel name: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} from a build log, for the kernels whose name holds one
+    of ``keys``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = name if any(k in name for k in keys) else None
+            if name:
+                out[name] = {}
+        elif name and "bytes stack frame" in line:
+            words = line.replace(",", "").split()
+            out[name].update(stack=int(words[0]), spill_stores=int(words[4]),
+                             spill_loads=int(words[8]))
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[name]["smem"] = int(words[words.index("smem") - 2])
+    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -24,16 +24,30 @@
 // chain's recompute.
 //
 // Design.
-// * Halo recompute straight from device memory, as the PIPECG sweep
+// * Each row's chain once per CTA, in shared memory, as the PIPECG sweep
 //   (csrc/pipecg_spmv_fused.cu) does.  t'[i] needs w' on rows i + off_b,
-//   each of which needs v and so z on rows i + off_b + off_c: each thread
-//   recomputes that chain for its own row (n_bands^2 (t, c) pairs, 9 for
-//   the tridiagonal operator, 25 for the 5-band 2-D Laplacian) instead of
-//   staging a +-2h tile in shared memory, which would not fit once
-//   h = 1448.  Neighbouring threads read neighbouring rows and L1/L2 catch
-//   the reuse.  Every thread evaluates a row's chain with the same
-//   operations in the same order, so the w' that feeds t' equals the
-//   stored w'.
+//   each of which needs v = A z and so z on rows i + off_b + off_c.  A
+//   CTA owns a tile of rows (pipecg_spmv_fused.py::window_plan: 2044 rows
+//   for a tridiagonal operator).  Phase 1 forms z once per row over the
+//   outer window (the tile's rows shifted by every off_b + off_c, merged
+//   into clusters; common.cuh, "row windows").  Phase 2 forms v and w'
+//   once per row over the inner window (shifts off_b), and on the CTA's
+//   own rows all the other updates, storing x', r', w', pa', a', c' and
+//   keeping r', a', c' in shared memory.  Phase 3 forms t' on the own rows
+//   from the w' window, stores it and sums the Gram terms.  So the band
+//   values and each vector are read once per row from device memory (the
+//   own rows' band values once more in phase 3, from L2), and w' is
+//   formed by one expression in one order everywhere (v from zero, bands
+//   in order; no FMA contraction): the w' feeding t' is the stored w', and
+//   the vectors agree with the plain version bit for bit.
+// * Bytes in flight.  A thread takes kBatch = 4 rows at a time and starts
+//   all of a batch's loads before the first is used; the loads of its
+//   first own-row batch (r, w, t, pa, a, x) start before the window
+//   table is staged, so they travel during phase 1.  The band count is a
+//   template parameter for 3 and 5 bands.  The 23 accumulators and a
+//   batch take about 125 registers, so two CTAs (82 KB of shared memory
+//   each at float64) share an SM; capping the registers to fit more
+//   spilled and ran slower.  Plain loads take any alignment.
 // * No padded copies.  Rows of w, t and c outside [0, n) come from
 //   optional (2h,) strips to the left and right (null: zero).  The bands
 //   hold the operator rows [-oext, n + oext), row m at column m + oext of
@@ -44,11 +58,14 @@
 //   Rows >= n_valid are masked out of the payload.
 // * Outputs go to fresh buffers: w, t and c are read with a +-2h halo
 //   across CTAs, so updating them in place would race with a neighbour.
-// * Cross-block sums: each CTA writes its 21 unique Gram entries and its
-//   checksum partial to (22, n_blocks) scratch; a second kernel with one
-//   CTA per entry sums each contiguous row in a fixed order and fills the
-//   symmetric (7, 6) payload.  No float atomics, so results repeat bit for
-//   bit.
+// * Cross-block sums: each thread sums its rows' 21 Gram products, sum t'
+//   and sum c w' in registers; one block reduction per CTA writes its
+//   (n_blocks, 22) partial row (the checksum as one entry), and the CTAs
+//   finish in the same launch, in two fixed-order levels with integer
+//   tickets (common.cuh, finish_rows: the last CTA of each group of 32
+//   sums the group while the others still run, the last group the group
+//   rows) and fill the symmetric (7, 6) payload.  No float atomics and no
+//   second launch, so results repeat bit for bit.
 // * Dtypes: arithmetic, x, c = A^T 1 and the payload in the accumulator T;
 //   the chains r, w, t, pa, a, c, r_hat and the bands may be stored
 //   narrower (S = bf16 or fp8 e4m3).  Loads widen, only the six chain
@@ -67,7 +84,8 @@ template <typename T, typename S> struct BicgArgs {
   Offsets offs;
   long long n, n_valid;
   long long ldo;  // operator row stride, n + 2 oext
-  int oext, h2, nblk;
+  int oext, h2, nblk, tile, plan_len;
+  const int *plan;
   const S *bands;
   const T *csum;
   const T *x;
@@ -76,123 +94,252 @@ template <typename T, typename S> struct BicgArgs {
   const T *alpha, *beta, *omega;
   T *xo;
   S *ro, *wo, *to, *pao, *ao, *co;
-  T *partials;
+  T *partials, *gram;
+  unsigned int *tickets;  // ngroups + 1 (finish_rows)
 };
 
-template <typename T, typename S, bool Ext> struct BicgRow {
-  const BicgArgs<T, S> &a;
-  T alpha, beta, omega;
+// NB > 0: the operator has NB bands, known to the compiler; NB = 0:
+// g.offs.nb
+template <typename T, typename S, bool Ext, int NB>
+__global__ void __launch_bounds__(kBlock)
+    pipebicgstab_sweep_kernel(const BicgArgs<T, S> g) {
+  constexpr int R = kBatch, kStep = kBatch * kBlock;
+  const long long i0 = static_cast<long long>(blockIdx.x) * g.tile;
+  const int rows = static_cast<int>(min(static_cast<long long>(g.tile),
+                                        g.n - i0));
+  // the own-row operands of a thread's first phase-2 batch are loaded
+  // first, so they travel while the window table is staged and phase 1
+  // runs
+  T rv[R], wv[R], tv[R], pv[R], av[R], xv[R];
+  auto load_own = [&](int t0) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int t = t0 + q * kBlock;
+      const bool ok = t < rows;
+      const long long i = i0 + t;
+      rv[q] = ok ? up<T>(g.r[i]) : T(0);
+      wv[q] = ok ? up<T>(g.w[i]) : T(0);
+      tv[q] = ok ? up<T>(g.t[i]) : T(0);
+      pv[q] = ok ? up<T>(g.pa[i]) : T(0);
+      av[q] = ok ? up<T>(g.a[i]) : T(0);
+      xv[q] = ok ? g.x[i] : T(0);
+    }
+  };
+  load_own(threadIdx.x);
 
-  __device__ bool op_row(long long m) const {
-    if constexpr (Ext) return m >= -a.oext && m < a.n + a.oext;
-    else return m >= 0 && m < a.n;
-  }
-  __device__ T band(int b, long long m) const {
-    if constexpr (Ext)
-      return op_row(m) ? up<T>(a.bands[b * a.ldo + m + a.oext]) : T(0);
-    else return op_row(m) ? up<T>(a.bands[b * a.n + m]) : T(0);
-  }
-  __device__ T w(long long m) const {
-    return vec_at<T, S>(a.w, a.w_lo, a.w_hi, 0, m, a.n, a.h2);
-  }
-  __device__ T t(long long m) const {
-    return vec_at<T, S>(a.t, a.t_lo, a.t_hi, 0, m, a.n, a.h2);
-  }
-  __device__ T z(long long m) const {  // z = t + beta c
-    return t(m) + beta * vec_at<T, S>(a.c, a.c_lo, a.c_hi, 0, m, a.n, a.h2);
-  }
-  __device__ T v(long long m) const {  // v = A z
-    T s = T(0);
-    for (int b = 0; b < a.offs.nb; ++b)
-      s = s + band(b, m) * z(m + a.offs.off[b]);
-    return s;
-  }
-  // w' = (w - alpha z) - omega (t - alpha v) on row m, given z and v there
-  __device__ T wn(long long m, T zm, T vm) const {
-    const T y = w(m) - alpha * zm;
-    return y - omega * (t(m) - alpha * vm);
-  }
-};
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int nb = NB > 0 ? NB : g.offs.nb;
+  const Window win = stage_window(dyn, g.plan, g.plan_len, nb);
+  T *Z = reinterpret_cast<T *>(dyn + ((g.plan_len * 4 + 15) & ~15));
+  T *W = Z + win.w2;     // w' on the inner window
+  T *R2 = W + win.w1;    // r', a', c' on the own rows
+  T *A2 = R2 + g.tile;
+  T *C2 = A2 + g.tile;
+  const T al = *g.alpha, be = *g.beta, om = *g.omega;
 
-template <typename T, typename S, bool Ext>
-__global__ void pipebicgstab_fused_kernel(const BicgArgs<T, S> a) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const BicgRow<T, S, Ext> row{a, *a.alpha, *a.beta, *a.omega};
+  // phase 1: z = t + beta c on the outer window
+  for (int c = 0; c < win.n2; ++c) {
+    const int lo = win.cl2[3 * c], w = win.cl2[3 * c + 1];
+    T *dst = Z + win.cl2[3 * c + 2];
+    const bool inside = i0 + lo >= 0 && i0 + lo + w <= g.n;
+    for (int s0 = threadIdx.x; s0 < w; s0 += kStep) {
+      T tv[R], cv[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int s = s0 + q * kBlock;
+        const long long m = i0 + lo + s;
+        tv[q] = s < w ? row_at<T, S>(g.t, g.t_lo, g.t_hi, 0, m, g.n, g.h2,
+                                     inside)
+                      : T(0);
+        cv[q] = s < w ? row_at<T, S>(g.c, g.c_lo, g.c_hi, 0, m, g.n, g.h2,
+                                     inside)
+                      : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int s = s0 + q * kBlock;
+        if (s < w) dst[s] = tv[q] + be * cv[q];
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: v = A z and w' = (w - alpha z) - omega (t - alpha v) on the
+  // inner window's other rows ...
+  for (int c = 0; c < win.n1; ++c) {
+    const int lo = win.cl1[3 * c], w = win.cl1[3 * c + 1];
+    T *dst = W + win.cl1[3 * c + 2];
+    const int *dt = win.dtab + c * (nb + 1);
+    const int own0 = c == win.c_own ? -lo : w;
+    const int own1 = c == win.c_own ? rows - lo : w;
+    for (int s0 = threadIdx.x; s0 < w; s0 += kStep) {
+      T wh[R], th[R], vv[R];
+      bool on[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int s = s0 + q * kBlock;
+        const long long m = i0 + lo + s;
+        on[q] = s < w && (s < own0 || s >= own1);
+        wh[q] = on[q] ? vec_at<T, S>(g.w, g.w_lo, g.w_hi, 0, m, g.n, g.h2)
+                      : T(0);
+        th[q] = on[q] ? vec_at<T, S>(g.t, g.t_lo, g.t_hi, 0, m, g.n, g.h2)
+                      : T(0);
+        vv[q] = T(0);
+      }
+      for (int b = 0; b < nb; ++b) {
+        const int d = dt[b];
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int s = s0 + q * kBlock;
+          if (on[q])
+            vv[q] = vv[q] + band_row<T, S, Ext>(g.bands, b, i0 + lo + s, g.n,
+                                                g.ldo, g.oext) *
+                                Z[lo + s + d];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int s = s0 + q * kBlock;
+        if (!on[q]) continue;
+        const T y = wh[q] - al * Z[lo + s + dt[nb]];
+        dst[s] = y - om * (th[q] - al * vv[q]);
+      }
+    }
+  }
+  // ... and on the own rows, with every other update and the stores
+  {
+    const int *dt = win.dtab + win.c_own * (nb + 1);
+    for (int t0 = threadIdx.x; t0 < rows; t0 += kStep) {
+      if (t0 != static_cast<int>(threadIdx.x)) load_own(t0);
+      T vv[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) vv[q] = T(0);
+      for (int b = 0; b < nb; ++b) {
+        const S *band = g.bands + b * g.ldo + i0 + g.oext;
+        const int d = dt[b];
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int t = t0 + q * kBlock;
+          if (t < rows) vv[q] = vv[q] + up<T>(band[t]) * Z[t + d];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int t = t0 + q * kBlock;
+        if (t >= rows) continue;
+        const long long i = i0 + t;
+        const T zi = Z[win.o2 + t], vi = vv[q];
+        const T p = rv[q] + be * pv[q];
+        const T s = wv[q] + be * av[q];
+        const T qq = rv[q] - al * s;
+        const T y = wv[q] - al * zi;
+        const T r2 = qq - om * y;
+        const T w2 = y - om * (tv[q] - al * vi);
+        const T a2 = s - om * zi;
+        const T c2 = zi - om * vi;
+        W[win.o1 + t] = w2;
+        R2[t] = r2;
+        A2[t] = a2;
+        C2[t] = c2;
+        g.xo[i] = xv[q] + al * p + om * qq;
+        g.ro[i] = Store<S>::of(r2);
+        g.wo[i] = Store<S>::of(w2);
+        g.pao[i] = Store<S>::of(p - om * s);
+        g.ao[i] = Store<S>::of(a2);
+        g.co[i] = Store<S>::of(c2);
+      }
+    }
+  }
+
+  __syncthreads();
+
+  // phase 3: t' = A w' on the own rows, its store and the Gram terms
   T acc[kBicgCols];
 #pragma unroll
   for (int k = 0; k < kBicgCols; ++k) acc[k] = T(0);
-  if (i < a.n) {
-    const T al = row.alpha, be = row.beta, om = row.omega;
-    const T zi = row.z(i);
-    const T vi = row.v(i);
-    const T wi = row.w(i);
-    const T ri = up<T>(a.r[i]);
-    const T p = ri + be * up<T>(a.pa[i]);
-    const T s = wi + be * up<T>(a.a[i]);
-    const T q = ri - al * s;
-    const T y = wi - al * zi;
-    const T x2 = a.x[i] + al * p + om * q;
-    const T r2 = q - om * y;
-    const T w2 = y - om * (row.t(i) - al * vi);
-    T t2 = T(0);
-    for (int b = 0; b < a.offs.nb; ++b) {
-      const long long m = i + a.offs.off[b];
-      const T wm = (m == i) ? w2 : row.wn(m, row.z(m), row.v(m));
-      t2 = t2 + row.band(b, i) * wm;
+  const int nv = static_cast<int>(
+      max(0LL, min(static_cast<long long>(rows), g.n_valid - i0)));
+  for (int t0 = threadIdx.x; t0 < rows; t0 += kStep) {
+    T hv[R], cs[R], tt[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int t = t0 + q * kBlock;
+      hv[q] = t < nv ? up<T>(g.rh[i0 + t]) : T(0);
+      cs[q] = t < nv ? g.csum[i0 + t] : T(0);
+      tt[q] = T(0);
     }
-    const T pa2 = p - om * s;
-    const T a2 = s - om * zi;
-    const T c2 = zi - om * vi;
-    a.xo[i] = x2;
-    a.ro[i] = Store<S>::of(r2);
-    a.wo[i] = Store<S>::of(w2);
-    a.to[i] = Store<S>::of(t2);
-    a.pao[i] = Store<S>::of(pa2);
-    a.ao[i] = Store<S>::of(a2);
-    a.co[i] = Store<S>::of(c2);
-    if (i < a.n_valid) {
-      const T C[6] = {r2, w2, t2, a2, c2, up<T>(a.rh[i])};
+    for (int b = 0; b < nb; ++b) {
+      const S *band = g.bands + b * g.ldo + i0 + g.oext;
+      const int d = win.wtab[b];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int t = t0 + q * kBlock;
+        if (t < rows) tt[q] = tt[q] + up<T>(band[t]) * W[t + d];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int t = t0 + q * kBlock;
+      if (t >= rows) continue;
+      const T t2 = tt[q];
+      g.to[i0 + t] = Store<S>::of(t2);
+      if (t >= nv) continue;
+      const T w2 = W[win.o1 + t];
+      const T C[6] = {R2[t], w2, t2, A2[t], C2[t], hv[q]};
       int k = 0;
 #pragma unroll
       for (int p0 = 0; p0 < 6; ++p0)
 #pragma unroll
-        for (int q0 = p0; q0 < 6; ++q0) acc[k++] = C[p0] * C[q0];
-      acc[kGramCols] = t2;
-      acc[kGramCols + 1] = a.csum[i] * w2;
+        for (int q0 = p0; q0 < 6; ++q0) acc[k++] += C[p0] * C[q0];
+      acc[kGramCols] += t2;
+      acc[kGramCols + 1] += cs[q] * w2;
     }
   }
   block_reduce<T, kBicgCols>(acc);
+  // (nblk, 22) CTA rows, then (ngroups, 22) group rows
   if (threadIdx.x == 0) {
-    T *out = a.partials + blockIdx.x;  // column blockIdx.x of (22, nblk)
+    T *out = g.partials + static_cast<long long>(blockIdx.x) * kBicgPartials;
 #pragma unroll
-    for (int k = 0; k < kGramCols; ++k) out[k * a.nblk] = acc[k];
-    out[kGramCols * a.nblk] = acc[kGramCols] - acc[kGramCols + 1];
+    for (int k = 0; k < kGramCols; ++k) out[k] = acc[k];
+    out[kGramCols] = acc[kGramCols] - acc[kGramCols + 1];
+  }
+  T v[kBicgPartials];
+  if (finish_rows<T, kBicgPartials>(
+          g.partials,
+          g.partials + static_cast<long long>(g.nblk) * kBicgPartials,
+          g.tickets, g.nblk, v)) {
+    if (threadIdx.x == 0) {
+      int k = 0;
+      for (int p0 = 0; p0 < 6; ++p0)
+        for (int q0 = p0; q0 < 6; ++q0, ++k) {
+          g.gram[p0 * 6 + q0] = v[k];
+          g.gram[q0 * 6 + p0] = v[k];
+        }
+      g.gram[36] = v[kGramCols];
+      for (int q0 = 1; q0 < 6; ++q0) g.gram[36 + q0] = T(0);
+    }
   }
 }
 
-// CTA k sums row k of the (22, nblk) partials in a fixed order and writes
-// its payload entries: Gram entry (p, q) and (q, p) for k < 21 in the
-// kernel's upper-triangle order, the checksum row for k = 21
-template <typename T>
-__global__ void finish_gram_kernel(const T *__restrict__ partials,
-                                   T *__restrict__ gram, int nblk) {
-  const int k = blockIdx.x;
-  const T *row = partials + static_cast<long long>(k) * nblk;
-  T v[1] = {T(0)};
-  for (int b = threadIdx.x; b < nblk; b += blockDim.x) v[0] += row[b];
-  block_reduce<T, 1>(v);
-  if (threadIdx.x != 0) return;
-  if (k == kGramCols) {
-    gram[36] = v[0];
-    for (int q0 = 1; q0 < 6; ++q0) gram[36 + q0] = T(0);
-    return;
+template <typename T, typename S, bool Ext, int NB>
+static int launch_bicg_nb(const BicgArgs<T, S> &g, int smem, cudaStream_t st) {
+  static int granted[kMaxDevices] = {};
+  const int e = set_smem(reinterpret_cast<const void *>(
+                             pipebicgstab_sweep_kernel<T, S, Ext, NB>),
+                         smem, granted);
+  if (e) return e;
+  pipebicgstab_sweep_kernel<T, S, Ext, NB><<<g.nblk, kBlock, smem, st>>>(g);
+  return 0;
+}
+
+// the tridiagonal and 5-point operators get their own instantiations
+template <typename T, typename S, bool Ext>
+int launch_bicg(const BicgArgs<T, S> &g, int smem, cudaStream_t st) {
+  switch (g.offs.nb) {
+    case 3: return launch_bicg_nb<T, S, Ext, 3>(g, smem, st);
+    case 5: return launch_bicg_nb<T, S, Ext, 5>(g, smem, st);
+    default: return launch_bicg_nb<T, S, Ext, 0>(g, smem, st);
   }
-  int p0 = 0, first = 0;  // first: index of entry (p0, p0)
-  while (k >= first + 6 - p0) first += 6 - p0++;
-  const int q0 = p0 + (k - first);
-  gram[p0 * 6 + q0] = v[0];
-  gram[q0 * 6 + p0] = v[0];
 }
 
 }  // namespace rt
@@ -205,11 +352,13 @@ extern "C" int rt_pipebicgstab_fused(
     const void *w_hi, const void *t_lo, const void *t_hi, const void *c_lo,
     const void *c_hi, int h2, long long n_valid, const void *alpha,
     const void *beta, const void *omega, void *xo, void *ro, void *wo,
-    void *to, void *pao, void *ao, void *co, void *partials, int nblk,
-    void *gram, void *stream) {
+    void *to, void *pao, void *ao, void *co, const void *plan, int plan_len,
+    int tile, int smem, void *partials, int nblk, void *tickets, void *gram,
+    void *stream) {
   using namespace rt;
-  if (nb < 1 || nb > kMaxBands || n < 1 || nblk != blocks_for(n) ||
-      h2 < 0 || oext < 0)
+  if (nb < 1 || nb > kMaxBands || n < 1 || tile < 1 ||
+      nblk != (n + tile - 1) / tile || h2 < 0 || oext < 0 || plan_len < 8 ||
+      smem < 0 || smem > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   Offsets offs{};
   offs.nb = nb;
@@ -226,6 +375,9 @@ extern "C" int rt_pipebicgstab_fused(
     g.oext = oext;
     g.h2 = h2;
     g.nblk = nblk;
+    g.tile = tile;
+    g.plan_len = plan_len;
+    g.plan = static_cast<const int *>(plan);
     g.bands = static_cast<const S *>(bands);
     g.csum = static_cast<const T *>(csum);
     g.x = static_cast<const T *>(x);
@@ -253,13 +405,10 @@ extern "C" int rt_pipebicgstab_fused(
     g.ao = static_cast<S *>(ao);
     g.co = static_cast<S *>(co);
     g.partials = static_cast<T *>(partials);
-    if (oext > 0)
-      pipebicgstab_fused_kernel<T, S, true><<<nblk, kBlock, 0, st>>>(g);
-    else
-      pipebicgstab_fused_kernel<T, S, false><<<nblk, kBlock, 0, st>>>(g);
-    finish_gram_kernel<T><<<kBicgPartials, kBlock, 0, st>>>(
-        static_cast<const T *>(partials), static_cast<T *>(gram), nblk);
-    return 0;
+    g.gram = static_cast<T *>(gram);
+    g.tickets = static_cast<unsigned int *>(tickets);
+    return oext > 0 ? launch_bicg<T, S, true>(g, smem, st)
+                    : launch_bicg<T, S, false>(g, smem, st);
   });
   if (rc) return rc;
   return static_cast<int>(cudaGetLastError());

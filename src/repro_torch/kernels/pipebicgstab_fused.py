@@ -18,9 +18,11 @@ and the (7, 6) payload: rows 0..5 the Gram matrix of
 residual ``1^T t' - c^T w'`` of the second SpMV (``c = A^T 1``).  Its
 kernel (csrc/pipebicgstab_fused.cu) is bound by bytes on the H100:
 (16 + n_bands) words per row, 19n for a tridiagonal operator.  Each
-thread recomputes its row's ``z -> v -> w' -> t'`` chain from device
-memory, writes fresh output buffers, and finishes the Gram in a
-fixed-order second pass.
+CTA forms its rows' ``z -> v -> w' -> t'`` chain once per row over
+shared-memory row windows (``pipecg_spmv_fused.window_plan``), writes
+fresh output buffers, and the CTAs finish the Gram in a fixed order in
+the same launch, with integer tickets (no second kernel, no float
+atomics).
 
 ``pipebicgstab_halo`` replaces the per-rank form
 ``repro/kernels/pipebicgstab_fused.py::pipebicgstab_halo`` and launches
@@ -37,17 +39,30 @@ widen, and only the six chain stores narrow; r_hat is only read.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build as _b
-from repro_torch.kernels.pipecg_spmv_fused import _halo, _on_cpu
+from repro_torch.kernels.pipecg_spmv_fused import (_halo, _on_cpu,
+                                                   device_plan, finish_groups,
+                                                   tickets, window_plan)
 from repro_torch.kernels.spmv_dia import spmv_dia_plain
 
 NBASIS = 6                 # Gram basis [r', w', t', a', c', r_hat]
 NGRAM = NBASIS + 1         # + the ABFT checksum row
 NPART = 22                 # 21 unique Gram entries + the checksum partial
+#: the most rows per CTA of the sweep and the shared memory a CTA keeps
+#: within (its 23 accumulators hold it to two CTAs an SM at float64)
+BICG_TILE = 2048
+BICG_SMEM_TARGET = 96 * 1024
+
+
+def sweep_plan(offsets: Sequence[int], acc_bytes: int
+               ) -> Tuple[int, List[int], int]:
+    """The sweep's row-window plan (``pipecg_spmv_fused.window_plan``:
+    three own-row arrays, r', a', c', tiles up to ``BICG_TILE``)."""
+    return window_plan(offsets, acc_bytes, 3, BICG_TILE, BICG_SMEM_TARGET)
 
 
 def _sweep_plain(offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
@@ -134,13 +149,14 @@ def pipebicgstab_halo_plain(offsets: Sequence[int], bands_ext, csum,
 
 
 def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
-            alpha, beta, omega, oext: int, strips=None
-            ) -> Tuple[torch.Tensor, ...]:
+            alpha, beta, omega, oext: int, strips=None,
+            n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Check the operands and launch the sweep kernel on x's device.
 
     ``bands`` (n_bands, n + 2 oext) holds the operator rows
     [-oext, n + oext); ``strips`` is None (zero outside [0, n)) or
-    (w_lo, w_hi, t_lo, t_hi, c_lo, c_hi), each (2h,).
+    (w_lo, w_hi, t_lo, t_hi, c_lo, c_hi), each (2h,).  Rows >= ``n_valid``
+    (default n) stay out of the payload.
     """
     (n,) = x.shape
     nb = len(offsets)
@@ -168,9 +184,13 @@ def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
                              f"expected {shape} {dt}")
     _b.check_cuda(name, x.device, x=x, alpha=sc[0], beta=sc[1],
                   omega=sc[2], **{key: v for key, v, _, _ in shapes})
-    nblk = -(-n // _b.BLOCK)
+    tile, plan, smem = device_plan(sweep_plan, offsets, x.element_size(),
+                                   x.device)
+    nblk = -(-n // tile)
+    ngroups = finish_groups(nblk)
     outs = [torch.empty_like(v) for v in (x, r, w, t, pa, a, c)]
-    partials = torch.empty((NPART, nblk), dtype=acc, device=x.device)
+    partials = torch.empty((nblk + ngroups, NPART), dtype=acc,
+                           device=x.device)
     gram = torch.empty((NGRAM, NBASIS), dtype=acc, device=x.device)
     offs = (ctypes.c_int * nb)(*[int(o) for o in offsets])
     P = _b.ptr
@@ -180,8 +200,10 @@ def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
             _b.dtype_code(name, x), _b.dtype_code(name, r), offs, nb, n,
             P(bands), oext, P(csum),
             *(P(v) for v in (x, r, w, t, pa, a, c, r_hat)),
-            *lo_hi, 2 * h, n, *(P(s) for s in sc),
-            *(P(o) for o in outs), P(partials), nblk, P(gram),
+            *lo_hi, 2 * h, n if n_valid is None else n_valid,
+            *(P(s) for s in sc),
+            *(P(o) for o in outs), P(plan), plan.numel(), tile, smem,
+            P(partials), nblk, P(tickets(x.device, ngroups + 1)), P(gram),
             _b.stream_of(x.device))
     _b.raise_on_error(name, rc)
     return tuple(outs) + (gram,)

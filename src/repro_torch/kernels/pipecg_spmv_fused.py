@@ -7,9 +7,12 @@ x' = x + alpha p', r' = r - alpha s', u' = u - alpha q', w' = A u' and the
 (k, 6) reduction row (<r',u'>, <w',u'>, <r',r'>, <r',w'>, <w',w'>,
 1^T w' - c^T u').  Its kernel (csrc/pipecg_spmv_fused.cu) is bound by bytes
 on the H100: (10 + n_bands) words per row, 13n for the tridiagonal
-operator, with s, q and w never stored.  It recomputes each row's
-neighbour chain from device memory instead of padded copies, writes fresh
-output buffers, and finishes its sums in a fixed-order second pass.
+operator, with s, q and w never stored.  Each CTA forms p', then s' and
+u', once per row over shared-memory row windows around its tile
+(:func:`window_plan` sizes them; far bands such as the 2-D Laplacian's
++-nx get tile-sized clusters of their own), writes fresh output buffers,
+and the CTAs finish the sums in a fixed order in the same launch, with
+integer tickets (no second kernel, no float atomics).
 
 ``pipecg_spmv_halo`` replaces the per-rank form
 ``repro/kernels/pipecg_spmv_fused.py::pipecg_spmv_halo`` and launches the
@@ -39,7 +42,7 @@ narrower, and the Gram is taken before C's store narrows it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,10 +52,175 @@ from repro_torch.kernels.spmv_dia import spmv_dia_plain
 NRED = 6  # <r,u>, <w,u>, <r,r>, <r,w>, <w,w>, ABFT 1^T(Au') - c^T u'
 #: rows per CTA of the ghost-chain sweep (twice that for a wide reach)
 CHAIN_TILE = 1024
+#: the most rows per CTA of the PIPECG sweep, and the shared memory a CTA
+#: keeps within where a tile of 32 rows or more allows it (four CTAs of
+#: at most 64 registers a thread share an SM)
+SWEEP_TILE = 1024
+SWEEP_SMEM_TARGET = 48 * 1024
+#: the most a sweep CTA may take: the 227 KB a CTA may opt into, less the
+#: kernels' static block-reduction buffers (23 + 22 float64 columns of 32
+#: warps)
+SWEEP_SMEM_LIMIT = 232_448 - 16_384
+#: window slots a sweep CTA takes at once (kBatch * kBlock in
+#: csrc/common.cuh), and the batches a CTA's set-up and sums cost besides
+SWEEP_STEP = 4 * 256
+SWEEP_FIXED = 2
+#: CTAs per group of the sweeps' two-level finish (kGroup in
+#: csrc/common.cuh): a launch of nblk CTAs writes nblk + ceil(nblk / 32)
+#: partial rows and takes ceil(nblk / 32) + 1 tickets
+FINISH_GROUP = 32
 
 
 def _halo(offsets: Sequence[int]) -> int:
     return max(abs(int(o)) for o in offsets)
+
+
+def _clusters(shifts, tile: int) -> List[Tuple[int, int]]:
+    """The union of the intervals [d, d + tile), d in ``shifts``, as
+    sorted disjoint (lo, width) pairs."""
+    out: List[Tuple[int, int]] = []
+    for d in sorted(set(shifts)):
+        if out and d < out[-1][0] + out[-1][1]:
+            lo = out[-1][0]
+            out[-1] = (lo, d + tile - lo)
+        else:
+            out.append((d, tile))
+    return out
+
+
+def _holding(clusters, lo: int, hi: int) -> int:
+    """Index of the cluster that holds the rows [lo, hi)."""
+    for c, (clo, w) in enumerate(clusters):
+        if clo <= lo and hi <= clo + w:
+            return c
+    raise AssertionError(f"no cluster holds [{lo}, {hi})")
+
+
+def window_table(offsets: Sequence[int], tile: int) -> List[int]:
+    """The row-window table of a sweep CTA of ``tile`` rows (the layout of
+    ``Window`` in csrc/common.cuh).
+
+    The inner window (u', w') holds the tile's rows shifted by D1 = the
+    offsets and 0, the outer window (p', z) those shifted by D1 and every
+    d + off (d in D1, off in the offsets); each is merged into clusters
+    of consecutive shared-memory slots.
+    """
+    offs = [int(o) for o in offsets]
+    d1 = set(offs) | {0}
+    d2 = d1 | {d + o for d in d1 for o in offs}
+    cl2, cl1 = _clusters(d2, tile), _clusters(d1, tile)
+    base2 = [sum(w for _, w in cl2[:c]) for c in range(len(cl2))]
+    base1 = [sum(w for _, w in cl1[:c]) for c in range(len(cl1))]
+
+    def outer(lo, w, shift):  # outer slot of row e + shift is e + this
+        k = _holding(cl2, lo + shift, lo + w + shift)
+        return base2[k] - cl2[k][0] + shift
+
+    c_own = _holding(cl1, 0, tile)
+    k_own = _holding(cl2, 0, tile)
+    tab = [len(cl2), len(cl1), sum(w for _, w in cl2),
+           sum(w for _, w in cl1), c_own, base1[c_own] - cl1[c_own][0],
+           base2[k_own] - cl2[k_own][0], 0]
+    for cl, base in ((cl2, base2), (cl1, base1)):
+        for (lo, w), b in zip(cl, base):
+            tab += [lo, w, b]
+    for lo, w in cl1:
+        tab += [outer(lo, w, o) for o in offs] + [outer(lo, w, 0)]
+    for o in offs:
+        c = _holding(cl1, o, o + tile)
+        tab.append(base1[c] - cl1[c][0] + o)
+    return tab
+
+
+def window_smem(table: Sequence[int], tile: int, own: int,
+                acc_bytes: int) -> int:
+    """Dynamic shared memory of a sweep CTA: the table (16-byte aligned),
+    both windows and ``own`` tile-sized arrays at the accumulator dtype."""
+    return (-(-4 * len(table) // 16) * 16
+            + (table[2] + table[3] + own * tile) * acc_bytes)
+
+
+def window_plan(offsets: Sequence[int], acc_bytes: int, own: int,
+                max_tile: int = None, target: int = None
+                ) -> Tuple[int, List[int], int]:
+    """(tile rows, window table, shared-memory bytes) of a sweep CTA.
+
+    A CTA's threads take ``SWEEP_STEP`` slots of a window at a time (four
+    a thread), and each such batch costs about one trip to memory.  Among
+    the tiles up to ``max_tile`` (default ``SWEEP_TILE``) whose shared
+    memory (:func:`window_smem`) stays within ``target`` (default
+    ``SWEEP_SMEM_TARGET``), so several CTAs share an SM, take the one with
+    the fewest batches per row: those of the outer window, the inner
+    window and the own rows, plus ``SWEEP_FIXED`` for the CTA's set-up and
+    sums.  So ex23's PIPECG tile is 1020 rows, its windows 1024 and 1022
+    slots, one batch each.  Where even 32 rows pass the target (bands far
+    apart in every direction), the largest tile within
+    ``SWEEP_SMEM_LIMIT``, down to one row.  ``own`` is the sweep's
+    own-row arrays: 1 for PIPECG (r'), 3 for p-BiCGStab (r', a', c').
+    """
+    cap = SWEEP_TILE if max_tile is None else max_tile
+    target = SWEEP_SMEM_TARGET if target is None else target
+    tiles = list(range(cap - cap % 4, 3, -4)) + [2, 1]
+    best, best_cost = None, None
+    for tile in tiles:
+        if tile < 32:
+            break
+        table = window_table(offsets, tile)
+        smem = window_smem(table, tile, own, acc_bytes)
+        if smem > target:
+            continue
+        batches = sum(-(-w // SWEEP_STEP) for w in (table[2], table[3], tile))
+        cost = (batches + SWEEP_FIXED) / tile
+        if best is None or cost < best_cost:
+            best, best_cost = (tile, table, smem), cost
+    if best is not None:
+        return best
+    for tile in tiles:
+        table = window_table(offsets, tile)
+        smem = window_smem(table, tile, own, acc_bytes)
+        if smem <= SWEEP_SMEM_LIMIT:
+            return tile, table, smem
+    raise AssertionError("no window fits shared memory")
+
+
+def sweep_plan(offsets: Sequence[int], acc_bytes: int
+               ) -> Tuple[int, List[int], int]:
+    """The PIPECG sweep's :func:`window_plan` (one own-row array, r')."""
+    return window_plan(offsets, acc_bytes, 1)
+
+
+_PLANS: Dict[tuple, Tuple[int, torch.Tensor, int]] = {}
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_plan(plan: Callable, offsets: Sequence[int], acc_bytes: int,
+                device: torch.device) -> Tuple[int, torch.Tensor, int]:
+    """A sweep's ``plan(offsets, acc_bytes)`` (its :func:`sweep_plan`)
+    with the table on ``device``, built once per operator, dtype and
+    device (the sweeps reuse it every iteration)."""
+    key = (plan, tuple(int(o) for o in offsets), acc_bytes, str(device))
+    if key not in _PLANS:
+        tile, table, smem = plan(offsets, acc_bytes)
+        _PLANS[key] = (tile, torch.tensor(table, dtype=torch.int32,
+                                          device=device), smem)
+    return _PLANS[key]
+
+
+def finish_groups(nblk: int) -> int:
+    """Groups of the two-level finish of ``nblk`` CTAs."""
+    return -(-nblk // FINISH_GROUP)
+
+
+def tickets(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 tickets of the sweeps' finish, one set per
+    device and stream, zero between launches (the CTAs that finish set
+    theirs back), so launches on one stream share them."""
+    key = (str(device), _b.stream_of(device))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def _sweep_plain(offsets, bands, inv_diag, csum, x, r, u, p, alpha, beta,
@@ -125,12 +293,14 @@ def pipecg_spmv_halo_plain(offsets: Sequence[int], bands_ext, invd_ext, csum,
 
 
 def _launch(name: str, offsets, bands, inv_diag, csum, x, r, u, p, alpha,
-            beta, oext: int, strips=None) -> Tuple[torch.Tensor, ...]:
+            beta, oext: int, strips=None, n_valid: Optional[int] = None
+            ) -> Tuple[torch.Tensor, ...]:
     """Check the operands and launch the sweep kernel on x's device.
 
     ``bands`` (n_bands, n + 2 oext) and ``inv_diag`` (n + 2 oext,) hold the
     operator rows [-oext, n + oext); ``strips`` is None (zero outside
-    [0, n)) or (u_lo, u_hi, p_lo, p_hi), each (k, 2h).
+    [0, n)) or (u_lo, u_hi, p_lo, p_hi), each (k, 2h).  Rows >= ``n_valid``
+    (default n) stay out of the reduction row.
     """
     k, n = x.shape
     nb = len(offsets)
@@ -154,9 +324,13 @@ def _launch(name: str, offsets, bands, inv_diag, csum, x, r, u, p, alpha,
             raise ValueError(f"{name}: {key} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} {dt}")
     _b.check_cuda(name, x.device, x=x, **{key: t for key, t, _, _ in shapes})
-    nblk = -(-n // _b.BLOCK)
+    tile, plan, smem = device_plan(sweep_plan, offsets, x.element_size(),
+                                   x.device)
+    nblk = -(-n // tile)
+    ngroups = finish_groups(nblk)
     xo, ro, uo, po = (torch.empty_like(v) for v in (x, r, u, p))
-    partials = torch.empty((k, nblk, NRED), dtype=x.dtype, device=x.device)
+    partials = torch.empty((k, nblk + ngroups, NRED), dtype=x.dtype,
+                           device=x.device)
     red = torch.empty((k, NRED), dtype=x.dtype, device=x.device)
     offs = (ctypes.c_int * nb)(*[int(o) for o in offsets])
     P = _b.ptr
@@ -166,9 +340,11 @@ def _launch(name: str, offsets, bands, inv_diag, csum, x, r, u, p, alpha,
             _b.dtype_code(name, x), _b.dtype_code(name, r), offs, nb, n, k,
             P(bands), P(inv_diag), oext, P(csum),
             P(x), P(r), P(u), P(p),
-            *lo_hi, 2 * h, n,
+            *lo_hi, 2 * h, n if n_valid is None else n_valid,
             P(alpha), P(beta), P(xo), P(ro), P(uo), P(po),
-            P(partials), nblk, P(red), _b.stream_of(x.device))
+            P(plan), plan.numel(), tile, smem, P(partials), nblk,
+            P(tickets(x.device, k * (ngroups + 1))), P(red),
+            _b.stream_of(x.device))
     _b.raise_on_error(name, rc)
     return xo, ro, uo, po, red
 

@@ -12,7 +12,12 @@ and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes, as
 ``fused_dots``'s coefficients to 1e-12 and 1e-5.  The ghost-chain sweep's
 chains bit for bit (bf16 ones too: the links run at float32 in both), its
 Gram as the partials.  The 21-band glen operator (H10) runs through every
-sweep.  The BSR kernels run on ``dia_to_bsr`` of the 1-D and 2-D
+sweep.  The row-window sweeps (all four PIPECG and p-BiCGStab entries) are
+also held bit for bit from one row through a tile's edges to 1026 tiles,
+with bands far beyond the shared window, at unaligned rows in bf16 and
+fp8, with rows past ``n_valid`` masked; two launches must agree bit for
+bit, partials included, and column j of a k = 8 launch must equal a
+one-column launch.  The BSR kernels run on ``dia_to_bsr`` of the 1-D and 2-D
 Laplacians at bs 2, 4 and 8 (bs 3 through the SpMV only: the sweep
 takes powers of two).  The LM kernels sum in another order than their
 plain versions' matmuls: ``flash_attention`` is held to its float32 plain
@@ -627,3 +632,245 @@ def test_serve_prefill_goes_through_the_flash_kernel(cuda):
             cfg, 2, 100, cuda)})
     gap = (out["logits"].float() - lp.float()).abs()
     assert float(gap.max()) <= 0.15
+
+
+# -- the row-window sweeps (PIPECG and p-BiCGStab, both entries) -------------
+
+def _sweep_tile(entry, offsets):
+    import repro_torch.kernels.pipebicgstab_fused as bicg
+    import repro_torch.kernels.pipecg_spmv_fused as pcg
+    mod = pcg if entry.startswith("pipecg") else bicg
+    return mod.sweep_plan(offsets, 8)[0]
+
+
+def _pipecg_operands(offsets, n, k, acc, sto, g, cuda, halo=False,
+                     bands=None):
+    """Random PIPECG sweep operands (random bands unless given); with
+    ``halo`` the operator rows [-h, n + h) and (k, 2h) strips."""
+    h = max(abs(o) for o in offsets)
+    ext = h if halo else 0
+
+    def rnd(*shape, dt=acc):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=torch.float64).to(dt)
+
+    if bands is None:
+        bands = rnd(len(offsets), n + 2 * ext, dt=torch.float64)
+        if 0 in offsets:
+            bands[offsets.index(0)] = bands[offsets.index(0)].abs() + 2.0
+    invd = (1.0 / bands[offsets.index(0)]).to(sto) if 0 in offsets else \
+        rnd(n + 2 * ext, dt=sto)
+    csum = dia_column_checksum(offsets, bands.to(sto).double(),
+                               halo=ext).to(sto)
+    bands = bands.to(sto)
+    x = rnd(k, n)
+    r, u, p = (rnd(k, n, dt=sto) for _ in range(3))
+    a = torch.rand(k, generator=g, device=cuda, dtype=acc)
+    b = torch.rand(k, generator=g, device=cuda, dtype=acc)
+    if halo:
+        strips = [rnd(k, 2 * h, dt=sto) for _ in range(4)]
+        return (offsets, bands, invd, csum, x, r, u, p, *strips, a, b)
+    return (offsets, bands, invd, csum, x, r, u, p, a, b)
+
+
+def _bicg_operands(offsets, n, acc, sto, g, cuda, halo=False, bands=None):
+    """Random p-BiCGStab sweep operands; with ``halo`` the operator rows
+    [-h, n + h) and (2h,) strips of w, t and c."""
+    h = max(abs(o) for o in offsets)
+    ext = h if halo else 0
+
+    def rnd(*shape, dt=acc):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=torch.float64).to(dt)
+
+    if bands is None:
+        bands = rnd(len(offsets), n + 2 * ext, dt=torch.float64)
+    csum = dia_column_checksum(offsets, bands, halo=ext).to(acc)
+    bands = bands.to(sto)
+    x = rnd(n)
+    chains = [rnd(n, dt=sto) for _ in range(7)]
+    sc = [torch.rand((), generator=g, device=cuda, dtype=acc)
+          for _ in range(3)]
+    if halo:
+        strips = [rnd(2 * h, dt=sto) for _ in range(6)]
+        return (offsets, bands, csum, x, *chains, *strips, *sc)
+    return (offsets, bands, csum, x, *chains, *sc)
+
+
+_ENTRIES = {
+    "pipecg_spmv_fused": (pipecg_spmv_fused, pipecg_spmv_fused_plain, False),
+    "pipecg_spmv_halo": (pipecg_spmv_halo, pipecg_spmv_halo_plain, True),
+    "pipebicgstab_fused": (pipebicgstab_fused, pipebicgstab_fused_plain,
+                           False),
+    "pipebicgstab_halo": (pipebicgstab_halo, pipebicgstab_halo_plain, True),
+}
+
+
+def _entry_args(entry, offsets, n, acc, sto, g, cuda, k=2, bands=None):
+    _, _, halo = _ENTRIES[entry]
+    if entry.startswith("pipecg"):
+        return _pipecg_operands(offsets, n, k, acc, sto, g, cuda, halo,
+                                bands)
+    return _bicg_operands(offsets, n, acc, sto, g, cuda, halo, bands)
+
+
+def _partial_rel(got, want):
+    """The partials' gap, relative to their magnitude (at least 1)."""
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def _sweep_bit_for_bit(entry, args, acc):
+    """Vectors torch.equal to the plain version, partials at the gates,
+    and a second launch bit-identical to the first, partials included."""
+    fn, plain, _ = _ENTRIES[entry]
+    got, again = fn(*args), fn(*args)
+    nvec = 4 if entry.startswith("pipecg") else 7
+    fp8 = getattr(torch, "float8_e4m3fn", None)
+    if fp8 is not None and args[1].dtype == fp8:
+        # the plain version widens every fp8 operand first and narrows
+        # only its stores: run it on the widened operands (exact), then
+        # narrow, so no float8 op beyond the casts is needed
+        want = list(plain(*(t.to(acc) if torch.is_tensor(t)
+                            and t.dtype == fp8 else t for t in args)))
+        want = [w.to(gv.dtype) for w, gv in zip(want, got)]
+    else:
+        want = plain(*args)
+    torch.cuda.synchronize()
+    for i, (gv, wv) in enumerate(zip(got[:nvec], want[:nvec])):
+        assert torch.equal(gv, wv), f"{entry} out{i}"
+    for gv, av in zip(got, again):
+        assert torch.equal(gv, av), f"{entry} differs between launches"
+    tol = 1e-10 if acc == torch.float64 else 1e-3
+    assert _partial_rel(got[nvec], want[nvec]) <= tol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+@pytest.mark.parametrize("size", ["1", "2", "tile-1", "tile", "tile+1",
+                                  "3tile+ragged", "1025tiles+ragged"])
+def test_window_sweeps_across_tile_edges(cuda, entry, size):
+    """n from one row through a tile's edges to several tiles and a
+    ragged end (1026 CTAs: the two-level finish, its last group of two),
+    on a 4-band operator with a random extension."""
+    offsets = (-3, -1, 0, 2)
+    tile = _sweep_tile(entry, offsets)
+    n = {"1": 1, "2": 2, "tile-1": tile - 1, "tile": tile,
+         "tile+1": tile + 1, "3tile+ragged": 3 * tile + 17,
+         "1025tiles+ragged": 1025 * tile + 5}[size]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _entry_args(entry, offsets, n, torch.float64, torch.float64, g,
+                       cuda)
+    _sweep_bit_for_bit(entry, args, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+@pytest.mark.parametrize("offsets", [(-3000, -1, 0, 1, 3000),
+                                     (-1100, -1, 0, 1, 1100)])
+def test_window_sweeps_reach_past_the_window(cuda, entry, offsets):
+    """Bands far beyond a tile (their own window clusters): random
+    bands, and laplacian_2d(1100, 7)'s +-nx bands for the second."""
+    from repro_torch.core.krylov import laplacian_2d
+    g = torch.Generator(device=cuda).manual_seed(12)
+    bands = None
+    n = 7700
+    if offsets[0] == -1100:
+        A = laplacian_2d(1100, 7, device=cuda)
+        assert tuple(A.offsets) == offsets
+        n = A.n
+        if not _ENTRIES[entry][2]:
+            bands = A.bands
+    args = _entry_args(entry, offsets, n, torch.float64, torch.float64, g,
+                       cuda, bands=bands)
+    _sweep_bit_for_bit(entry, args, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_window_sweeps_take_21_bands(cuda, entry):
+    """glen_law_band's 21 bands through all four entries."""
+    A = _glen(6001, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    bands = None if _ENTRIES[entry][2] else A.bands
+    args = _entry_args(entry, tuple(A.offsets), A.n, torch.float64,
+                       torch.float64, g, cuda, bands=bands)
+    _sweep_bit_for_bit(entry, args, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+@pytest.mark.parametrize("sto", ["bfloat16", "float8_e4m3fn"])
+def test_window_sweeps_at_unaligned_rows(cuda, entry, sto):
+    """Odd n, k = 8 (PIPECG) and narrow storage: no row of a right-hand
+    side starts on 16 bytes."""
+    sto = getattr(torch, sto)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    args = _entry_args(entry, (-1, 0, 1), 4097, torch.float32, sto, g,
+                       cuda, k=8)
+    _sweep_bit_for_bit(entry, args, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["pipecg_spmv_fused", "pipecg_spmv_halo"])
+@pytest.mark.parametrize("acc,sto", [(torch.float64, torch.float64),
+                                     (torch.float32, torch.bfloat16)])
+def test_window_sweep_columns_do_not_depend_on_k(cuda, entry, acc, sto):
+    """Column j of a k = 8 launch equals a k = 1 launch on column j bit
+    for bit, partials included."""
+    fn, _, _ = _ENTRIES[entry]
+    g = torch.Generator(device=cuda).manual_seed(15)
+    args = _entry_args(entry, (-3, -1, 0, 2), 5001, acc, sto, g, cuda, k=8)
+    whole = fn(*args)
+    for j in range(8):  # offsets, bands, diag^-1, csum shared; the rest (8, .)
+        one = fn(*args[:4], *(t[j:j + 1] for t in args[4:]))
+        for i, (gv, wv) in enumerate(zip(one, whole)):
+            assert torch.equal(gv[0], wv[j]), f"column {j} out{i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["pipecg_spmv_halo", "pipebicgstab_halo"])
+def test_window_sweeps_mask_rows_past_n_valid(cuda, entry):
+    """Rows >= n_valid stay out of the partials (the kernel's mask; the
+    entries pass n_valid = n): the plain sweep's terms over the rows
+    [0, n_valid), the vectors unchanged."""
+    import repro_torch.kernels.pipebicgstab_fused as bicg
+    import repro_torch.kernels.pipecg_spmv_fused as pcg
+    g = torch.Generator(device=cuda).manual_seed(16)
+    offsets = (-3, -1, 0, 2)
+    n, n_valid, h = 3000, 2500, 3
+    args = _entry_args(entry, offsets, n, torch.float64, torch.float64, g,
+                       cuda)
+    full = _ENTRIES[entry][0](*args)
+    keep = slice(2 * h, 2 * h + n_valid)
+
+    def pad(v, w):
+        z = torch.zeros(v.shape[:-1] + (w,), dtype=v.dtype, device=v.device)
+        return torch.cat([z, v, z], dim=-1)
+
+    if entry == "pipecg_spmv_halo":
+        (_, bands, invd, csum, x, r, u, p, ul, uh, pl, ph, a, b) = args
+        got = pcg._launch(entry, offsets, bands, invd, csum, x, r, u, p, a,
+                          b, oext=h, strips=(ul, uh, pl, ph), n_valid=n_valid)
+        want = pcg._sweep_plain(
+            offsets, pad(bands, h), pad(invd, h), pad(csum, 2 * h),
+            pad(x, 2 * h), pad(r, 2 * h), torch.cat([ul, u, uh], -1),
+            torch.cat([pl, p, ph], -1), a, b, rows=keep)[4]
+        nvec = 4
+    else:
+        (_, bands, csum, x, r, w, t, pa, a_, c, rh, wl, wh, tl, th, cl, ch,
+         al, be, om) = args
+        got = bicg._launch(entry, offsets, bands, csum, x, r, w, t, pa, a_,
+                           c, rh, al, be, om, oext=h,
+                           strips=(wl, wh, tl, th, cl, ch), n_valid=n_valid)
+        want = bicg._sweep_plain(
+            offsets, pad(bands, h), pad(csum, 2 * h), pad(x, 2 * h),
+            pad(r, 2 * h), torch.cat([wl, w, wh]), torch.cat([tl, t, th]),
+            pad(pa, 2 * h), pad(a_, 2 * h), torch.cat([cl, c, ch]),
+            pad(rh, 2 * h), al, be, om, rows=keep)[7]
+        nvec = 7
+    torch.cuda.synchronize()
+    for gv, fv in zip(got[:nvec], full[:nvec]):
+        assert torch.equal(gv, fv)
+    assert _partial_rel(got[nvec], want) <= 1e-10
+    assert not torch.allclose(got[nvec], full[nvec])

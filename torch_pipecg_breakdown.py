@@ -36,8 +36,13 @@ import time
 import chip_smoke as smoke
 
 ITERS = 200
+# the row-window sweeps (pipecg_sweep_kernel, pipebicgstab_sweep_kernel)
+# finish their sums inside the launch (ticketed CTAs), so "sweep kernel"
+# holds their finish; older checkouts' sweeps and the other kernels
+# finish in "sweep reduce"
 GROUPS = (
-    ("sweep kernel", ("pipecg_spmv_fused_kernel",
+    ("sweep kernel", ("pipecg_sweep_kernel", "pipebicgstab_sweep_kernel",
+                      "pipecg_spmv_fused_kernel",
                       "pipebicgstab_fused_kernel", "ghost_chain_kernel",
                       "pipecg_bsr_fused_kernel")),
     ("sweep reduce", ("reduce_rows_kernel", "finish_gram_kernel",

@@ -8,12 +8,15 @@
 versions side by side: parent, change, change, parent.  Run on one NVIDIA
 GPU (exits with 2 without one).  Times ``pipecg_spmv_fused`` at
 chip_smoke.py's shapes (ex23's tridiagonal Laplacian at n = 2,097,152 and
-``laplacian_2d(1448, 1448)``; k = 1 and 8; float64, float32, float32 with
-bf16 storage) as CUDA-event medians of 25, after holding each call's
-vectors against its plain version.  Where the checkout has the p-BiCGStab
-sweep, it times ``pipebicgstab_fused`` at chip_smoke.py's shapes too
-(convection-diffusion and the 2-D Laplacian in float64, float32, float32
-with bf16 storage) and ``pipebicgstab_halo`` on rank 1 of 4, and where it
+``laplacian_2d(1448, 1448)``, the 21-band glen operator; k = 1 and 8;
+float64, float32, float32 with bf16 storage) and ``pipecg_spmv_halo`` on
+rank 1 of 4 (the tridiagonal Laplacian at k = 1 and 8 and with bf16
+storage, the 2-D Laplacian) as CUDA-event medians of 25, after holding
+each call's vectors bit for bit against its plain version.  Where the
+checkout has the p-BiCGStab sweep, it times ``pipebicgstab_fused`` at
+chip_smoke.py's shapes too (convection-diffusion and the 2-D Laplacian
+in float64, float32, float32 with bf16 storage, glen in float64) and
+``pipebicgstab_halo`` on rank 1 of 4 (float64 and bf16), and where it
 has the depth-l ghost-chain sweep, ``ghost_chain_fused`` at chip_smoke.py's
 shapes (ex23 at l = 2 and 4, the 2-D Laplacian at l = 2, the 21-band glen
 operator at l = 4) and ``ghost_chain_halo`` on rank 1 of 4; where it has
@@ -44,10 +47,12 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
+    from repro_torch.core.krylov import (glen_law_band, laplacian_2d,
+                                         tridiagonal_laplacian)
     from repro_torch.kernels import build
     from repro_torch.kernels.pipecg_spmv_fused import (
-        pipecg_spmv_fused, pipecg_spmv_fused_plain)
+        pipecg_spmv_fused, pipecg_spmv_fused_plain, pipecg_spmv_halo,
+        pipecg_spmv_halo_plain)
 
     _, line = smoke.card()
     print(line, flush=True)
@@ -58,33 +63,38 @@ def main(argv) -> int:
     tri = tridiagonal_laplacian(smoke.N_EX23, device=dev)
     lap = laplacian_2d(1448, 1448, device=dev)
     out = []
-    for A, label, k, acc, sto in ((tri, "tridiag", 1, f64, f64),
-                                  (tri, "tridiag", 8, f64, f64),
-                                  (tri, "tridiag", 1, f32, f32),
-                                  (tri, "tridiag", 1, f32, bf16),
-                                  (lap, "lap2d", 1, f64, f64)):
+    glen = glen_law_band(smoke.N_EX23, device=dev)
+    for A, label, k, acc, sto, ranks in (
+            (tri, "tridiag", 1, f64, f64, 1), (tri, "tridiag", 8, f64, f64, 1),
+            (tri, "tridiag", 1, f32, f32, 1), (tri, "tridiag", 1, f32, bf16, 1),
+            (lap, "lap2d", 1, f64, f64, 1), (lap, "lap2d", 8, f32, bf16, 1),
+            (glen, "glen", 1, f64, f64, 1),
+            (tri, "tridiag", 1, f64, f64, smoke.RANKS),
+            (tri, "tridiag", 8, f64, f64, smoke.RANKS),
+            (tri, "tridiag", 1, f32, bf16, smoke.RANKS),
+            (lap, "lap2d", 1, f64, f64, smoke.RANKS)):
         def randn(dt):
             return torch.randn((k, A.n), generator=gen, device=dev,
                                dtype=f64).to(dt)
         x, r, u, p = randn(acc), randn(sto), randn(sto), randn(sto)
         a = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
         b = torch.rand(k, generator=gen, device=dev, dtype=f64).to(acc)
-        bands = A.bands.to(sto)
-        invd = (1.0 / A.diagonal()).to(sto)
-        csum = A.column_checksum().to(sto)
-        args = (A.offsets, bands, invd, csum, x, r, u, p, a, b)
-        got = pipecg_spmv_fused(*args)
-        want = pipecg_spmv_fused_plain(*args)
+        if ranks == 1:
+            fn, plain = pipecg_spmv_fused, pipecg_spmv_fused_plain
+            args = (A.offsets, A.bands.to(sto), (1.0 / A.diagonal()).to(sto),
+                    A.column_checksum().to(sto), x, r, u, p, a, b)
+        else:
+            fn, plain = pipecg_spmv_halo, pipecg_spmv_halo_plain
+            opnds, _ = smoke.rank_operands(A, ranks, 1, x, r, u, p, sto)
+            args = (A.offsets, *opnds, a, b)
+        got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
-        tol = {f64: 1e-12, f32: 1e-5}[acc]
         for g, w in zip(got[:4], want[:4]):
-            gap = float(((g.double() - w.double()).abs()
-                         / w.double().abs().clamp(min=1.0)).max())
-            smoke.check(gap <= (2.0 ** -7 if g.dtype == bf16 else tol),
-                        f"sweep {label} k={k} disagrees: {gap}")
-        ms = smoke.time_ms(lambda: pipecg_spmv_fused(*args))
-        row = dict(shape=label, k=k, accum=str(acc)[6:],
-                   storage=str(sto)[6:], ms=ms)
+            smoke.check(torch.equal(g, w), f"{fn.__name__} {label} k={k} "
+                        f"differs from the plain version")
+        ms = smoke.time_ms(lambda: fn(*args))
+        row = dict(kernel=fn.__name__, shape=label, ranks=ranks, k=k,
+                   accum=str(acc)[6:], storage=str(sto)[6:], ms=ms)
         smoke.say("sweep", **row)
         out.append(row)
     kdir = src / "repro_torch" / "kernels"
@@ -192,20 +202,24 @@ def time_chain(gen, tri, lap):
 
 def time_bicg(gen, lap):
     """CUDA-event medians of the p-BiCGStab sweeps, each held bit for bit
-    (one bf16 ulp) against its plain version first."""
+    against its plain version first."""
     import torch
-    from repro_torch.core.krylov import convection_diffusion
+    from repro_torch.core.krylov import convection_diffusion, glen_law_band
     from repro_torch.kernels.pipebicgstab_fused import (
         pipebicgstab_fused, pipebicgstab_fused_plain, pipebicgstab_halo,
         pipebicgstab_halo_plain)
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     cdf = convection_diffusion(smoke.N_EX23, device=gen.device)
     rows = []
+    glen = glen_law_band(smoke.N_EX23, device=gen.device)
     for A, label, acc, sto, ranks in ((cdf, "convdiff", f64, f64, 1),
                                       (lap, "lap2d", f64, f64, 1),
                                       (cdf, "convdiff", f32, f32, 1),
                                       (cdf, "convdiff", f32, bf16, 1),
+                                      (glen, "glen", f64, f64, 1),
                                       (cdf, "convdiff", f64, f64,
+                                       smoke.RANKS),
+                                      (cdf, "convdiff", f32, bf16,
                                        smoke.RANKS)):
         bands, csum, x, chains, sc = smoke.bicg_operands(gen, A, acc, sto)
         if ranks == 1:
