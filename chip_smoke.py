@@ -8,10 +8,10 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
 
 1. device: the card's name and ``nvidia-smi`` name + power limit;
 2. build: compiles the kernel library (one nvcc per source, in parallel),
-   prints each row-window sweep instantiation's registers, shared memory
-   and spills (``-Xptxas -v``), and counts the tensor-core instructions
-   (HMMA, HGMMA) in the SASS of the bf16 flash kernel (``cuobjdump
-   -sass``; none fails the run);
+   prints each row-window and ghost-chain sweep instantiation's
+   registers, shared memory and spills (``-Xptxas -v``), and counts the
+   tensor-core instructions (HMMA, HGMMA) in the SASS of the bf16 flash
+   kernel (``cuobjdump -sass``; none fails the run);
 3. kernels: each CUDA kernel against its plain torch version at the main
    path's shapes (ex23's n = 2,097,152 tridiagonal, float64; the 5-band
    ``laplacian_2d(1448, 1448)``; k = 1 and 8; float32; float32 with bf16
@@ -33,7 +33,8 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    l = 2 and 4 on ``laplacian_2d(1448, 1448)`` (the latter in the
    global-memory workspace), l = 4 on glen, in float32 and with bf16
    storage; its per-rank form (#5) on rank 1 of 4, and 4 slices against
-   the one-device chain.  The BSR kernels (#10 ``spmv_bsr``, #11
+   the one-device chain; a second launch of each must repeat the chain
+   and the Gram bit for bit.  The BSR kernels (#10 ``spmv_bsr``, #11
    ``pipecg_bsr_fused``) on ``dia_to_bsr`` of ex23 and of
    ``laplacian_2d(1448, 1448)`` at bs 4 (ex23-bsr4, lap2d-bsr4; the
    conversion's host seconds printed), k = 1, ex23-bsr4 at k = 8 and in
@@ -200,8 +201,10 @@ LOGIT_TOL = 0.15
 ARGMAX_AGREE = 0.5
 
 
-# the row-window sweeps (#2, #3, #8, #9) whose ptxas usage [build] prints
-SWEEP_KERNELS = ("pipecg_sweep_kernel", "pipebicgstab_sweep_kernel")
+# the row-window sweeps (#2, #3, #8, #9) and the ghost-chain sweep (#4,
+# #5), whose ptxas usage [build] prints
+SWEEP_KERNELS = ("pipecg_sweep_kernel", "pipebicgstab_sweep_kernel",
+                 "ghost_chain_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -979,6 +982,8 @@ def chain_kernel(records, gen, tri, lap, glen):
         want = ghost_chain_fused_plain(*args)
         torch.cuda.synchronize()
         chain_equal(f"ghost_chain_fused {label} l={l}", got[0], want[0])
+        repeats(f"ghost_chain_fused {label} l={l}", ghost_chain_fused, args,
+                got)
         wide = ghost_chain_fused_plain(A.offsets, bands.to(acc), p.to(acc),
                                        r.to(acc), theta, l)[0]
         rel = chain_gram_rel(got[1], want[1], wide)
@@ -988,11 +993,11 @@ def chain_kernel(records, gen, tri, lap, glen):
         ms = time_ms(lambda: ghost_chain_fused(*args))
         plain_ms = time_ms(lambda: ghost_chain_fused_plain(*args))
         b_ms, b_by = chain_bound(A, A.n, (bands, p, r, *got), l, acc)
-        shared = chain_plan(l * A.halo, 2 * l + 1,
-                            torch.finfo(acc).bits // 8)[2]
+        tile, _, shared = chain_plan(l * A.halo, 2 * l + 1,
+                                     torch.finfo(acc).bits // 8)
         say("kernel", name="ghost_chain_fused", shape=label, n=A.n, l=l,
             bands=len(A.offsets), accum=str(acc)[6:], storage=str(sto)[6:],
-            workspace="shared" if shared else "global",
+            tile=tile, workspace="shared" if shared else "global",
             max_abs_err=f"{err:.3e}", gram_rel=f"{rel:.3e}", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
             share=f"{b_ms / ms:.3f}")
@@ -1039,6 +1044,7 @@ def chain_halo_kernel(records, gen, tri):
     want = ghost_chain_halo_plain(*args)
     torch.cuda.synchronize()
     chain_equal("ghost_chain_halo", got[0], want[0])
+    repeats("ghost_chain_halo", ghost_chain_halo, args, got)
     rel = chain_gram_rel(got[1], want[1], want[0])
     check(rel <= 1e-10, f"ghost_chain_halo Gram: {rel}")
     err = max_err(got, want)

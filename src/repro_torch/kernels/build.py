@@ -75,7 +75,8 @@ _SIGNATURES = {
     "rt_ghost_chain": [_I, _I, _P, _I, _L, _I,
                        _P, _I, _P, _P,
                        _P, _P, _P, _P, _I, _L,
-                       _P, _P, _I, _P, _L, _P, _I, _P, _P],
+                       _P, ctypes.c_double,
+                       _P, _I, _P, _L, _P, _I, _P, _P, _P],
     "rt_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                            _I, _P],
     "rt_wkv_recurrent": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -42,6 +42,8 @@ narrower, and the Gram is taken before C's store narrows it.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -50,8 +52,6 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.spmv_dia import spmv_dia_plain
 
 NRED = 6  # <r,u>, <w,u>, <r,r>, <r,w>, <w,w>, ABFT 1^T(Au') - c^T u'
-#: rows per CTA of the ghost-chain sweep (twice that for a wide reach)
-CHAIN_TILE = 1024
 #: the most rows per CTA of the PIPECG sweep, and the shared memory a CTA
 #: keeps within where a tile of 32 rows or more allows it (four CTAs of
 #: at most 64 registers a thread share an SM)
@@ -69,6 +69,11 @@ SWEEP_FIXED = 2
 #: csrc/common.cuh): a launch of nblk CTAs writes nblk + ceil(nblk / 32)
 #: partial rows and takes ceil(nblk / 32) + 1 tickets
 FINISH_GROUP = 32
+#: Gram entries the chain sweep reduces and finishes at once (kGramGroup
+#: in csrc/ghost_chain.cu): 15 at l = 2, three groups at l = 4
+CHAIN_GRAM_GROUP = 15
+#: the largest tile of a chain CTA whose links live in global memory
+CHAIN_MAX_TILE = 4096
 
 
 def _halo(offsets: Sequence[int]) -> int:
@@ -489,16 +494,46 @@ def ghost_chain_halo_plain(offsets: Sequence[int], bands_ext, p, r, p_lo,
                         _chain_accum(p, accum_dtype))
 
 
-def chain_plan(reach: int, m: int, acc_bytes: int) -> Tuple[int, int, bool]:
-    """(tile rows, workspace words per CTA, in shared memory?) of a sweep.
+def chain_words(tile: int, reach: int, m: int) -> int:
+    """Workspace words of a chain CTA: every link over the window slots
+    it needs (link j of p over tile + 2 (l - j) h rows, of r over tile +
+    2 (l - 1 - j) h), m tile-sized buffers and 2 * reach * l words more."""
+    return m * tile + 2 * reach * ((m - 1) // 2)
 
-    The workspace holds two windows of tile + 2 reach rows and the
-    (m, tile) link block: in shared memory when it fits ``SMEM_DYNAMIC``,
-    else in a global scratch.
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(reach: int, m: int, acc_bytes: int) -> Tuple[int, int, bool]:
+    """(tile rows, workspace words per CTA, in shared memory?) of a chain
+    sweep of reach ``l*h`` and m = 2l + 1 chain rows.
+
+    A CTA's threads take ``SWEEP_STEP`` window slots at a time (four a
+    thread) and the window is tile + 2 reach slots, so tiles fill whole
+    batches.  One batch (1020 rows at reach 2, 1016 at reach 4: the band
+    values then stay in registers, and three CTAs share an SM) where the
+    reach leaves at least half of it to the tile and the links fit shared
+    memory; else the whole-batch tile with the fewest batches per row
+    (``SWEEP_FIXED`` more for the Gram and the finish) whose links fit;
+    else the same within ``CHAIN_MAX_TILE`` rows on a global scratch.
+    The links fit where they stay within ``SWEEP_SMEM_LIMIT``: the
+    kernel's static buffers take the rest of the 227 KB.
     """
-    tile = CHAIN_TILE if 2 * reach <= CHAIN_TILE else 2 * CHAIN_TILE
-    ws = 2 * (tile + 2 * reach) + m * tile
-    return tile, ws, ws * acc_bytes <= _b.SMEM_DYNAMIC
+    limit = SWEEP_SMEM_LIMIT // acc_bytes
+    if 4 * reach <= SWEEP_STEP:
+        tile = SWEEP_STEP - 2 * reach
+        if chain_words(tile, reach, m) <= limit:
+            return tile, chain_words(tile, reach, m), True
+    for shared in (True, False):
+        best, best_cost = None, None
+        for k in itertools.count(2 * reach // SWEEP_STEP + 1):
+            tile = k * SWEEP_STEP - 2 * reach
+            ws = chain_words(tile, reach, m)
+            if (ws > limit) if shared else (tile > CHAIN_MAX_TILE):
+                break
+            cost = (k + SWEEP_FIXED) / tile
+            if best is None or cost < best_cost:
+                best, best_cost = (tile, ws, shared), cost
+        if best is not None:  # always, on the global scratch
+            return best
 
 
 def _chain_launch(name: str, offsets, bands, p, r, theta, l: int,
@@ -530,15 +565,22 @@ def _chain_launch(name: str, offsets, bands, p, r, theta, l: int,
         if tuple(t.shape) != shape or t.dtype != sto:
             raise ValueError(f"{name}: {key} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} {sto}")
-    th_inv = _theta_inv(theta, acc, p.device).contiguous()
-    _b.check_cuda(name, p.device, p=p, th_inv=th_inv,
-                  **{key: t for key, t, _ in shapes})
+    # the kernel inverts theta itself (IEEE division, as _theta_inv)
+    if torch.is_tensor(theta):
+        th = theta.to(device=p.device, dtype=acc).reshape(()).contiguous()
+        th_value = 0.0
+    else:
+        th, th_value = None, float(theta)
+    _b.check_cuda(name, p.device, p=p, **{key: t for key, t, _ in shapes},
+                  **({} if th is None else {"theta": th}))
     m = 2 * l + 1
     tile, ws, shared = chain_plan(H, m, torch.finfo(acc).bits // 8)
     nblk = -(-n // tile)
+    ngroups = finish_groups(nblk)
+    ngram = -(-(m * (m + 1) // 2) // CHAIN_GRAM_GROUP)  # pair groups
     chain = torch.empty((m, n), dtype=sto, device=p.device)
-    partials = torch.empty((m * (m + 1) // 2, nblk), dtype=acc,
-                           device=p.device)
+    partials = torch.empty((ngram, nblk + ngroups, CHAIN_GRAM_GROUP),
+                           dtype=acc, device=p.device)
     gram = torch.empty((m, m), dtype=acc, device=p.device)
     scratch = None if shared else torch.empty(nblk * ws, dtype=acc,
                                               device=p.device)
@@ -548,8 +590,9 @@ def _chain_launch(name: str, offsets, bands, p, r, theta, l: int,
     with torch.cuda.device(p.device):
         rc = _b.lib().rt_ghost_chain(
             _b.DTYPE_CODES[acc], _b.dtype_code(name, p), offs, nb, n, l,
-            P(bands), oext, P(p), P(r), *lo_hi, H, n, P(th_inv),
-            P(chain), tile, P(scratch), ws, P(partials), nblk, P(gram),
+            P(bands), oext, P(p), P(r), *lo_hi, H, n, P(th), th_value,
+            P(chain), tile, P(scratch), ws, P(partials), nblk,
+            P(tickets(p.device, ngroups + 1)), P(gram),
             _b.stream_of(p.device))
     _b.raise_on_error(name, rc)
     return chain, gram

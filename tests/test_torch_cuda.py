@@ -327,9 +327,9 @@ def _chain_gram_rel(got, want, C):
     (torch.float32, torch.bfloat16)])
 def test_ghost_chain_kernel_matches_plain_on_card(cuda, l, acc, sto):
     """On ex23, laplacian_2d and glen (ragged tiles: n is no multiple of
-    the tile); laplacian_2d at l = 8 in float64 runs the global-memory
-    workspace (tests/test_torch_kernels.py::test_chain_plan_picks_the_
-    workspace), the others the shared one."""
+    the tile): the register path at l = 2 and 4 on ex23, the runtime
+    loops elsewhere, two-batch windows for laplacian_2d at l = 8
+    (tests/test_torch_chain_plan.py)."""
     from repro_torch.core.krylov import laplacian_2d, tridiagonal_laplacian
     g = torch.Generator(device=cuda).manual_seed(8)
     for A in (tridiagonal_laplacian(5001, device=cuda),
@@ -381,6 +381,111 @@ def test_ghost_chain_halo_kernel_matches_plain_on_card(cuda, acc, sto):
     cut[:, -H:] = 0
     moved = ghost_chain_halo(offsets, cut, *args[2:], accum_dtype=acc)[1]
     assert not torch.allclose(moved, got[1])
+
+
+def _chain_case(A, l, acc, sto, g, halo=False, q=1):
+    """(entry, its plain version, arguments) of a chain sweep on ``A``:
+    the one-device sweep, or rank ``q`` of 4 with real strips."""
+    from repro_torch.core.krylov import dia_inf_norm
+    from repro_torch.kernels.pipecg_spmv_fused import _halo
+    p, r = (torch.randn(A.n, generator=g, device=g.device,
+                        dtype=torch.float64).to(sto) for _ in range(2))
+    theta = dia_inf_norm(A)
+    if not halo:
+        return (ghost_chain_fused, ghost_chain_fused_plain,
+                (A.offsets, A.bands.to(sto), p, r, theta, l))
+    H, n = l * _halo(A.offsets), A.n
+    lo, hi = q * n // 4, (q + 1) * n // 4
+    pad = torch.nn.functional.pad
+    bands = pad(A.bands, (H, H))[:, lo:hi + 2 * H].to(sto).contiguous()
+    strips = []
+    for v in (p, r):
+        wide = pad(v, (H, H))
+        strips += [wide[lo:lo + H].contiguous(),
+                   wide[hi + H:hi + 2 * H].contiguous()]
+    return (ghost_chain_halo, ghost_chain_halo_plain,
+            (A.offsets, bands, p[lo:hi].contiguous(), r[lo:hi].contiguous(),
+             *strips, theta, l))
+
+
+def _chain_matches(fn, plain, args, acc):
+    got, again = fn(*args, accum_dtype=acc), fn(*args, accum_dtype=acc)
+    want = plain(*args, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    wide = plain(*(t.to(acc) if torch.is_tensor(t) and t.is_floating_point()
+                   and t.dim() else t for t in args))[0]
+    rel = _chain_gram_rel(got[1], want[1], wide)
+    assert rel <= (1e-10 if acc == torch.float64 else 1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("l", [2, 4, 8])
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.bfloat16)])
+def test_ghost_chain_gram_repeats_bit_for_bit(cuda, l, halo, acc, sto):
+    """Two launches give the same chain and Gram bit for bit (the
+    in-launch finish sums in one order, with no float atomics), one
+    device and rank 1 of 4, l = 4 and 8 with Grams of 45 and 153 entries
+    (three and eleven pair groups, wider than finish_rows' 32 columns)."""
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    g = torch.Generator(device=cuda).manual_seed(30 + l)
+    A = tridiagonal_laplacian(300_001, device=cuda)
+    _chain_matches(*_chain_case(A, l, acc, sto, g, halo), acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [2, 4])
+@pytest.mark.parametrize("tiles", ["1", "32", "32+1", "1024+ragged",
+                                   "1025+ragged"])
+def test_ghost_chain_across_finish_groups(cuda, l, tiles):
+    """n on both sides of a finish group (32 CTAs) and past 1024 CTAs:
+    one group, two groups of which the last has one CTA, 33 groups."""
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.kernels.pipecg_spmv_fused import chain_plan
+    tile = chain_plan(l, 2 * l + 1, 8)[0]
+    n = {"1": tile, "32": 32 * tile, "32+1": 32 * tile + 1,
+         "1024+ragged": 1023 * tile + 5,
+         "1025+ragged": 1024 * tile + 7}[tiles]
+    g = torch.Generator(device=cuda).manual_seed(40)
+    A = tridiagonal_laplacian(n, device=cuda)
+    _chain_matches(*_chain_case(A, l, torch.float64, torch.float64, g),
+                   torch.float64)
+
+
+@pytest.mark.cuda
+def test_ghost_chain_halo_after_fused_on_one_stream(cuda):
+    """A one-device launch, a rank launch, another one-device launch and
+    a rank launch at l = 4 queued on one stream with no sync between: the
+    tickets are back at zero after each, so every Gram is right."""
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    g = torch.Generator(device=cuda).manual_seed(41)
+    A = tridiagonal_laplacian(700_001, device=cuda)
+    cases = [_chain_case(A, l, torch.float64, torch.float64, g, halo, q)
+             for l, halo, q in ((2, False, 1), (2, True, 1), (4, False, 1),
+                                (4, True, 3))]
+    got = [fn(*args) for fn, _, args in cases]
+    for (fn, plain, args), (C, G) in zip(cases, got):
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(C, want[0])
+        assert _chain_gram_rel(G, want[1], want[0]) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_ghost_chain_runs_the_global_workspace(cuda):
+    """laplacian_2d(1448, 5) at l = 4 in float64: the links do not fit
+    shared memory, so they live in the global scratch."""
+    from repro_torch.core.krylov import laplacian_2d
+    from repro_torch.kernels.pipecg_spmv_fused import chain_plan
+    A = laplacian_2d(1448, 5, device=cuda)
+    assert chain_plan(4 * 1448, 9, 8)[2] is False
+    g = torch.Generator(device=cuda).manual_seed(42)
+    _chain_matches(*_chain_case(A, 4, torch.float64, torch.float64, g),
+                   torch.float64)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,8 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels.checksum import dia_column_checksum
 from repro_torch.kernels.pipebicgstab_fused import (
     pipebicgstab_fused, pipebicgstab_fused_plain, pipebicgstab_halo_plain)
-from repro_torch.kernels.pipecg_spmv_fused import (chain_plan,
+from repro_torch.kernels.pipecg_spmv_fused import (SWEEP_SMEM_LIMIT,
+                                                   chain_plan,
                                                    ghost_chain_fused,
                                                    ghost_chain_fused_plain,
                                                    ghost_chain_halo,
@@ -672,16 +673,19 @@ def test_ghost_chain_bf16_storage_narrows_only_the_store():
 
 
 def test_chain_plan_picks_the_workspace():
-    """Shared memory where the two windows and the link block fit, the
-    global scratch otherwise (laplacian_2d(1448, 1448) at l = 4, and
-    laplacian_2d(70, 50) at l = 8 in float64, which the card tests run);
-    tiles of 2048 rows once the reach passes 512."""
-    assert chain_plan(2, 5, 8) == (1024, 2 * 1028 + 5 * 1024, True)
+    """Shared memory where every link's window buffer fits, the global
+    scratch otherwise (laplacian_2d(1448, 1448) at l = 4 in float64);
+    tiles fill whole 1024-slot batches: one for ex23 (1020 rows at l =
+    2), eight for laplacian_2d(1448, 1448) at l = 2 (2400 rows), two for
+    laplacian_2d(70, 50) at l = 8 (928 rows in float64, 1952 in
+    float32, both in shared memory now that no link is kept twice)."""
+    assert chain_plan(2, 5, 8) == (1020, 5 * 1020 + 8, True)
     tile, ws, shared = chain_plan(2 * 1448, 5, 8)
-    assert (tile, shared) == (2048, True) and ws * 8 <= build.SMEM_DYNAMIC
+    assert (tile, shared) == (2400, True) and ws * 8 <= build.SMEM_DYNAMIC
+    assert ws * 8 <= SWEEP_SMEM_LIMIT
     assert chain_plan(4 * 1448, 9, 8)[2] is False
-    assert chain_plan(8 * 70, 17, 8)[2] is False
-    assert chain_plan(8 * 70, 17, 4)[2] is True
+    assert chain_plan(8 * 70, 17, 8) == (928, 17 * 928 + 2 * 560 * 8, True)
+    assert chain_plan(8 * 70, 17, 4)[:3:2] == (1952, True)
 
 
 def test_chain_wrappers_reject_what_has_no_kernel():

@@ -37,9 +37,10 @@ import chip_smoke as smoke
 
 ITERS = 200
 # the row-window sweeps (pipecg_sweep_kernel, pipebicgstab_sweep_kernel)
-# finish their sums inside the launch (ticketed CTAs), so "sweep kernel"
-# holds their finish; older checkouts' sweeps and the other kernels
-# finish in "sweep reduce"
+# and the ghost-chain sweep (ghost_chain_kernel) finish their sums inside
+# the launch (ticketed CTAs), so "sweep kernel" holds their finish; older
+# checkouts' sweeps (finish_chain_gram_kernel for the chain) and the other
+# kernels finish in "sweep reduce"
 GROUPS = (
     ("sweep kernel", ("pipecg_sweep_kernel", "pipebicgstab_sweep_kernel",
                       "pipecg_spmv_fused_kernel",

@@ -18,8 +18,9 @@ chip_smoke.py's shapes too (convection-diffusion and the 2-D Laplacian
 in float64, float32, float32 with bf16 storage, glen in float64) and
 ``pipebicgstab_halo`` on rank 1 of 4 (float64 and bf16), and where it
 has the depth-l ghost-chain sweep, ``ghost_chain_fused`` at chip_smoke.py's
-shapes (ex23 at l = 2 and 4, the 2-D Laplacian at l = 2, the 21-band glen
-operator at l = 4) and ``ghost_chain_halo`` on rank 1 of 4; where it has
+shapes (ex23 at l = 2 in float64, float32 and float32 with bf16 storage
+and at l = 4, the 2-D Laplacian at l = 2 and 4, the 21-band glen operator
+at l = 4) and ``ghost_chain_halo`` on rank 1 of 4; where it has
 the BSR sweep, ``pipecg_bsr_fused`` on ex23-bsr4 and lap2d-bsr4 (k = 1,
 float64, vectors bit for bit against the plain version first); where it
 has the flash kernel, ``flash_attention`` at the ``[serve]`` prefill's
@@ -168,24 +169,28 @@ def time_flash(gen):
 
 
 def time_chain(gen, tri, lap):
-    """CUDA-event medians of the ghost-chain sweeps (float64), each chain
-    held bit for bit against its plain version first."""
+    """CUDA-event medians of the ghost-chain sweeps (float64; ex23 at l = 2
+    also float32 and float32 with bf16 storage), each chain held bit for
+    bit against its plain version first."""
     import torch
     from repro_torch.core.krylov import dia_inf_norm, glen_law_band
     from repro_torch.kernels.pipecg_spmv_fused import (
         ghost_chain_fused, ghost_chain_fused_plain, ghost_chain_halo,
         ghost_chain_halo_plain)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     glen = glen_law_band(smoke.N_EX23, device=gen.device)
     rows = []
-    for A, label, l, ranks in ((tri, "tridiag", 2, 1), (tri, "tridiag", 4, 1),
-                               (lap, "lap2d", 2, 1), (glen, "glen", 4, 1),
-                               (tri, "tridiag", 2, smoke.RANKS)):
+    for A, label, l, ranks, sto in (
+            (tri, "tridiag", 2, 1, f64), (tri, "tridiag", 4, 1, f64),
+            (tri, "tridiag", 2, 1, f32), (tri, "tridiag", 2, 1, bf16),
+            (lap, "lap2d", 2, 1, f64), (lap, "lap2d", 4, 1, f64),
+            (glen, "glen", 4, 1, f64), (tri, "tridiag", 2, smoke.RANKS, f64)):
         p, r = (torch.randn(A.n, generator=gen, device=gen.device,
-                            dtype=torch.float64) for _ in range(2))
+                            dtype=f64).to(sto) for _ in range(2))
         theta = dia_inf_norm(A)
         if ranks == 1:
             fn, plain = ghost_chain_fused, ghost_chain_fused_plain
-            args = (A.offsets, A.bands, p, r, theta, l)
+            args = (A.offsets, A.bands.to(sto), p, r, theta, l)
         else:
             fn, plain = ghost_chain_halo, ghost_chain_halo_plain
             opnds, _ = smoke.chain_rank_operands(A, ranks, 1, p, r, l)
@@ -194,6 +199,7 @@ def time_chain(gen, tri, lap):
         torch.cuda.synchronize()
         smoke.chain_equal(f"{fn.__name__} {label}", got[0], want[0])
         row = dict(kernel=fn.__name__, shape=label, l=l, ranks=ranks,
+                   accum=str(got[1].dtype)[6:], storage=str(sto)[6:],
                    ms=smoke.time_ms(lambda: fn(*args)))
         smoke.say("sweep", **row)
         rows.append(row)
