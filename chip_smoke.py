@@ -8,16 +8,18 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
 
 1. device: the card's name and ``nvidia-smi`` name + power limit;
 2. build: compiles the kernel library (one nvcc per source, in parallel),
-   prints each row-window and ghost-chain sweep instantiation's
-   registers, shared memory and spills (``-Xptxas -v``), and counts the
-   tensor-core instructions (HMMA, HGMMA) in the SASS of the bf16 flash
-   kernel (``cuobjdump -sass``; none fails the run);
+   prints each row-window and ghost-chain sweep, ``fused_dots`` and
+   ``wkv_recurrent`` instantiation's registers, shared memory and spills
+   (``-Xptxas -v``; a spill in the last two fails the run), and counts
+   the tensor-core instructions (HMMA, HGMMA) in the SASS of the bf16
+   flash kernel (``cuobjdump -sass``; none fails the run);
 3. kernels: each CUDA kernel against its plain torch version at the main
    path's shapes (ex23's n = 2,097,152 tridiagonal, float64; the 5-band
    ``laplacian_2d(1448, 1448)``; k = 1 and 8; float32; float32 with bf16
    storage; the per-rank halo sweep at the 4-rank local size 524,288 with
    real neighbour strips and operator rows, and 4 such slices summed
-   against the one-device sweep; ``fused_dots`` at m = 3 and 30), with its
+   against the one-device sweep; ``fused_dots`` at m = 3, 2, 1 and 30,
+   a second launch bit for bit), with its
    CUDA-event time (median of 25), the plain version's, the library
    call's where one computes the same function (``torch.sparse`` CSR mv,
    ``torch.mv``), and its bound.  The four row-window sweep entries (#2,
@@ -50,7 +52,7 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    beside
    ``scaled_dot_product_attention``; ``wkv_recurrent`` (#13) at rwkv6-7b's
    (256, 2048, 64) with f32 and bf16 inputs, random decays and logw = -8
-   and -1e-4 (2e-5 of max |o|, finite);
+   and -1e-4 (2e-5 of max |o|, finite, a second launch bit for bit);
 4. main path: ``pipecg(engine="fused", maxiter=5000)`` on ex23 with the
    launch counts read around it, its history held against
    ``engine="naive"``, then Jacobi, ``pipecg_multi`` (k=8) against 8 single
@@ -201,10 +203,12 @@ LOGIT_TOL = 0.15
 ARGMAX_AGREE = 0.5
 
 
-# the row-window sweeps (#2, #3, #8, #9) and the ghost-chain sweep (#4,
-# #5), whose ptxas usage [build] prints
+# the row-window sweeps (#2, #3, #8, #9), the ghost-chain sweep (#4, #5),
+# fused_dots (#7) and wkv (#13), whose ptxas usage [build] prints; the
+# last two must not spill
 SWEEP_KERNELS = ("pipecg_sweep_kernel", "pipebicgstab_sweep_kernel",
-                 "ghost_chain_kernel")
+                 "ghost_chain_kernel", "fused_dots_kernel", "wkv_kernel")
+NO_SPILL_KERNELS = ("fused_dots_kernel", "wkv_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -359,6 +363,9 @@ def phase_build():
         say("build", ptxas="not measured (library built before this run)")
     for fn, use in build.ptxas_usage(log, SWEEP_KERNELS).items():
         say("build", ptxas=fn, **use)
+        if any(k in fn for k in NO_SPILL_KERNELS):
+            check(use.get("spill_stores", 0) == 0
+                  and use.get("spill_loads", 0) == 0, f"{fn} spills")
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         say("build", sass="not measured (no cuobjdump beside nvcc)")
@@ -666,11 +673,14 @@ def halo_slices_sum_to_sweep(gen, A):
 
 
 def dots_kernel(records, gen):
-    """#7: fused_dots against its plain version and torch.mv."""
+    """#7: fused_dots against its plain version and torch.mv, at the rank
+    init's m = 3, 2, 1 (n = 524,288) and the GMRES width m = 30 (n =
+    2,097,152); a second launch repeats the first bit for bit."""
     import torch
     from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
     dev, f64 = gen.device, torch.float64
-    for m, n in ((3, N_EX23 // RANKS), (30, N_EX23)):
+    for m, n in ((3, N_EX23 // RANKS), (2, N_EX23 // RANKS),
+                 (1, N_EX23 // RANKS), (30, N_EX23)):
         V = torch.randn((m, n), generator=gen, device=dev, dtype=f64)
         z = torch.randn(n, generator=gen, device=dev, dtype=f64)
         got = fused_dots(V, z)
@@ -682,15 +692,17 @@ def dots_kernel(records, gen):
         check(rel <= 1e-12, f"fused_dots m={m}: {rel}")
         check(float(((lib - want).abs() / mags).max()) <= 1e-12,
               "torch.mv yardstick disagrees")
+        repeats(f"fused_dots m={m}", lambda *a: (fused_dots(*a),), (V, z),
+                [got])
         err = max_err([got], [want])
         ms = time_ms(lambda: fused_dots(V, z))
         plain_ms = time_ms(lambda: fused_dots_plain(V, z))
         lib_ms = time_ms(lambda: torch.mv(V, z))
         b_ms, b_by = bound(nbytes(V, z, got), 2.0 * m * n, f64)
         say("kernel", name="fused_dots", m=m, n=n, dtype="float64",
-            max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-            bound_ms=f"{b_ms:.4f}")
+            max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}", repeat="bit-equal",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.4f}")
         if m == 3:
             records["fused_dots"] = dict(
                 name="fused_dots", route="cuda",
@@ -1309,6 +1321,9 @@ def lm_kernels(records, gen):
             want = wkv_recurrent_plain(r, k, v, logw, u)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"wkv {label} not finite")
+            repeats(f"wkv_recurrent {dt} logw={label}",
+                    lambda *a: (wkv_recurrent(*a),), (r, k, v, logw, u),
+                    [got])
             err = max_err([got], [want])
             scale = float(want.abs().max())
             check(err <= WKV_REL_TOL * scale,
@@ -1317,7 +1332,7 @@ def lm_kernels(records, gen):
                                                                  WKV_SHAPE)),
                         dtype=str(dt)[6:], logw=label,
                         max_abs_err=f"{err:.3e}",
-                        rel_to_max=f"{err / scale:.3e}")
+                        rel_to_max=f"{err / scale:.3e}", repeat="bit-equal")
             if label == "random":
                 flops = 5.0 * BH * T * D * D
                 b_ms, b_by = bound(nbytes(r, k, v, logw, u, got), flops, f32)

@@ -59,7 +59,7 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _I, _I,
                              _P, _I, _P, _P, _P],
     "rt_pipecg_fused": [_I, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P],
-    "rt_fused_dots": [_I, _P, _P, _L, _I, _P, _I, _P, _P],
+    "rt_fused_dots": [_I, _P, _P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "rt_pipebicgstab_fused": [_I, _I, _P, _I, _L,
                               _P, _I, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P,

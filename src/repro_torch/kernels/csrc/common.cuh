@@ -15,6 +15,8 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace rt {
 
 // dtype codes; kernels/build.py keeps the same table
@@ -340,6 +342,11 @@ __device__ __forceinline__ T band_row(const S *bands, int b, long long m,
                                         : T(0);
   else
     return (m >= 0 && m < n) ? up<T>(bands[b * n + m]) : T(0);
+}
+
+// the shared-memory address of p, for PTX that takes one
+__device__ __forceinline__ uint32_t smem_u32(const void *p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Opt a kernel into ``bytes`` of dynamic shared memory where that and its

@@ -216,10 +216,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return ((c >> 3) * ROWS + r) * 64 + (((c & 7) ^ (r & 7)) << 3);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void *p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void *src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),

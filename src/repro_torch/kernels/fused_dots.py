@@ -3,18 +3,52 @@
 ``fused_dots`` replaces the Pallas TPU kernel
 ``repro/kernels/fused_dots.py::fused_dots``: ``dots[j] = <V[j], z>`` for
 V (m, n) and z (n,), all m coefficients in one pass over V.  Its kernel
-(csrc/fused_dots.cu) is bound by bytes on the H100, (m + 1) n words: each
-CTA reads its tile of z once, writes (m, n_blocks) partials, and a
-fixed-order second pass finishes them (no float atomics).
+(csrc/fused_dots.cu) is bound by bytes on the H100, (m + 1) n words: at
+most :data:`MAX_BLOCKS` CTAs, each thread with its z in registers for
+every row of V, 16-byte loads where n and the pointers allow; each CTA
+writes a row of partials and the last CTA to arrive finishes them in a
+fixed order, in the same launch (integer tickets, no float atomics).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build as _b
+from repro_torch.kernels.pipecg_spmv_fused import tickets
 
-#: columns per CTA (kTile in csrc/fused_dots.cu); sizes the partials scratch
-TILE = 4 * _b.BLOCK
+#: rows of V a block reduction, and the width of a partial row: the
+#: first where m is at most it, else the last (ROWS in csrc/fused_dots.cu)
+ROWS = (4, 8)
+#: CTAs a launch aims at, two an SM on the H100's 132 (kDotsMaxBlocks)
+MAX_BLOCKS = 264
+#: bytes of a vector load (kDotsVecBytes)
+VEC_BYTES = 16
+#: vectors a thread may take, the fewest that keep the grid in MAX_BLOCKS
+ITEMS = (1, 2, 4, 8)
+
+
+def dots_plan(m: int, n: int, itemsize: int, aligned: bool = True
+              ) -> Tuple[int, int, int, int, int]:
+    """(width, items, rows, nblk, groups) of a launch on V (m, n).
+
+    ``width`` columns a load: 16 bytes' worth where ``aligned`` (V and z
+    start on 16 bytes) and it divides n, else 1.  ``items`` vectors a
+    thread: the fewest of :data:`ITEMS` that keep ``nblk`` within
+    :data:`MAX_BLOCKS` (the most where none does).  ``rows`` of V a block
+    reduction (:data:`ROWS`), in ``groups``: the partials scratch is
+    (groups, nblk, rows).
+    """
+    vec = VEC_BYTES // itemsize
+    width = vec if aligned and n % vec == 0 else 1
+    nv = n // width
+    for items in ITEMS:
+        nblk = -(-nv // (_b.BLOCK * items))
+        if nblk <= MAX_BLOCKS:
+            break
+    rows = ROWS[0] if m <= ROWS[0] else ROWS[-1]
+    return width, items, rows, nblk, -(-m // rows)
 
 
 def fused_dots_plain(V: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -44,13 +78,17 @@ def fused_dots(V: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
                          f"got {V.dtype} and {z.dtype}")
     _b.check_cuda(name, z.device, V=V, z=z)
     m, n = V.shape
-    nblk = -(-n // TILE)
-    partials = torch.empty((m, nblk), dtype=z.dtype, device=z.device)
+    width, items, rows, nblk, groups = dots_plan(
+        m, n, z.element_size(),
+        V.data_ptr() % VEC_BYTES == 0 and z.data_ptr() % VEC_BYTES == 0)
+    partials = torch.empty((groups, nblk, rows), dtype=z.dtype,
+                           device=z.device)
     out = torch.empty((m,), dtype=z.dtype, device=z.device)
     with torch.cuda.device(z.device):
         rc = _b.lib().rt_fused_dots(
-            _b.dtype_code(name, z), _b.ptr(V), _b.ptr(z), n, m,
-            _b.ptr(partials), nblk, _b.ptr(out), _b.stream_of(z.device))
+            _b.dtype_code(name, z), _b.ptr(V), _b.ptr(z), n, m, width, items,
+            rows, _b.ptr(partials), nblk, _b.ptr(tickets(z.device, 1)),
+            _b.ptr(out), _b.stream_of(z.device))
     _b.raise_on_error(name, rc)
     fused_dots.launches += 1
     return out

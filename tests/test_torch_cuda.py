@@ -173,6 +173,68 @@ def test_fused_dots_matches_plain_on_card(cuda, dt):
         assert bool(((got - want).abs() <= tol * mags + 1e-30).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 70001, 2_097_152])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_fused_dots_one_launch_repeats_bit_for_bit(cuda, dt, n):
+    """Every m through the one-launch finish (groups of 8 columns, ragged
+    n on single-word loads, 2M on 16-byte loads): within the bars of the
+    plain version, a second launch bit for bit, the ticket back at 0."""
+    from repro_torch.kernels.pipecg_spmv_fused import tickets
+    g = torch.Generator(device=cuda).manual_seed(n % 1000 + 7)
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    for m in (1, 3, 8, 9, 30, 41):
+        V = torch.randn(m, n, generator=g, device=cuda, dtype=dt)
+        z = torch.randn(n, generator=g, device=cuda, dtype=dt)
+        before = fused_dots.launches
+        got = fused_dots(V, z)
+        again = fused_dots(V, z)
+        want = fused_dots_plain(V, z)
+        torch.cuda.synchronize()
+        assert fused_dots.launches == before + 2
+        mags = (V * z).abs().sum(-1)
+        assert bool(((got - want).abs() <= tol * mags + 1e-30).all()), m
+        assert torch.equal(got, again), m
+        assert int(tickets(cuda, 1)[0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_fused_dots_takes_unaligned_rows(cuda, dt):
+    """V and z that do not start on 16 bytes take single-word loads."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    m, n = 5, 4096
+    Vb = torch.randn(m * n + 1, generator=g, device=cuda, dtype=dt)
+    zb = torch.randn(n + 1, generator=g, device=cuda, dtype=dt)
+    V, z = Vb[1:].view(m, n), zb[1:]
+    got = fused_dots(V, z)
+    want = fused_dots_plain(V, z)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    assert bool(((got - want).abs() <= tol * (V * z).abs().sum(-1)).all())
+    assert torch.equal(got, fused_dots(V, z))
+
+
+@pytest.mark.cuda
+def test_fused_dots_runs_one_kernel(cuda):
+    """One kernel a call: the finish runs in the launch, with no second
+    reduction kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(9)
+    V = torch.randn(3, 524_288, generator=g, device=cuda,
+                    dtype=torch.float64)
+    z = torch.randn(524_288, generator=g, device=cuda, dtype=torch.float64)
+    fused_dots(V, z)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_dots(V, z)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA" and "Memcpy" not in e.name
+             and "Memset" not in e.name]
+    assert len(names) == 1 and "fused_dots_kernel" in names[0], names
+
+
 def _gram_rel(got, want, C, csum):
     """Largest payload gap relative to the sum of its terms' magnitudes."""
     mags = C.abs() @ C.abs().T
@@ -690,6 +752,35 @@ def test_wkv_kernel_matches_plain_on_card(cuda, D, dt):
         assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, 33, 300])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_ragged_chunks_repeat_bit_for_bit(cuda, dt, D, T):
+    """Ragged last chunks (T around the 32- and 16-step stages), one head
+    and 257 heads, the three decay settings: within 2e-5 of max |o|,
+    finite, and a second launch bit for bit."""
+    from repro_torch.kernels.wkv import wkv_recurrent, wkv_recurrent_plain
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    for BH in (1, 257):
+        r, k, v = (torch.randn(BH, T, D, generator=g, device=cuda).to(dt)
+                   for _ in range(3))
+        u = (0.3 * torch.randn(BH, D, generator=g, device=cuda)).to(dt)
+        for logw in (-torch.exp(torch.randn(BH, T, D, generator=g,
+                                            device=cuda) - 2.0),
+                     torch.full((BH, T, D), -8.0, device=cuda),
+                     torch.full((BH, T, D), -1e-4, device=cuda)):
+            logw = logw.to(dt)
+            got = wkv_recurrent(r, k, v, logw, u)
+            again = wkv_recurrent(r, k, v, logw, u)
+            want = wkv_recurrent_plain(r, k, v, logw, u)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 2e-5 * scale, (BH,)
+            assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

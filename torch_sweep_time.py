@@ -25,8 +25,14 @@ the BSR sweep, ``pipecg_bsr_fused`` on ex23-bsr4 and lap2d-bsr4 (k = 1,
 float64, vectors bit for bit against the plain version first); where it
 has the flash kernel, ``flash_attention`` at the ``[serve]`` prefill's
 (64, 2048, 128) bf16 causal (finite, and within 2^-8 of the float32 plain
-version's rms first).  Prints the card's ``nvidia-smi`` name and power
-limit, one line per shape, and one JSON object as its last line.
+version's rms first); where it has them, ``wkv_recurrent`` at rwkv6-7b's
+(256, 2048, 64) with f32 and bf16 inputs (random decays; within 2e-5 of
+the plain version's max |o| first) and ``fused_dots`` (float64) at the
+sharded PIPECG init's m = 1, 2, 3 on n = 524,288 and the GMRES width m =
+30 on n = 2,097,152 (within 1e-12 of the plain version first), each
+beside ``torch.mv`` on the same V and z, after an empty kernel (the
+timing's floor).  Prints the card's ``nvidia-smi`` name and power limit,
+one line per shape, and one JSON object as its last line.
 """
 from __future__ import annotations
 
@@ -99,7 +105,7 @@ def main(argv) -> int:
         smoke.say("sweep", **row)
         out.append(row)
     kdir = src / "repro_torch" / "kernels"
-    bicg, chain, bsr, flash = [], [], [], []
+    bicg, chain, bsr, flash, wkv, dots = [], [], [], [], [], []
     if (kdir / "pipebicgstab_fused.py").exists():
         bicg = time_bicg(gen, lap)
     if (kdir / "csrc" / "ghost_chain.cu").exists():
@@ -108,11 +114,73 @@ def main(argv) -> int:
         bsr = time_bsr(gen, tri, lap)
     if (kdir / "flash_attn.py").exists():
         flash = time_flash(gen)
+    if (kdir / "wkv.py").exists():
+        wkv = time_wkv(gen)
+    if (kdir / "fused_dots.py").exists():
+        dots = time_dots(gen)
     print(json.dumps({"src": str(src), "library": so.name,
                       "sweep": out, "bicg": bicg, "chain": chain,
-                      "bsr": bsr, "flash": flash}),
+                      "bsr": bsr, "flash": flash, "wkv": wkv,
+                      "dots": dots}),
           flush=True)
     return 0
+
+
+def time_wkv(gen):
+    """CUDA-event medians of ``wkv_recurrent`` at chip_smoke.py's
+    WKV_SHAPE with f32 and bf16 inputs and random decays, each first held
+    within WKV_REL_TOL of the plain version's max |o|."""
+    import torch
+    from repro_torch.kernels.wkv import wkv_recurrent, wkv_recurrent_plain
+    BH, T, D = smoke.WKV_SHAPE
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        r, k, v = (torch.randn(smoke.WKV_SHAPE, generator=gen,
+                               device=gen.device).to(dt) for _ in range(3))
+        u = (0.3 * torch.randn((BH, D), generator=gen,
+                               device=gen.device)).to(dt)
+        logw = (-torch.exp(torch.randn(smoke.WKV_SHAPE, generator=gen,
+                                       device=gen.device) - 2.0)).to(dt)
+        got = wkv_recurrent(r, k, v, logw, u)
+        want = wkv_recurrent_plain(r, k, v, logw, u)
+        err = float((got - want).abs().max())
+        smoke.check(err <= smoke.WKV_REL_TOL * float(want.abs().max()),
+                    f"wkv_recurrent {dt} disagrees: {err}")
+        row = dict(kernel="wkv_recurrent",
+                   shape="x".join(map(str, smoke.WKV_SHAPE)),
+                   dtype=str(dt)[6:], ms=smoke.time_ms(
+                       lambda: wkv_recurrent(r, k, v, logw, u)))
+        smoke.say("sweep", **row)
+        rows.append(row)
+    return rows
+
+
+def time_dots(gen):
+    """CUDA-event medians of ``fused_dots`` (float64) at m = 1, 2, 3 on
+    the 4-rank local n and m = 30 on ex23's n, each beside ``torch.mv``
+    on the same V and z, after a 1e-12 check against the plain version,
+    and of an empty kernel (``torch.cuda._sleep(0)``): the timing's floor."""
+    import torch
+    from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
+    # the timing's own floor: an empty kernel under the same events
+    rows = [dict(kernel="empty", ms=smoke.time_ms(
+        lambda: torch.cuda._sleep(0)))]
+    smoke.say("sweep", **rows[0])
+    n_rank = smoke.N_EX23 // smoke.RANKS
+    for m, n in ((1, n_rank), (2, n_rank), (3, n_rank), (30, smoke.N_EX23)):
+        V = torch.randn((m, n), generator=gen, device=gen.device,
+                        dtype=torch.float64)
+        z = torch.randn(n, generator=gen, device=gen.device,
+                        dtype=torch.float64)
+        got, want = fused_dots(V, z), fused_dots_plain(V, z)
+        rel = float(((got - want).abs() / (V * z).abs().sum(-1)).max())
+        smoke.check(rel <= 1e-12, f"fused_dots m={m} disagrees: {rel}")
+        row = dict(kernel="fused_dots", m=m, n=n, dtype="float64",
+                   ms=smoke.time_ms(lambda: fused_dots(V, z)),
+                   mv_ms=smoke.time_ms(lambda: torch.mv(V, z)))
+        smoke.say("sweep", **row)
+        rows.append(row)
+    return rows
 
 
 def time_bsr(gen, tri, lap):
