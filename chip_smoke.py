@@ -18,7 +18,7 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    ``laplacian_2d(1448, 1448)``; k = 1 and 8; float32; float32 with bf16
    storage; the per-rank halo sweep at the 4-rank local size 524,288 with
    real neighbour strips and operator rows, and 4 such slices summed
-   against the one-device sweep; ``fused_dots`` at m = 3, 2, 1 and 30,
+   against the one-device sweep; ``fused_dots`` at m = 3, 2, 1, 30, 41 and 42,
    a second launch bit for bit), with its
    CUDA-event time (median of 25), the plain version's, the library
    call's where one computes the same function (``torch.sparse`` CSR mv,
@@ -31,7 +31,10 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    in float32 and with bf16 chains and bands; its per-rank form (#9) on
    rank 1 of 4 slices, and 4 slices against the one-device sweep.
    The 21-band ``glen_law_band`` at the same n runs through #1, #2 and #8
-   (ROADMAP.md H10).  The ghost-chain sweep (#4) at l = 2 and 4 on ex23,
+   (ROADMAP.md H10).  #1's extended-x entry ``spmv_dia_ext`` on rank 1 of
+   4's rows (n = 524,288) of ex23 (halo 1) and of glen (halo 10) with
+   random strips, bit for bit, beside a ``torch.sparse`` CSR mv.  The
+   ghost-chain sweep (#4) at l = 2 and 4 on ex23,
    l = 2 and 4 on ``laplacian_2d(1448, 1448)`` (the latter in the
    global-memory workspace), l = 4 on glen, in float32 and with bf16
    storage; its per-rank form (#5) on rank 1 of 4, and 4 slices against
@@ -69,6 +72,13 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    200 residuals against ``engine="naive"`` and within the Cools bound
    1e-6 of depth-1 PIPECG, x's true residual against the recurrence's;
    ``pgmres_l(restart=40, l=2)`` through the SpMV kernel against naive;
+   then ``[gmres]``: ``gmres`` and ``pgmres`` (restart 40) on ex23 through
+   the fused engine, each with the counts set to 0 just before it and
+   read just after it (40 ``fused_dots`` + 42 ``spmv_dia``; 42 + 44), ms
+   per Arnoldi step, their histories against ``engine="naive"`` (H6),
+   gmres vs pgmres x, ``gmres_restarted(cycles=2)`` with ``inner=pgmres``
+   against ``inner=gmres``, and the progressive Givens recurrence timed
+   alone;
    then ``[bsr]``: ``pipecg(engine="fused", maxiter=5000)`` on ex23-bsr4
    with the counts set to 0 just before it and read just after it (2
    ``spmv_bsr`` + 5000 ``pipecg_bsr_fused``, no DIA kernel), its first
@@ -85,7 +95,11 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    the one-device fused solve; 200-iteration pipecr, Jacobi,
    ``pipecg_multi`` (k=4), inline ``cg``/``pipecg`` and a 2-rank solve
    against theirs; the same solve under injected Exponential noise, whose
-   history must equal the quiet one bit for bit; p-BiCGStab on the same 4
+   history must equal the quiet one bit for bit; the inline route with
+   ``use_kernel=True`` (the extended-x SpMV on every rank) for ``gmres``
+   and ``pgmres`` (restart 40) and ``pipecg``, against one device, its
+   ``spmv_dia_ext`` launches counted and PGMRES's two all-reduces an
+   iteration checked; p-BiCGStab on the same 4
    ranks (500 forced iterates with Jacobi, 4 x 500 halo sweeps, the H5
    order, no blocking all-reduce; the tol solve's ``iters`` and the first
    20 residuals against one device; the inline path with one all-reduce
@@ -113,7 +127,11 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card,
    the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``) and the depth
    model (``depth_speedup_table``, ``depth_speedup_ceiling``,
-   ``crossover_depth``);
+   ``crossover_depth``); the folk theorem (Eq. 5 on a staggered trace),
+   Eq. 6/7 against ``simulate``'s per-step means at P = 8192,
+   ``predict_speedup`` on ``ex23_models`` with the port's H100
+   ``Hardware()`` at depth 1 and 2, the Table-1 fit rows from runs drawn
+   on the card, and ``makespan_trace_large`` at P = 8192, K = 5000, timed;
 8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises: the script exits non-zero and prints no result when a
@@ -176,6 +194,14 @@ COOLS_RTOL = 1e-6
 COOLS_FLOOR = 1e-8
 DEPTH_GAP_MAX = 1e-8
 PGMRES_RESTART = 40
+# GMRES / PGMRES (Algorithms 1 and 2) at the quickstart's restart length;
+# gmres vs pgmres x and restarted inner=pgmres vs inner=gmres are held to
+# the bar of tests/test_torch_gmres.py (the reference's
+# test_pgmres_matches_gmres: rtol 1e-5, atol 1e-7)
+GMRES_RESTART = 40
+GMRES_RTOL, GMRES_ATOL = 1e-5, 1e-7
+# the model: makespan_trace_large at Piz Daint scale (P = 8192, K = 5000)
+TRACE_TRIALS = 32
 # BSR and 2-D grids: the block size (the JAX package's default), the
 # 2-D Laplacian's lattice edge (n = 2,096,704), the rank solves' forced
 # iterates and the residuals held to one device
@@ -548,12 +574,65 @@ def phase_kernels():
     bicg_halo_kernel(records, gen, cdf)
     bicg_slices_sum_to_sweep(gen, cdf)
     glen = glen_law_band(N_EX23, device=dev)
+    dia_ext_kernel(records, gen, tri, glen)
     glen_sweeps(gen, glen)
     chain_kernel(records, gen, tri, lap, glen)
     chain_halo_kernel(records, gen, tri)
     bsr_kernels(records, gen, tri, lap)
     lm_kernels(records, gen)
     return records
+
+
+def dia_ext_kernel(records, gen, tri, glen):
+    """#1's extended-x entry (``spmv_dia_ext``) against its plain version
+    bit for bit on rank 1 of 4's rows of ex23 (halo 1) and of the 21-band
+    glen operator (halo 10), with random neighbour strips; timed beside a
+    ``torch.sparse`` CSR mv of the same (n, n + 2 halo) rows."""
+    import torch
+    from repro_torch.kernels.spmv_dia import spmv_dia_ext, spmv_dia_ext_plain
+    n = N_EX23 // RANKS
+    for A, label in ((tri, "tridiag"), (glen, "glen")):
+        halo = max(abs(o) for o in A.offsets)
+        bands = A.bands[:, n:2 * n].contiguous()
+        x_ext = torch.randn(n + 2 * halo, generator=gen, device=gen.device,
+                            dtype=torch.float64)
+        y = spmv_dia_ext(A.offsets, bands, x_ext, halo)
+        want = spmv_dia_ext_plain(A.offsets, bands, x_ext, halo)
+        torch.cuda.synchronize()
+        check(torch.equal(y, want), f"spmv_dia_ext {label} differs from the "
+              "plain version")
+        rows, cols, vals = [], [], []
+        i = torch.arange(n, device=gen.device)
+        for k, off in enumerate(A.offsets):
+            rows.append(i)
+            cols.append(i + halo + off)
+            vals.append(bands[k])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            csr = torch.sparse_coo_tensor(
+                torch.stack([torch.cat(rows), torch.cat(cols)]),
+                torch.cat(vals), (n, n + 2 * halo)).coalesce() \
+                .to_sparse_csr()
+        scale = float(want.abs().max())
+        check(max_err([torch.mv(csr, x_ext)], [want]) <= 1e-12 * scale,
+              "CSR yardstick disagrees")
+        ms = time_ms(lambda: spmv_dia_ext(A.offsets, bands, x_ext, halo))
+        plain_ms = time_ms(lambda: spmv_dia_ext_plain(A.offsets, bands,
+                                                      x_ext, halo))
+        lib_ms = time_ms(lambda: torch.mv(csr, x_ext))
+        b_ms, b_by = bound(nbytes(bands, x_ext, y),
+                           2.0 * len(A.offsets) * n, x_ext.dtype)
+        say("kernel", name="spmv_dia_ext", shape=label, n_local=n, halo=halo,
+            bands=len(A.offsets), dtype="float64", max_abs_err=0.0,
+            match="bit-equal", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", library_ms=f"{lib_ms:.4f}")
+        if label == "tridiag":
+            records["spmv_dia_ext"] = dict(
+                name="spmv_dia_ext", route="cuda",
+                source="src/repro_torch/kernels/csrc/spmv_dia.cu",
+                replaces="src/repro/kernels/spmv_dia.py:34",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def rank_operands(A, P, q, x, r, u, p, sto):
@@ -674,13 +753,15 @@ def halo_slices_sum_to_sweep(gen, A):
 
 def dots_kernel(records, gen):
     """#7: fused_dots against its plain version and torch.mv, at the rank
-    init's m = 3, 2, 1 (n = 524,288) and the GMRES width m = 30 (n =
-    2,097,152); a second launch repeats the first bit for bit."""
+    init's m = 3, 2, 1 (n = 524,288) and the GMRES widths m = 30, 41
+    (GMRES's m + 1 at restart 40) and 42 (PGMRES's m + 2) at n =
+    2,097,152; a second launch repeats the first bit for bit."""
     import torch
     from repro_torch.kernels.fused_dots import fused_dots, fused_dots_plain
     dev, f64 = gen.device, torch.float64
     for m, n in ((3, N_EX23 // RANKS), (2, N_EX23 // RANKS),
-                 (1, N_EX23 // RANKS), (30, N_EX23)):
+                 (1, N_EX23 // RANKS), (30, N_EX23),
+                 (GMRES_RESTART + 1, N_EX23), (GMRES_RESTART + 2, N_EX23)):
         V = torch.randn((m, n), generator=gen, device=dev, dtype=f64)
         z = torch.randn(n, generator=gen, device=dev, dtype=f64)
         got = fused_dots(V, z)
@@ -1644,6 +1725,126 @@ def phase_depth(records):
         max_rel_gap=f"{gap:.3e}", true_rel_res=f"{true_res:.6e}")
 
 
+def phase_gmres(records):
+    """GMRES and PGMRES (Algorithms 1 and 2) on ex23 at full width through
+    the fused engine, each with the launch counts set to 0 just before it
+    and read just after it.
+
+    One ``gmres`` cycle of restart m: one ``fused_dots`` an Arnoldi step
+    (m), one ``spmv_dia`` a step plus the initial residual and the final
+    one (m + 2), nothing else.  ``pgmres`` runs m + 2 iterations (two fill
+    the pipeline): m + 2 ``fused_dots`` and m + 4 ``spmv_dia``.  Then the
+    histories against ``engine="naive"`` (H6: above 1e-4 of the first
+    residual), gmres vs pgmres x, restarted PGMRES vs restarted GMRES, and
+    the progressive Givens recurrence alone, timed.
+    """
+    import torch
+    from repro_torch.core.krylov import (SolverOptions, gmres,
+                                         gmres_restarted, pgmres)
+    from repro_torch.core.krylov.gmres import givens_history
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    A, b = ex23(torch.Generator(device=dev).manual_seed(5))
+    m = GMRES_RESTART
+    fused = SolverOptions(engine="fused")
+    runs = {}
+    for name, solver, steps in (("gmres", gmres, m),
+                                ("pgmres", pgmres, m + 2)):
+        solver(A, b, restart=m, options=fused)     # warm up
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver(A, b, restart=m, options=fused)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(counts["fused_dots"] == steps,
+              f"{name}: fused_dots ran {counts['fused_dots']}, not {steps}")
+        check(counts["spmv_dia"] == steps + 2,
+              f"{name}: spmv_dia ran {counts['spmv_dia']}, not {steps + 2}")
+        check(sum(counts.values()) == 2 * steps + 2,
+              f"{name}: other kernels {counts}")
+        for k in ("fused_dots", "spmv_dia"):
+            records[k]["launches"] += counts[k]
+        hist = res.res_history
+        check(tuple(hist.shape) == (m,), f"{name} history {hist.shape}")
+        check(int(res.iters) == m, f"{name} iters {int(res.iters)}")
+        check(bool(torch.isfinite(hist).all())
+              and bool(torch.isfinite(res.x).all()), f"non-finite {name}")
+        naive = solver(A, b, restart=m, options=SolverOptions(engine="naive"))
+        gap = hist_close(naive.res_history, hist, floor_rel=1e-4)
+        x_gap = float((res.x - naive.x).abs().max() / naive.x.abs().max())
+        check(x_gap <= 1e-10, f"{name} fused vs naive x {x_gap}")
+        runs[name] = res
+        say("gmres", solve=f"{name} fused restart={m}", n=N_EX23,
+            seconds=f"{dt:.4f}", ms_per_step=f"{dt / steps * 1e3:.4f}",
+            launches=json.dumps({k: v for k, v in counts.items() if v},
+                                separators=(",", ":")),
+            launches_per_step=" ".join(f"{k}={v / steps:.3f}"
+                                       for k, v in counts.items() if v),
+            res_last=f"{float(hist[-1]):.6e}",
+            res_norm=f"{float(res.res_norm):.6e}",
+            naive_max_rel_gap=f"{gap:.3e}", naive_x_rel_gap=f"{x_gap:.3e}")
+    g, p = runs["gmres"], runs["pgmres"]
+    check(torch.allclose(p.x, g.x, rtol=GMRES_RTOL, atol=GMRES_ATOL),
+          "gmres vs pgmres x")
+    check(abs(float(g.res_norm) - float(p.res_norm)) < 1e-6,
+          "gmres vs pgmres residual")
+    cycles = {inner.__name__: gmres_restarted(A, b, restart=m, cycles=2,
+                                              inner=inner, engine="fused")
+              for inner in (gmres, pgmres)}
+    rg, rp = cycles["gmres"], cycles["pgmres"]
+    check(int(rg.iters) == int(rp.iters) == 2 * m, "restarted iters")
+    check(torch.allclose(rp.x, rg.x, rtol=GMRES_RTOL, atol=GMRES_ATOL),
+          "restarted pgmres vs restarted gmres x")
+    say("gmres", check="gmres vs pgmres",
+        x_max_abs_gap=f"{float((g.x - p.x).abs().max()):.3e}",
+        restarted_x_max_abs_gap=f"{float((rg.x - rp.x).abs().max()):.3e}",
+        restarted_res=f"{float(rg.res_norm):.6e}/{float(rp.res_norm):.6e}")
+    # the progressive Givens recurrence alone: after the Arnoldi loop, one
+    # copy of H to the host and m (m + 1) / 2 rotations there
+    H = torch.randn((m + 1, m), generator=torch.Generator(device=dev)
+                    .manual_seed(6), device=dev, dtype=torch.float64)
+    beta = torch.ones((), dtype=H.dtype, device=dev)
+    givens_history(H, beta)
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        hist = givens_history(H, beta)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    check(tuple(hist.shape) == (m,) and bool(torch.isfinite(hist).all()),
+          "givens_history")
+    busy_us, kernels = device_busy(lambda: givens_history(H, beta))
+    say("gmres", givens=f"{m} columns after the loop, on the host",
+        host_ms_per_cycle=f"{host_ms:.3f}",
+        device_busy_us_per_cycle=f"{busy_us:.1f}"
+        if busy_us else "not measured",
+        device_ops_per_cycle=kernels)
+
+
+def device_busy(fn) -> tuple:
+    """(device-busy µs, kernels and copies) of one call of ``fn``, from
+    ``torch.profiler``'s device events; (0, 0) where it shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, count = 0.0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += us
+            count += ev.count
+    return busy, count
+
+
 def phase_bsr(records):
     """PIPECG on BSR operators on one device: the 5000-iterate ex23-bsr4
     solve with the launch counts set to 0 just before it and read just
@@ -1803,6 +2004,13 @@ def phase_ranks(records):
         "cg inline": ("cg", b, dict(maxiter=it), None),
         "pipecg inline": ("pipecg", b, dict(maxiter=it), None),
         **bicg,
+        # the inline route with the extended-x SpMV kernel on every rank
+        "gmres inline kernel": ("gmres", b, dict(restart=GMRES_RESTART,
+                                                 use_kernel=True), None),
+        "pgmres inline kernel": ("pgmres", b, dict(restart=GMRES_RESTART,
+                                                   use_kernel=True), None),
+        "pipecg inline kernel": ("pipecg", b, dict(maxiter=it,
+                                                   use_kernel=True), None),
     }
     A_glen = glen_law_band(N_EX23, device="cpu")
     depth = {
@@ -1849,7 +2057,8 @@ def phase_ranks(records):
     for name, i in (("pipecg_spmv_halo", 0), ("fused_dots", 0),
                     ("pipebicgstab_halo", ib),
                     ("ghost_chain_halo", names.index("depth"))):
-        records[name]["launches"] = sum(o[i]["launches"][name] for o in out)
+        # added to what the one-device paths launched ([gmres]'s dots)
+        records[name]["launches"] += sum(o[i]["launches"][name] for o in out)
         check(records[name]["launches"] > 0,
               f"{name} never launched on the rank path")
     for i, name in enumerate(names):
@@ -1927,6 +2136,7 @@ def phase_ranks(records):
             ms_per_iter=f"{wall(per_rank, 0) / it * 1e3:.4f}",
             host_us_per_iter_rank0=seg)
 
+    gmres_ranks(out, names, records, Ad, bd)
     bicg_ranks(out, names, records, A_cd, b_cd)
     depth_ranks(out, names, records, b, A_glen, b_cd)
     geometry_ranks(out, names, A_bsr, b, A_lap, b_lap)
@@ -1950,6 +2160,54 @@ def phase_ranks(records):
         added_us_per_iter=f"{(noisy_s - quiet_s) / it * 1e6:.1f}",
         mean_wait_per_rank_us=f"{mean_wait * 1e6:.1f}",
         asymptotic_speedup_P4=f"{speedup:.4f}")
+
+
+def gmres_ranks(out, names, records, Ad, bd):
+    """The inline route with ``use_kernel=True`` (``spmv_dia_ext`` on every
+    rank) for gmres, pgmres and pipecg, against the one-device solves.
+
+    Per rank: one extended-x SpMV a GMRES step plus the initial and final
+    residuals (m + 2), PGMRES's m + 4; PGMRES's blocking all-reduces are
+    ||r0||, two an iteration (line 16's norm, line 18's batch) and the
+    final residual: 2 (m + 2) + 2.
+    """
+    import torch
+    from repro_torch.core.krylov import SolverOptions, gmres, pgmres, pipecg
+    m, it = GMRES_RESTART, CHECK_ITERS
+    one = {"gmres inline kernel": gmres(Ad, bd, restart=m),
+           "pgmres inline kernel": pgmres(Ad, bd, restart=m),
+           "pipecg inline kernel": pipecg(Ad, bd,
+                                          options=SolverOptions(maxiter=it))}
+    spmvs = {"gmres inline kernel": m + 2, "pgmres inline kernel": m + 4}
+    total = 0
+    for name, want in one.items():
+        i = names.index(name)
+        for rank, outcomes in enumerate(out):
+            o = outcomes[i]
+            ext = o["launches"]["spmv_dia_ext"]
+            check(ext > 0, f"rank {rank} {name}: no spmv_dia_ext launch")
+            check(name not in spmvs or ext == spmvs[name],
+                  f"rank {rank} {name}: {ext} extended SpMVs")
+            check(o["launches"]["spmv_dia"] == 0,
+                  f"rank {rank} {name}: the unpadded SpMV ran")
+            total += ext
+        got = out[0][i]
+        if name == "pgmres inline kernel":
+            check(all(o[i]["all_reduces"] == 2 * (m + 2) + 2 for o in out),
+                  f"pgmres all-reduces {[o[i]['all_reduces'] for o in out]}")
+        gap = hist_close(want.res_history,
+                         torch.from_numpy(got["res_history"]))
+        xs = torch.from_numpy(got["x"])
+        x_gap = float((xs - want.x.cpu()).abs().max()
+                      / want.x.cpu().abs().max())
+        check(x_gap <= 1e-8, f"{name}: gathered x off by {x_gap}")
+        steps = got["res_history"].shape[-1]
+        say("ranks", check=f"{name} 4 ranks vs one device", steps=steps,
+            max_rel_gap=f"{gap:.3e}", x_rel_gap=f"{x_gap:.3e}",
+            spmv_dia_ext_per_rank=got["launches"]["spmv_dia_ext"],
+            blocking_all_reduces_per_rank=got["all_reduces"],
+            ms_per_step=f"{wall(out, i) / steps * 1e3:.4f}")
+    records["spmv_dia_ext"]["launches"] = total
 
 
 def bicg_ranks(out, names, records, A_cd, b_cd):
@@ -2323,6 +2581,123 @@ def phase_model():
         ceiling=f"{ceiling:.4f}",
         crossover_0_9=crossover_depth(sp, ceiling, 0.9),
         block_max_l4=f"{block_expected_max(Exponential(1.0), 4, 4):.4f}")
+    model_eq67_and_folk(ms, K, P)
+    model_phases()
+    model_table1()
+    model_trace_large()
+
+
+def model_eq67_and_folk(ms, K, P):
+    """The folk theorem (Section 2) and Eq. 6/7 against the per-step
+    means of ``simulate``'s P = 8192 draws above."""
+    from repro_torch.core.perfmodel import (Exponential, eq6_iteration_time,
+                                            eq7_iteration_time, folk_bound,
+                                            overlap_speedup_bound,
+                                            staggered_delay_trace,
+                                            trace_makespans)
+    check(folk_bound(2) == 2.0, "folk bound")
+    W, T0, k = 4.0, 1.0, 12
+    T, Tp = trace_makespans(staggered_delay_trace(W, T0, k, 2))
+    check(abs(T / Tp - overlap_speedup_bound(k * T0 / (W - T0))) < 1e-14
+          and T / Tp <= folk_bound(2), f"Eq. 5 on the staggered trace {T/Tp}")
+    eq6 = eq6_iteration_time(Exponential(1.0), P, device=DEVICE)
+    eq7 = eq7_iteration_time(Exponential(1.0))
+    sync_step = float(ms.t_sync.mean()) / K
+    async_step = float(ms.t_async.mean()) / K
+    check(abs(sync_step / eq6 - 1.0) < 0.01, f"Eq. 6 {eq6} vs {sync_step}")
+    # Eq. 7 is the K -> inf mean; at finite K the max over P of the sums
+    # sits above it by O(sqrt(log P / K))
+    check(eq7 <= async_step <= eq7 * 1.5, f"Eq. 7 {eq7} vs {async_step}")
+    say("model", folk_bound=folk_bound(2), eq5_staggered=f"{T / Tp:.6f}",
+        eq6_per_step=f"{eq6:.6f}", simulated_sync_per_step=f"{sync_step:.6f}",
+        eq7_per_step=f"{eq7:.6f}",
+        simulated_async_per_step=f"{async_step:.6f}", P=P, K=K)
+
+
+def model_phases():
+    """``predict_speedup`` on ``ex23_models`` with the port's H100
+    ``Hardware()`` (measured hop latency), at depth 1 and 2, P = 4 and
+    Piz Daint's 8192, under Exponential waits of NOISE_SCALE seconds."""
+    from repro_torch.core.noise import (PIZ_DAINT_P, Hardware, ex23_models,
+                                        predict_speedup)
+    from repro_torch.core.noise.sampling import scale_distribution
+    from repro_torch.core.perfmodel import Exponential
+    hw = Hardware()
+    noise = scale_distribution(Exponential(1.0), NOISE_SCALE)
+    tiny = scale_distribution(Exponential(1.0), 1e-12)
+    say("model", hardware=" ".join(f"{k}={v:g}" for k, v in
+                                   vars(hw).items()))
+    for p in (RANKS, PIZ_DAINT_P):
+        m = ex23_models(p, hw)
+        for sync, pipe in (("cg", "pipecg"), ("bicgstab", "pipebicgstab")):
+            out = {depth: predict_speedup(m[sync], m[pipe], noise, K=5000,
+                                          depth=depth, device=DEVICE)
+                   for depth in (1, 2)}
+            for r in out.values():
+                check(r["speedup"] > 1.0 and r["speedup"] == r["speedup"],
+                      f"predict_speedup {sync}/{pipe} P={p}: {r}")
+            check(out[2]["speedup"] >= out[1]["speedup"],
+                  f"depth 2 below depth 1 at P={p}")
+            still = predict_speedup(m[sync], m[pipe], tiny, K=100,
+                                    device=DEVICE)
+            say("model", predict_speedup=f"{sync}/{pipe}", P=p,
+                noise=f"Exponential mean {NOISE_SCALE} s",
+                speedup_depth1=f"{out[1]['speedup']:.4f}",
+                speedup_depth2=f"{out[2]['speedup']:.4f}",
+                vanishing_noise=f"{still['speedup']:.4f}",
+                t_spmv_s=f"{out[1]['t_spmv']:.3e}",
+                t_pipe_compute_s=f"{out[1]['t_pipe_compute']:.3e}",
+                t_reduction_s=f"{out[1]['t_reduction']:.3e}",
+                latency_bound=out[1]["pipe_latency_bound"])
+        if p == PIZ_DAINT_P:
+            four = predict_speedup(m["bicgstab"], m["pipebicgstab"], tiny,
+                                   K=100, device=DEVICE)["speedup"]
+            check(abs(four / 4.0 - 1.0) < 0.01, f"four-sync regime {four}")
+
+
+def model_table1():
+    """The Table-1 fit rows: calibrated runs drawn on the card, the
+    Section 4.3 pipeline on each (summary, CvM and Lilliefors verdicts)."""
+    import math
+    from repro_torch.core.noise import TABLE1, generate_runs
+    from repro_torch.core.stats import fit_report
+    for alg in TABLE1:
+        runs = generate_runs(alg, seed=4, device=DEVICE)
+        check(runs.device.type == "cuda", "generate_runs left the card")
+        rep = fit_report(runs, name=alg)
+        check(all(math.isfinite(v) for v in rep.summary.values())
+              and rep.summary["n"] == TABLE1[alg]["n"], f"{alg} summary")
+        say("model", table1=rep.table_row(), verdicts=rep.verdict_row(),
+            paper_mean=TABLE1[alg]["mean"])
+
+
+def model_trace_large():
+    """``makespan_trace_large`` at Piz Daint scale (P = 8192, K = 5000),
+    both makespans from the same draws, timed on the card."""
+    import torch
+    from repro_torch.core.noise import (EX23_ITERS, PIZ_DAINT_P,
+                                        makespan_trace_large)
+    from repro_torch.core.perfmodel import harmonic
+    P, K, t0, scale = PIZ_DAINT_P, EX23_ITERS, 1.0, 1.0
+    kw = dict(t0=t0, noise_scale=scale, trials=TRACE_TRIALS, seed=0,
+              device=DEVICE)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    T = makespan_trace_large(P, K, sync=True, **kw)
+    Tp = makespan_trace_large(P, K, sync=False, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - start
+    check(T.device.type == "cuda" and tuple(T.shape) == (TRACE_TRIALS,),
+          "makespan_trace_large left the card")
+    step = float(T.mean()) / K
+    check(abs(step / (t0 + scale * harmonic(P)) - 1.0) < 0.01,
+          f"T per step {step} vs t0 + H_P")
+    check(bool((Tp <= T).all()), "T' above T on the same draws")
+    sp = float(T.mean()) / float(Tp.mean())
+    say("model", makespan_trace_large=f"P={P} K={K} trials={TRACE_TRIALS}",
+        draws=2 * TRACE_TRIALS * K * P, seconds=f"{dt:.3f}",
+        t_sync_per_step=f"{step:.4f}", speedup_of_means=f"{sp:.4f}",
+        H_P_plus_1=f"{harmonic(P) + 1:.4f}")
 
 
 def main() -> int:
@@ -2338,12 +2713,14 @@ def main() -> int:
     phase_main_path(records)
     phase_bicgstab(records)
     phase_depth(records)
+    phase_gmres(records)
     phase_bsr(records)
     phase_ranks(records)
     phase_wkv_entry(records)
     phase_serve(records)
     phase_model()
-    order = ("spmv_dia", "pipecg_spmv_fused", "pipecg_spmv_halo",
+    order = ("spmv_dia", "spmv_dia_ext", "pipecg_spmv_fused",
+             "pipecg_spmv_halo",
              "ghost_chain_fused", "ghost_chain_halo", "pipecg_fused",
              "fused_dots", "pipebicgstab_fused", "pipebicgstab_halo",
              "spmv_bsr", "pipecg_bsr_fused", "flash_attention",

@@ -5,11 +5,13 @@ reference at run time: ``dia_from_numpy(A.offsets, np.asarray(A.bands))``
 rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``,
 ``bsr_from_numpy(np.asarray(A.indices), np.asarray(A.blocks))`` a
 reference ``BsrMatrix``, and ``lm_params_from_numpy(cfg, tree)`` the LM of
-a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``).
+a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``),
+and ``model_from_fields(name, dataclasses.asdict(obj))`` the port's
+``Hardware``, ``SolverPhaseModel`` or ``RunModel`` of a reference one.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +48,37 @@ def bsr_from_numpy(indices: np.ndarray, blocks: np.ndarray,
 def policy_from_name(name: str) -> PrecisionPolicy:
     """The port's ``PrecisionPolicy`` for a reference preset name."""
     return PrecisionPolicy.from_name(name)
+
+
+def model_from_fields(name: str, fields: Mapping[str, Any]):
+    """The port's ``Hardware``, ``SolverPhaseModel`` or ``RunModel`` (by
+    ``name``) over a reference instance's fields, as plain numbers.
+
+    ``fields`` is ``dataclasses.asdict`` of the reference object, so a
+    phase model's ``hw`` arrives as a dict of its own.  Nothing keeps the
+    reference's defaults: every field is carried across.
+    """
+    from repro_torch.core.noise.simulator import Hardware, SolverPhaseModel
+    from repro_torch.core.noise.traces import RunModel
+
+    def hardware(f):
+        return Hardware(**{k: float(v) for k, v in f.items()})
+
+    if name == "Hardware":
+        return hardware(fields)
+    if name == "RunModel":
+        return RunModel(base=float(fields["base"]),
+                        scale=float(fields["scale"]))
+    if name == "SolverPhaseModel":
+        kw = dict(fields)
+        kw["hw"] = hardware(kw["hw"])
+        for key in ("storage_words", "wire_words"):
+            kw[key] = float(kw[key])
+        for key in ("grid", "grid_points"):
+            kw[key] = tuple(int(v) for v in kw[key])
+        return SolverPhaseModel(**kw)
+    raise ValueError(f"no port counterpart for {name!r}; expected "
+                     "Hardware, SolverPhaseModel or RunModel")
 
 
 def layers_in_order(cfg, tree) -> List[Any]:

@@ -1,6 +1,6 @@
-"""The paper's solvers: classical + pipelined CG/CR, BiCGStab and the
-depth-l pipelined CG/GMRES on DIA and BSR operators, on one device or on
-the ranks of a process group, a chain or a 2-D grid
+"""The paper's solvers: classical + pipelined CG/CR, GMRES/PGMRES,
+BiCGStab and the depth-l pipelined CG/GMRES on DIA and BSR operators, on
+one device or on the ranks of a process group, a chain or a 2-D grid
 (``distributed_solve``)."""
 from repro_torch.core.krylov.abft import DetectionReport  # noqa: F401
 from repro_torch.core.krylov.base import (  # noqa: F401
@@ -41,6 +41,10 @@ from repro_torch.core.krylov.engine import (  # noqa: F401
     get_engine,
     register_engine,
 )
+from repro_torch.core.krylov.gmres import (  # noqa: F401
+    gmres,
+    gmres_restarted,
+)
 from repro_torch.core.krylov.hostops import (  # noqa: F401
     dia_matvec_np,
     true_residual_norm,
@@ -63,6 +67,7 @@ from repro_torch.core.krylov.operators import (  # noqa: F401
     laplacian_2d,
     tridiagonal_laplacian,
 )
+from repro_torch.core.krylov.pgmres import pgmres  # noqa: F401
 from repro_torch.core.krylov.pipeline import (  # noqa: F401
     dia_inf_norm,
     pgmres_l,

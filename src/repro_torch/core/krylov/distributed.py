@@ -7,10 +7,11 @@ The paper's computational model, on P ranks of one group (a 1-D chain):
   global sync         = all-reduce for every inner product
 
 ``distributed_solve(..., engine=None)`` runs any solver that takes a
-``dot=`` (cg / cr / pipecg / pipecr) on this rank's rows with a halo
-matvec and an all-reduce dot: every reduction is waited for where it is
-issued.  ``engine="sharded_fused"`` runs PIPECG/PIPECR as one halo sweep
-kernel per rank per iteration (kernels/pipecg_spmv_fused.py::
+``dot=`` (cg / cr / pipecg / pipecr / gmres / pgmres) on this rank's rows
+with a halo matvec (plain torch, or the extended-x SpMV kernel with
+``use_kernel=True``) and an all-reduce dot: every reduction is waited for
+where it is issued.  ``engine="sharded_fused"`` runs PIPECG/PIPECR as one
+halo sweep kernel per rank per iteration (kernels/pipecg_spmv_fused.py::
 pipecg_spmv_halo) that emits a PARTIAL (k, 6) row, and the all-reduce that
 finishes it is split-phase (distributed/overlap.py): issued at the end of
 iteration i and waited for in iteration i+1 after that iteration's halo
@@ -87,18 +88,19 @@ def halo_exchange(x_local: torch.Tensor, halo: int, group=None):
 
 def dia_matvec_local(offsets: Sequence[int], bands_local, x_local,
                      group=None, use_kernel: bool = False) -> torch.Tensor:
-    """This rank's rows of ``A x`` with a halo exchange, in plain torch.
+    """This rank's rows of ``A x`` with a halo exchange.
 
     bands_local (n_bands, n_local); x_local (n_local,) or (k, n_local).
+    ``use_kernel`` applies the bands to the exchanged x_ext with the
+    extended-x SpMV kernel (kernels/spmv_dia.py::spmv_dia_ext), else in
+    plain torch.
     """
-    if use_kernel:
-        raise NotImplementedError(
-            "use_kernel=True needs an SpMV kernel that reads neighbour "
-            "strips; the ported spmv_dia reads zeros outside its rows "
-            "(ROADMAP.md queue 2, item 1)")
     halo = max(abs(int(o)) for o in offsets)
     left, right = halo_exchange(x_local, halo, group)
     x_ext = torch.cat([left, x_local, right], dim=-1)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.spmv_dia_ext_step(offsets, bands_local, x_ext, halo)
     n_local = x_local.shape[-1]
     y = torch.zeros_like(x_local)
     for k, off in enumerate(offsets):
@@ -1127,13 +1129,16 @@ def distributed_solve(solver: Callable, A, b: torch.Tensor,
                       group=None, *, use_kernel: bool = False, noise=None,
                       engine=None, options=None, recorder=None,
                       **solver_kw) -> SolveResult:
-    """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi / bicgstab /
-    pipebicgstab / pipecg_l) with the rows of ``A`` and ``b`` split over
-    the ranks of ``group``.
+    """Run ``solver`` (cg / cr / pipecg / pipecr / pipecg_multi / gmres /
+    pgmres / bicgstab / pipebicgstab / pipecg_l) with the rows of ``A`` and
+    ``b`` split over the ranks of ``group``.
 
     Every rank of the group calls it with the same global ``A`` and ``b``
     and gets the same result, ``x`` global.  ``engine=None`` keeps the
-    historical per-op iteration (any solver taking ``dot=``);
+    historical per-op iteration (any solver taking ``dot=``; gmres and
+    pgmres take ``restart=``, and pgmres finishes its line-18 batch with
+    one all-reduce); ``use_kernel`` applies each rank's bands there with
+    the extended-x SpMV kernel (:func:`dia_matvec_local`);
     ``"sharded_fused"`` (or a ShardedFusedEngine) runs pipecg /
     pipecg_multi / pipecr / pipebicgstab as one halo sweep per rank per
     iteration with a split-phase all-reduce (:func:`sharded_pipecg_solve`,
@@ -1240,6 +1245,10 @@ def distributed_solve(solver: Callable, A, b: torch.Tensor,
         # path too: finish the locally computed (6, 6) Gram with a single
         # all-reduce instead of 21 per-entry dots
         solver_kw["gram_reduce"] = lambda G: comm.all_reduce(G, group)
+    if getattr(solver, "__name__", "") == "pgmres":
+        # line 18's (m + 2,) batch is one all-reduce, as the reference's
+        # vmap of its psum dot lowers to one psum
+        solver_kw["dots_reduce"] = lambda v: comm.all_reduce(v, group)
     res = solver(mv, b_local, dot=make_allreduce_dot(group), options=opts,
                  **solver_kw)
     return _gather_x(res, group)

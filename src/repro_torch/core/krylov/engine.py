@@ -184,6 +184,9 @@ class NaiveEngine(Engine):
     def spmv(self, A, x):
         return A.matvec(x) if hasattr(A, "matvec") else A(x)
 
+    def dots(self, V, z):
+        return V @ z
+
     def pipecg_init(self, A, b, x0, M, ip):
         return self._init10(A, b, x0, M, ip)
 

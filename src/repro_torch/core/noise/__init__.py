@@ -1,5 +1,6 @@
-"""OS-noise modelling: recorded-trace distributions, host sampling, and
-wall-clock noise injection into real solver runs."""
+"""OS-noise modelling: the Table-1 calibrated run generator, recorded-trace
+distributions, host sampling, wall-clock noise injection into real solver
+runs, and the per-iteration phase model on the card's figures."""
 from repro_torch.core.noise.injection import (  # noqa: F401
     NoiseHook,
     make_noise_hook,
@@ -8,4 +9,22 @@ from repro_torch.core.noise.sampling import (  # noqa: F401
     sample_np,
     scale_distribution,
 )
-from repro_torch.core.noise.traces import EmpiricalDistribution  # noqa: F401
+from repro_torch.core.noise.simulator import (  # noqa: F401
+    Hardware,
+    SolverPhaseModel,
+    apply_precision,
+    ex23_models,
+    predict_speedup,
+)
+from repro_torch.core.noise.traces import (  # noqa: F401
+    EX23_ITERS,
+    EX23_N,
+    PIZ_DAINT_P,
+    TABLE1,
+    EmpiricalDistribution,
+    RunModel,
+    calibrated_model,
+    generate_runs,
+    makespan_trace_large,
+    trace_distribution,
+)

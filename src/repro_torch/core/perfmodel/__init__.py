@@ -8,7 +8,17 @@ Usage::
     >>> simulate(Exponential(1.0), P=8, K=1000).speedup_of_means  # on the card
     >>> s_sync_speedup(Exponential(1.0), P=4, s=4, red_latency=8.0)  # > 2
     >>> modeled_depth_speedup(Exponential(1.0), P=4, l=4, red_latency=2.0)
+    >>> eq6_iteration_time(Exponential(1.0), P=4, red_latency=0.5)  # Eq. 6
+    >>> folk_bound(2)     # the deterministic overlap-only ceiling (Sec. 2)
 """
+from repro_torch.core.perfmodel.comm import (  # noqa: F401
+    best_grid,
+    halo_elems,
+    halo_messages,
+    halo_wire_time,
+    local_extents,
+    surface_to_volume,
+)
 from repro_torch.core.perfmodel.depth import (  # noqa: F401
     block_expected_max,
     crossover_depth,
@@ -33,11 +43,22 @@ from repro_torch.core.perfmodel.expected_max import (  # noqa: F401
     expected_max_quad,
     harmonic,
 )
+from repro_torch.core.perfmodel.folk_theorem import (  # noqa: F401
+    deterministic_makespans,
+    folk_bound,
+    overlap_speedup_bound,
+    staggered_delay_trace,
+    trace_makespans,
+)
 from repro_torch.core.perfmodel.makespan import (  # noqa: F401
     MakespanSamples,
     empirical_speedup_curve,
     simulate,
     single_delay_makespans,
+)
+from repro_torch.core.perfmodel.queueing import (  # noqa: F401
+    eq6_iteration_time,
+    eq7_iteration_time,
 )
 from repro_torch.core.perfmodel.speedup import (  # noqa: F401
     asymptotic_speedup,

@@ -51,6 +51,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "rt_spmv_dia": [_I, _I, _P, _I, _L, _I, _P, _P, _P, _P],
+    "rt_spmv_dia_ext": [_I, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P],
     "rt_pipecg_spmv_fused": [_I, _I, _P, _I, _L, _I,
                              _P, _P, _I, _P,
                              _P, _P, _P, _P,

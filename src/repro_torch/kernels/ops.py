@@ -22,12 +22,13 @@ from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
                                                    pipecg_spmv_fused,
                                                    pipecg_spmv_halo)
 from repro_torch.kernels.spmv_bsr import pipecg_bsr_fused, spmv_bsr
-from repro_torch.kernels.spmv_dia import spmv_dia
+from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_ext
 from repro_torch.kernels.wkv import wkv_recurrent as _wkv_recurrent
 
 #: every kernel wrapper of the package, by kernel name
 KERNELS = {
     "spmv_dia": spmv_dia,
+    "spmv_dia_ext": spmv_dia_ext,
     "pipecg_spmv_fused": pipecg_spmv_fused,
     "pipecg_spmv_halo": pipecg_spmv_halo,
     "pipecg_fused": pipecg_fused,
@@ -66,6 +67,14 @@ def _batch(x: torch.Tensor, vecs, alpha, beta):
 def spmv_dia_step(offsets: Sequence[int], bands, x) -> torch.Tensor:
     """Banded SpMV for x (n,) or (k, n) (kernel-backed on CUDA)."""
     return spmv_dia(tuple(offsets), bands, x.contiguous())
+
+
+def spmv_dia_ext_step(offsets: Sequence[int], bands, x_ext, halo: int
+                      ) -> torch.Tensor:
+    """Banded SpMV of a rank's rows on its halo-extended x_ext (n + 2h,)
+    or (k, n + 2h) (kernel-backed on CUDA)."""
+    return spmv_dia_ext(tuple(offsets), bands.contiguous(),
+                        x_ext.contiguous(), int(halo))
 
 
 def spmv_bsr_step(indices, blocks, x) -> torch.Tensor:

@@ -12,7 +12,11 @@ and 1e-5 (float32 accumulation) of the sum of their terms' magnitudes, as
 ``fused_dots``'s coefficients to 1e-12 and 1e-5.  The ghost-chain sweep's
 chains bit for bit (bf16 ones too: the links run at float32 in both), its
 Gram as the partials.  The 21-band glen operator (H10) runs through every
-sweep.  The row-window sweeps (all four PIPECG and p-BiCGStab entries) are
+sweep.  ``spmv_dia_ext`` (the extended-x entry) is held bit for bit from
+1 to 21 bands, with a halo wider than the bands reach and k = 3 columns,
+and GMRES / PGMRES on the fused engine launch exactly one ``fused_dots``
+an Arnoldi step (``fused_dots`` at their widths m = 41 and 42, rows off
+16 bytes).  The row-window sweeps (all four PIPECG and p-BiCGStab entries) are
 also held bit for bit from one row through a tile's edges to 1026 tiles,
 with bands far beyond the shared window, at unaligned rows in bf16 and
 fp8, with rows past ``n_valid`` masked; two launches must agree bit for
@@ -43,7 +47,8 @@ from repro_torch.kernels.pipecg_spmv_fused import (ghost_chain_fused,
                                                    pipecg_spmv_fused_plain,
                                                    pipecg_spmv_halo,
                                                    pipecg_spmv_halo_plain)
-from repro_torch.kernels.spmv_dia import spmv_dia, spmv_dia_plain
+from repro_torch.kernels.spmv_dia import (spmv_dia, spmv_dia_ext,
+                                          spmv_dia_ext_plain, spmv_dia_plain)
 
 
 @pytest.fixture
@@ -114,6 +119,117 @@ def test_fused_solve_on_card_matches_naive(cuda):
     naive = pipecg(A, b, options=SolverOptions(engine="naive", maxiter=60))
     torch.testing.assert_close(fused.res_history, naive.res_history,
                                rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc,sto", [
+    (torch.float64, torch.float64), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("offsets,halo,k,n", [
+    ((-1, 0, 1), 1, 1, 524_288), ((-1, 0, 1), 3, 1, 1023),
+    ((0,), 0, 2, 5000), ((-2, -1, 0, 1, 2), 2, 3, 70_001),
+    (tuple(range(-10, 11)), 10, 1, 524_288)])
+def test_spmv_dia_ext_matches_plain_on_card(cuda, acc, sto, offsets, halo,
+                                            k, n):
+    g = torch.Generator(device=cuda).manual_seed(n % 997 + len(offsets))
+    bands = torch.randn(len(offsets), n, generator=g, device=cuda,
+                        dtype=torch.float64).to(sto)
+    x_ext = torch.randn(k, n + 2 * halo, generator=g, device=cuda,
+                        dtype=torch.float64).to(acc)
+    x_ext = x_ext[0] if k == 1 else x_ext
+    before = spmv_dia_ext.launches
+    got = spmv_dia_ext(offsets, bands, x_ext, halo)
+    want = spmv_dia_ext_plain(offsets, bands, x_ext, halo)
+    torch.cuda.synchronize()
+    assert spmv_dia_ext.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_spmv_dia_ext_rejects_what_it_does_not_take(cuda):
+    bands = torch.ones(3, 64, device=cuda, dtype=torch.float64)
+    x = torch.ones(66, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        spmv_dia_ext((-1, 0, 1), bands, x.half(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_dia_ext((-1, 0, 1), bands,
+                     torch.ones(2, 66, device=cuda, dtype=torch.float64).T
+                     .contiguous().T, 1)
+    with pytest.raises(ValueError, match="does not cover"):
+        spmv_dia_ext((-2, 0, 2), bands, x, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [41, 42])
+def test_fused_dots_at_gmres_widths_off_16_bytes(cuda, dt, m):
+    """GMRES's (m + 1) and PGMRES's (m + 2) rows at restart 40, V and z
+    starting one word past 16 bytes and n odd: single-word loads."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    n = 100_003
+    Vb = torch.randn(m * n + 1, generator=g, device=cuda, dtype=dt)
+    zb = torch.randn(n + 1, generator=g, device=cuda, dtype=dt)
+    V, z = Vb[1:].view(m, n), zb[1:]
+    V[m // 2:] = 0.0      # the masked rows of an early Arnoldi step
+    got = fused_dots(V, z)
+    want = fused_dots_plain(V, z)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    mags = (V * z).abs().sum(-1)
+    assert bool(((got - want).abs() <= tol * mags + 1e-30).all())
+    assert bool((got[m // 2:] == 0).all())
+    assert torch.equal(got, fused_dots(V, z))
+
+
+@pytest.mark.cuda
+def test_gmres_family_on_card_launches_one_dots_a_step(cuda):
+    from repro_torch.core.krylov import (SolverOptions, gmres, pgmres,
+                                         tridiagonal_laplacian)
+    from repro_torch.kernels import ops
+    A = tridiagonal_laplacian(4096)
+    b = torch.randn(4096, generator=torch.Generator(device=cuda)
+                    .manual_seed(2), device=cuda, dtype=torch.float64)
+    m = 40
+    for solver, steps in ((gmres, m), (pgmres, m + 2)):
+        ops.reset_launch_counts()
+        fused = solver(A, b, restart=m,
+                       options=SolverOptions(engine="fused"))
+        counts = ops.launch_counts()
+        assert counts["fused_dots"] == steps
+        assert counts["spmv_dia"] == steps + 2
+        assert sum(counts.values()) == 2 * steps + 2
+        naive = solver(A, b, restart=m,
+                       options=SolverOptions(engine="naive"))
+        keep = naive.res_history > 1e-4 * naive.res_history[0]
+        torch.testing.assert_close(fused.res_history[keep],
+                                   naive.res_history[keep], rtol=1e-10,
+                                   atol=0)
+        scale = float(naive.x.abs().max())
+        assert float((fused.x - naive.x).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+def test_inline_use_kernel_runs_the_extended_entry_on_card(cuda, tmp_path):
+    """A one-rank gloo group on the card: the inline route's SpMVs go
+    through ``spmv_dia_ext`` and give the plain route's numbers."""
+    import torch.distributed as dist
+    from repro_torch.core.krylov import (distributed_solve, pgmres,
+                                         tridiagonal_laplacian)
+    from repro_torch.kernels import ops
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        A = tridiagonal_laplacian(4096)
+        b = torch.randn(4096, generator=torch.Generator(device=cuda)
+                        .manual_seed(3), device=cuda, dtype=torch.float64)
+        ops.reset_launch_counts()
+        got = distributed_solve(pgmres, A, b, restart=20, use_kernel=True)
+        assert ops.launch_counts()["spmv_dia_ext"] == 20 + 2 + 2
+        want = distributed_solve(pgmres, A, b, restart=20)
+        assert torch.equal(got.res_history, want.res_history)
+        assert torch.equal(got.x, want.x)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

@@ -2,10 +2,11 @@
 
 A fresh interpreter imports every ``repro_torch`` module and must find
 neither ``jax`` nor ``repro`` in ``sys.modules``; an AST scan of the
-package and of the port's scripts at the root (``chip_smoke.py``,
+package, of the port's scripts at the root (``chip_smoke.py``,
 ``torch_pipecg_breakdown.py``, ``torch_sweep_time.py``,
-``torch_serve_breakdown.py``) finds no import
-of either.
+``torch_serve_breakdown.py``, ``torch_allreduce_latency.py``) and of its
+examples (``examples/quickstart_torch.py``,
+``examples/stochastic_analysis_torch.py``) finds no import of either.
 """
 import ast
 import json
@@ -19,10 +20,12 @@ import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "torch_pipecg_breakdown.py",
-                                       ROOT / "torch_sweep_time.py",
-                                       ROOT / "torch_serve_breakdown.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "torch_pipecg_breakdown.py",
+    ROOT / "torch_sweep_time.py", ROOT / "torch_serve_breakdown.py",
+    ROOT / "torch_allreduce_latency.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "stochastic_analysis_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -65,6 +68,18 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.serve.metrics",
             "repro_torch.kernels.flash_attn",
             "repro_torch.kernels.wkv",
+            "repro_torch.core.krylov.gmres",
+            "repro_torch.core.krylov.pgmres",
+            "repro_torch.core.perfmodel.folk_theorem",
+            "repro_torch.core.perfmodel.queueing",
+            "repro_torch.core.perfmodel.comm",
+            "repro_torch.core.noise.simulator",
+            "repro_torch.core.stats",
+            "repro_torch.core.stats.ecdf",
+            "repro_torch.core.stats.mle",
+            "repro_torch.core.stats.cramer_von_mises",
+            "repro_torch.core.stats.lilliefors",
+            "repro_torch.core.stats.report",
             "repro_torch.convert"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
@@ -78,7 +93,7 @@ def test_every_module_imports_without_jax_or_reference():
 
 
 def test_no_source_imports_jax_or_reference():
-    assert (ROOT / "chip_smoke.py").exists()
+    assert all(path.exists() for path in SOURCES)
     bad = []
     for path in SOURCES:
         tree = ast.parse(path.read_text(), filename=str(path))
