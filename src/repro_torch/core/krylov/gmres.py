@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.krylov.base import SolveResult, as_matvec, local_dot
@@ -45,30 +46,37 @@ def givens_history(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     ``res_history[i]`` = |g_{i+1}| after rotating Hessenberg column i
     (of ``H``, (m+1, m)) by rotations 0..i-1 and forming rotation i from
     the result (c = 1, s = 0 where both entries are 0), with g = beta e1:
-    the reference's recurrence, rotation by rotation in its order, in
-    float64 on the host.  Nothing in the Arnoldi loop reads it, so it runs
-    once after the loop: one copy of H off the device instead of m
-    dependent rounds of 2 x 2 ops a step.  Returns (m,) on H's device.
+    the reference's recurrence, rotation by rotation in its order, on the
+    host, each operation rounded to H's dtype (float32 for a narrower
+    one).  Nothing in the Arnoldi loop reads it, so it runs once after
+    the loop: one copy of H off the device instead of m dependent rounds
+    of 2 x 2 ops a step.  Returns (m,) on H's device.
     """
     m = H.shape[1]
-    flat = torch.cat([H.reshape(-1), beta.reshape(1)]).cpu().tolist()
-    cs, sn = [0.0] * m, [0.0] * m
-    g = [0.0] * (m + 1)
+    flat = torch.cat([H.reshape(-1), beta.reshape(1)]).cpu()
+    if flat.dtype == torch.float64:
+        flat, sqrt = flat.tolist(), math.sqrt      # Python floats: f64
+    else:
+        flat, sqrt = list(flat.float().numpy()), np.sqrt   # f32 scalars
+    one, zero = type(flat[0])(1.0), type(flat[0])(0.0)
+    cs, sn = [zero] * m, [zero] * m
+    g = [zero] * (m + 1)
     g[0] = flat[-1]
-    hist = [0.0] * m
+    hist = [zero] * m
     for i in range(m):
         col = [flat[j * m + i] for j in range(m + 1)]
         for j in range(i):
             t = cs[j] * col[j] + sn[j] * col[j + 1]
             col[j + 1] = -sn[j] * col[j] + cs[j] * col[j + 1]
             col[j] = t
-        denom = math.sqrt(col[i] * col[i] + col[i + 1] * col[i + 1])
-        cs[i] = col[i] / denom if denom > 0 else 1.0
-        sn[i] = col[i + 1] / denom if denom > 0 else 0.0
+        denom = sqrt(col[i] * col[i] + col[i + 1] * col[i + 1])
+        cs[i] = col[i] / denom if denom > 0 else one
+        sn[i] = col[i + 1] / denom if denom > 0 else zero
         hist[i] = abs(-sn[i] * g[i])
         g[i + 1] = -sn[i] * g[i]
         g[i] = cs[i] * g[i]
-    return torch.tensor(hist, dtype=H.dtype, device=H.device)
+    return torch.tensor(np.array(hist, dtype=type(one)), dtype=H.dtype,
+                        device=H.device)
 
 
 def _cycle_operators(A, M, dot, engine):

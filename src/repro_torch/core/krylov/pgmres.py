@@ -34,13 +34,14 @@ def pgmres(A, b, x0=None, *, restart: int = 30, tol=UNSET, M=UNSET,
     ``engine`` routes the line-18 batch through the engine's one-pass
     multi-dot (kernels/fused_dots.py on the card) and the SpMV through the
     engine; None keeps the inline path that ``distributed_solve`` runs.
-    ``dots_reduce`` (inline path only) finishes a locally computed (m + 2,)
-    line-18 batch with one collective, as the reference's ``vmap`` of its
-    dot lowers to one psum; without it a custom ``dot`` is applied row by
-    row.  ``depth >= 2`` routes to the ghost-basis variant
-    (core/krylov/pipeline.py::pgmres_l).  ``options=SolverOptions(...)``
-    spells ``tol`` / ``M`` / ``engine`` / ``depth``; the cycle length is
-    ``restart``, so a non-default ``options.maxiter`` raises.
+    ``dots_reduce`` (inline path only) finishes the locally computed
+    (m + 2,) line-18 batch with one collective, as the reference's
+    ``vmap`` of its dot lowers to one psum; it defaults to the identity,
+    so a custom ``dot`` must come with it.  ``depth >= 2`` routes to the
+    ghost-basis variant (core/krylov/pipeline.py::pgmres_l).
+    ``options=SolverOptions(...)`` spells ``tol`` / ``M`` / ``engine`` /
+    ``depth``; the cycle length is ``restart``, so a non-default
+    ``options.maxiter`` raises.
     """
     opts = _one_cycle_options(options, "pgmres", ("engine", "depth"),
                               tol=tol, M=M, engine=engine, depth=depth)
@@ -55,16 +56,17 @@ def pgmres(A, b, x0=None, *, restart: int = 30, tol=UNSET, M=UNSET,
     if eng is not None and dots_reduce is not None:
         raise ValueError("dots_reduce= finishes the inline path's batch; an "
                          "engine computes local reductions")
+    if eng is None and dots_reduce is None and dot is not local_dot:
+        raise ValueError(
+            "a custom dot needs dots_reduce= to finish line 18's batch with "
+            "one reduction (distributed_solve passes both)")
+    reduce = dots_reduce if dots_reduce is not None else (lambda v: v)
 
     def batch(V, z):
         """Line 18's (m + 2,) batch <V[j], z> as ONE reduction."""
         if eng is not None:
             return eng.dots(V, z)
-        if dots_reduce is not None:
-            return dots_reduce(torch.sum(V * z, dim=-1))
-        if dot is local_dot:
-            return torch.sum(V * z, dim=-1)
-        return torch.stack([dot(v, z) for v in V])
+        return reduce(torch.sum(V * z, dim=-1))
 
     x = torch.zeros_like(b) if x0 is None else x0
     m = restart

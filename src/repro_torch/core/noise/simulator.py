@@ -45,7 +45,10 @@ class Hardware:
     link_bw: float = 450e9            # B/s
     # measured on 4 H100 80GB HBM3 of one host, 700.00 W each: NCCL
     # all-reduce of one float64, host-blocking median 72.0775 us over
-    # 2 log2(4) = 4 hops (torch_allreduce_latency.py; PERF.md)
+    # 2 log2(4) = 4 hops (torch_allreduce_latency.py; PERF.md). Mostly
+    # fixed launch and synchronize cost (58.3 us back-to-back, 14.575 a
+    # hop), which t_reduction scales by 2 log2 P: large-P speedups are
+    # extrapolated from this one host
     hop_latency: float = 1.8019375e-5  # s per collective hop
     # data sheet, float64 outside the tensor cores
     f64_flops: float = 34e12          # FLOP/s

@@ -52,14 +52,12 @@ class FitReport:
                 f"lognormal={fmt(v['lognormal'])}")
 
 
-def fit_report(samples, name: str = "", bootstrap_uniform: int = 500,
-               seed: int = 0) -> FitReport:
+def fit_report(samples, name: str = "") -> FitReport:
     """Run the Section 4.3 identification pipeline on one sample set.
 
     Uses the paper's tabulated critical values with plug-in estimation for
-    every family (``bootstrap_uniform`` / ``seed`` are accepted for
-    interface parity with the JAX package; the tabulated uniform test is
-    the default, to match the paper's decisions).
+    every family, to match the paper's decisions; a bootstrap critical
+    value is :func:`cramer_von_mises` with ``bootstrap=`` and ``seed=``.
     """
     x = as_samples(samples)
     return FitReport(

@@ -149,6 +149,26 @@ def test_matches_the_reference_path(solver, case, engine):
                                                 rel=1e-9)
 
 
+@pytest.mark.parametrize("solver", list(SOLVERS))
+@pytest.mark.parametrize("engine", [None, "naive"])
+def test_float32_follows_the_reference_float32_recurrence(solver, engine):
+    """float32 operands: the Arnoldi loop and the Givens estimates stay in
+    float32 as the reference's do; the two packages differ only by the
+    summation order of their dots (rtol 1e-4 over 20 steps)."""
+    A = OPS["cd1000"]
+    bands = np.asarray(A.bands).astype(np.float32)
+    b = _rhs(A.n).astype(np.float32)
+    ours, theirs = SOLVERS[solver]
+    want = theirs(jk.DiaMatrix(offsets=A.offsets, bands=jnp.asarray(bands)),
+                  jnp.asarray(b), restart=20, engine=engine)
+    got = ours(convert.dia_from_numpy(A.offsets, bands, device="cpu"),
+               torch.from_numpy(b), restart=20, engine=engine)
+    assert np.asarray(want.res_history).dtype == np.float32
+    assert got.res_history.dtype == got.x.dtype == torch.float32
+    _hist_close(want.res_history, got.res_history.numpy(), rtol=1e-4)
+    _x_close(got.x.numpy(), want.x, rtol=1e-4)
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 @pytest.mark.parametrize("solver", list(SOLVERS))
 def test_fused_engine_matches_the_reference_naive_path(solver, case):
@@ -226,6 +246,9 @@ def test_one_cycle_refuses_maxiter_and_custom_dots_on_an_engine():
         gmres(At, b, options=SolverOptions(depth=2))
     with pytest.raises(ValueError, match="dots_reduce"):
         pgmres(At, b, engine="naive", dots_reduce=lambda v: v)
+    # inline: a custom dot without dots_reduce would split line 18's batch
+    with pytest.raises(ValueError, match="dots_reduce"):
+        pgmres(At, b, dot=lambda u, v: (u * v).sum())
 
 
 # -- the inline route on gloo ranks -------------------------------------------
