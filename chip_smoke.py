@@ -112,6 +112,23 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    Jacobi (500 forced iterates each: the H5 order and one all-reduce per
    iteration on every rank, the first 20 residuals against one device,
    host microseconds per iteration between the recorded events);
+   then ``[wire]``: the int8 halo/Gram wire on the same 4 ranks, the JAX
+   package's precision-stage problems (PIPECG on the pentadiagonal band
+   with halo 128, 300 iterations; p-BiCGStab on the shifted tridiagonal,
+   450) at n = 2,097,152 and at the stage's n = 1024, under the five
+   policies fp32 / bf16 / bf16_int8wire / bf16_int8wire_noef /
+   bf16_int8allwire: the split-phase order, the int8 bytes each rank
+   hands ``comm``, the stage's classification of the PIPECG cells (in
+   full at n = 1024; safe and unsafe at full size), finite p-BiCGStab
+   results; the plateau in storage-eps units, host µs an iteration of
+   halo / wait / launch / issue and the bytes a strip for each cell;
+   then ``[resilient]``: ``resilient_distributed_solve`` on 4 ranks at
+   n = 2,097,144 (tol 1e-10, a checkpoint every 10 iterations):
+   undisturbed, kill:1@14, kill:1@14 + kill:3@26, corrupt:2@8 and
+   stall:0@5, their recovery events and their overhead against 2x
+   ``recovery_overhead_bound``, a checkpoint save of the carried state
+   timed, ``optimal_checkpoint_period`` at it, and the carried hand-off
+   from 4 ranks to 2 against the straight solve;
 6. LM: ``[wkv]``, the ``ops.wkv_recurrent`` entry once at rwkv6-7b's
    shape with the counts set to 0 just before it and read just after it;
    ``[serve]``, ``launch.serve.serve`` of qwen3-1.7b at full width (28
@@ -218,6 +235,27 @@ GRID = (2, 2)
 # flash_attn.bf16_error (P is rounded to bf16 on the tensor cores); wkv
 # 2e-5 of max |o|; the kernel-vs-dense prefill logits at the JAX
 # package's bf16 bars (tests/test_models_smoke.py)
+# the int8 wire ([wire]): the JAX package's precision stage's problems
+# (experiments/precision_exec.py: the pentadiagonal band with halo 128 and
+# a Gaussian b for PIPECG, 300 iterations; the shifted tridiagonal with
+# b = ones for p-BiCGStab, 450) at full size and at the stage's own n =
+# 1024, under its five policies; its floors (FLOOR_FACTORS x storage eps)
+# and its no-EF / EF ratio (1.05)
+WIRE_N = 2_097_152
+WIRE_STAGE_N = 1024
+WIRE_ITERS = {"pipecg": 300, "pipebicgstab": 450}
+WIRE_POLICIES = ("fp32", "bf16", "bf16_int8wire", "bf16_int8wire_noef",
+                 "bf16_int8allwire")
+WIRE_FLOOR = {"pipecg": 2.0, "pipebicgstab": 32.0}
+WIRE_NOEF_RATIO = 1.05
+# elastic recovery ([resilient]): tests/test_elastic.py's shifted
+# tridiagonal Laplacian at n = 24 x 87,381 (the 2^21 of the paper does not
+# split over 3 survivors), tol 1e-10, checkpoints every 10 iterations; the
+# measured overhead within 2x the resync bound (experiments/validation.py)
+RES_N = 2_097_144
+RES_PERIOD = 10
+RES_TOL = 1e-10
+RES_OVERHEAD_FACTOR = 2.0
 SERVE_BATCH = 4
 SERVE_PROMPT = 2048
 SERVE_STEPS = 32
@@ -2391,6 +2429,288 @@ def geometry_ranks(out, names, A_bsr, b, A_lap, b_lap):
             f"{k}={v:.1f}" for k, v in seg.items()))
 
 
+def wire_problems(n: int):
+    """The precision stage's operators at ``n`` and their right-hand
+    sides (numpy; rng(1) as the stage's seed + 1)."""
+    import torch
+    from repro_torch.core.krylov.operators import DiaMatrix
+    i = np.arange(n)
+
+    def band(offsets, diag):
+        bands = np.stack([np.full(n, diag) if o == 0 else
+                          np.where((i + o >= 0) & (i + o < n), -1.0, 0.0)
+                          for o in offsets])
+        return DiaMatrix(offsets=offsets, bands=torch.from_numpy(bands))
+
+    return {"pipecg": (band((-128, -1, 0, 1, 128), 4.1), torch.from_numpy(
+                np.random.default_rng(1).standard_normal(n))),
+            "pipebicgstab": (band((-1, 0, 1), 3.0),
+                             torch.ones(n, dtype=torch.float64))}
+
+
+def phase_wire(records):
+    """[wire]: the int8 halo/Gram wire on 4 ranks of this card.
+
+    Every cell runs the sharded body (``ranks.solve_cases``) with the
+    launch counts set to 0 just before it and read just after it.  Gates:
+    the split-phase order and one reduction an iteration on every rank;
+    the bytes each rank hands ``comm`` (int8 strips of 4 + 2h bytes under
+    the wire, storage-dtype strips otherwise); the stage's classification
+    of the PIPECG cells at its n = 1024 (safe within the floor, no-EF at
+    least 1.05x EF, the int8 Gram outside), and at full size the safe and
+    unsafe verdicts; finite p-BiCGStab results (the stage makes no floor
+    claim for p-BiCGStab with the wire, so its plateaus are printed, and
+    runs only at full size).  One spawn runs every cell.
+    """
+    import torch
+    from repro_torch.core.krylov.hostops import true_residual_norm
+    from repro_torch.core.krylov.options import PrecisionPolicy
+    from repro_torch.distributed import ranks
+
+    sizes = {WIRE_N: [(s, p) for s in WIRE_ITERS for p in WIRE_POLICIES],
+             WIRE_STAGE_N: [("pipecg", p) for p in WIRE_POLICIES]}
+    probs = {n: wire_problems(n) for n in sizes}
+    keys = [(n, s, p) for n, cells in sizes.items() for s, p in cells]
+    spec = [dict(solver=s, A=probs[n][s][0], b=probs[n][s][1],
+                 kw=dict(engine="sharded_fused", maxiter=WIRE_ITERS[s],
+                         precision=p)) for n, s, p in keys]
+    t0 = time.perf_counter()
+    out = ranks.run(ranks.solve_cases, RANKS, spec, DEVICE, device=DEVICE)
+    say("wire", ranks=RANKS, backend=ranks.backend_for(RANKS, DEVICE),
+        spawn_and_solves_s=f"{time.perf_counter() - t0:.1f}")
+    for n, cells in sizes.items():
+        plateau = {}
+        for solver, policy in cells:
+            i = keys.index((n, solver, policy))
+            A, b = probs[n][solver]
+            h = max(abs(o) for o in A.offsets)
+            it = WIRE_ITERS[solver]
+            pol = PrecisionPolicy.from_name(policy)
+            kernel = ("pipecg_spmv_halo" if solver == "pipecg"
+                      else "pipebicgstab_halo")
+            nvec = 2 if solver == "pipecg" else 3
+            for rank, o in enumerate(out):
+                oc = o[i]
+                check(oc["order_ok"] is True and oc["reductions"] == it + 1,
+                      f"[wire] {solver}/{policy} rank {rank}: split-phase "
+                      "order broken")
+                check(oc["launches"][kernel] == it,
+                      f"[wire] {solver}/{policy} rank {rank}: "
+                      f"{oc['launches'][kernel]} sweeps")
+                check(np.all(np.isfinite(oc["x"])),
+                      f"[wire] {solver}/{policy} rank {rank}: x not finite")
+                strips = it * nvec * ((rank > 0) + (rank < RANKS - 1))
+                key = ("int8" if pol.wire == "int8" else "bfloat16"
+                       if pol.storage == "bf16" else "float64")
+                per = ((4 + 2 * h) if key == "int8" else 2 * h * (
+                    2 if key == "bfloat16" else 8))
+                got = oc["wire_bytes"].get(key, 0)
+                if key == "float64":   # the set-up's exchanges ride too
+                    got -= (len(A.offsets) + 2) * h * 8 * (
+                        (rank > 0) + (rank < RANKS - 1))
+                check(got == strips * per,
+                      f"[wire] {solver}/{policy} rank {rank}: "
+                      f"{oc['wire_bytes']} on the wire")
+                if pol.wire == "int8":
+                    check("bfloat16" not in oc["wire_bytes"],
+                          f"[wire] {solver}/{policy}: a full-width strip")
+            for k in (kernel, "fused_dots"):
+                records[k]["launches"] += sum(o[i]["launches"][k]
+                                              for o in out)
+            eps = pol.storage_eps
+            rel = true_residual_norm(A, b, out[0][i]["x"]) / float(
+                torch.linalg.norm(b))
+            plateau[(solver, policy)] = rel / eps
+            seg = out[0][i]["segments"]
+            say("wire", n=n, solver=solver, policy=policy,
+                plateau_eps=f"{rel / eps:.4f}", true_res_rel=f"{rel:.3e}",
+                floor_eps=WIRE_FLOOR[solver],
+                ms_per_iter=f"{wall(out, i) / it * 1e3:.4f}",
+                strip_bytes=per,
+                host_us_per_iter=" ".join(f"{k}={v * 1e6:.1f}"
+                                          for k, v in seg.items()))
+        noef = (plateau[("pipecg", "bf16_int8wire_noef")]
+                / plateau[("pipecg", "bf16_int8wire")])
+        say("wire", n=n, noef_over_ef=f"{noef:.4f}",
+            min_ratio=WIRE_NOEF_RATIO)
+        for policy in ("fp32", "bf16", "bf16_int8wire"):
+            check(plateau[("pipecg", policy)] <= WIRE_FLOOR["pipecg"],
+                  f"[wire] n={n} pipecg {policy}: outside the floor")
+        check(plateau[("pipecg", "bf16_int8allwire")] > WIRE_FLOOR["pipecg"],
+              f"[wire] n={n}: the int8 Gram inside the floor")
+        if n == WIRE_STAGE_N:
+            check(plateau[("pipecg", "bf16_int8wire_noef")]
+                  <= WIRE_FLOOR["pipecg"] and noef >= WIRE_NOEF_RATIO,
+                  f"[wire] n={n}: no-EF not degraded ({noef:.4f})")
+
+
+def handoff_ranks(rank: int, world: int, A, b, device: str):
+    """Rank body of [resilient]'s carried hand-off: 10 iterations on every
+    rank, the state handed to the first half, 30 more there, beside the
+    straight 40 (distributed/fault.py's warm start)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.krylov import distributed_solve, pipecg
+    from repro_torch.core.krylov.operators import DiaMatrix
+
+    dev = torch.device(device)
+    A = DiaMatrix(offsets=A.offsets, bands=A.bands.to(dev))
+    b = b.to(dev)
+    kw = dict(engine="sharded_fused", tol=0.0)
+    straight = distributed_solve(pipecg, A, b, maxiter=40, **kw)
+    _, state = distributed_solve(pipecg, A, b, maxiter=10, with_state=True,
+                                 **kw)
+    half = dist.new_group(ranks=list(range(world // 2)))
+    out = None
+    if rank < world // 2:
+        second = distributed_solve(pipecg, A, b, half, maxiter=30,
+                                   carried=state, **kw)
+        out = (second.x.cpu().numpy(), float(second.res_norm))
+    dist.barrier()
+    return dict(straight=(straight.x.cpu().numpy(),
+                          float(straight.res_norm)), second=out)
+
+
+def resilient_ranks(rank: int, world: int, spec, A, b, device: str):
+    """Rank body of [resilient]: the resilient cases, then the hand-off."""
+    from repro_torch.distributed import fault
+    return (fault.resilient_cases(rank, world, spec, device),
+            handoff_ranks(rank, world, A, b, device))
+
+
+def phase_resilient(records):
+    """[resilient]: ``resilient_distributed_solve`` on 4 ranks of this card.
+
+    Cases: undisturbed, kill:1@14, kill:1@14 + kill:3@26, corrupt:2@8,
+    stall:0@5 (no ambient noise, 1 ms stalls: the detector reads recorded
+    waits), each with the launch counts of its segments summed; then the
+    carried hand-off 4 -> 2.  Gates: tests/test_torch_fault.py's
+    assertions (the double kill's true residual in relative form), and
+    the overhead in iterations (executed minus undisturbed; a stall's
+    ``detect_iters``) within 2x ``recovery_overhead_bound`` a fault.
+    Prints segments, recoveries, ms a segment, a synchronous checkpoint
+    save of the carried state and ``optimal_checkpoint_period`` at it.
+    """
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.core.krylov.operators import DiaMatrix
+    from repro_torch.core.perfmodel import (optimal_checkpoint_period,
+                                            recovery_overhead_bound)
+    from repro_torch.distributed import ranks
+
+    T = tridiagonal_laplacian(RES_N, device="cpu")
+    bands = T.bands.clone()
+    bands[list(T.offsets).index(0)] += 1.0
+    A = DiaMatrix(offsets=T.offsets, bands=bands)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(RES_N))
+    norm_b = float(torch.linalg.norm(b))
+    names = {"undisturbed": None, "kill": ["kill:1@14"],
+             "double kill": ["kill:1@14", "kill:3@26"],
+             "corrupt": ["corrupt:2@8"], "stall": ["stall:0@5"]}
+    with tempfile.TemporaryDirectory(prefix="resilient_") as tmp:
+        spec = [dict(A=A, b=b, faults=f, seed=k,
+                     fault_kw=dict(stall_s=1e-3) if name == "stall" else {},
+                     kw=dict(tol=RES_TOL, maxiter=160,
+                             checkpoint_period=RES_PERIOD,
+                             ckpt_dir=f"{tmp}/{k}"))
+                for k, (name, f) in enumerate(names.items())]
+        t0 = time.perf_counter()
+        both = ranks.run(resilient_ranks, RANKS, spec, A, b, DEVICE,
+                         device=DEVICE)
+        out, hand = [o for o, _ in both], [h for _, h in both]
+        say("resilient", n=RES_N, ranks=RANKS,
+            spawn_and_solves_s=f"{time.perf_counter() - t0:.1f}")
+        reps = {name: out[0][k]["report"] for k, name in enumerate(names)}
+        for k, name in enumerate(names):
+            for rank in range(RANKS):
+                check(out[rank][k]["report"] == reps[name],
+                      f"[resilient] {name}: ranks disagree")
+            rep = reps[name]
+            segs = rep["segment_walls"]
+            say("resilient", case=repr(name), converged=rep["converged"],
+                segments=rep["segments"], executed=rep["executed_iters"],
+                productive=rep["productive_iters"],
+                shards_final=rep["n_shards_final"],
+                true_res_rel=f"{rep['true_res_norm'] / norm_b:.3e}",
+                ms_per_segment=f"{np.mean(segs) * 1e3:.1f}",
+                wall_s=f"{rep['wall_s']:.3f}",
+                recoveries=json.dumps([
+                    {k2: e[k2] for k2 in ("kind", "shard", "segment",
+                                          "detect_iters", "iters_lost",
+                                          "mode", "detector")}
+                    for e in rep["recoveries"]], separators=(",", ":")))
+            check(rep["converged"], f"[resilient] {name}: not converged")
+        rep0 = reps["undisturbed"]
+        check(not rep0["recoveries"], "[resilient] undisturbed recovered")
+        kill = reps["kill"]
+        check(kill["n_shards_final"] == 3
+              and [(e["kind"], e["mode"]) for e in kill["recoveries"]]
+              == [("kill", "rollback_restart")]
+              and kill["true_res_norm"] <= 10 * max(
+                  rep0["true_res_norm"], 1e-12),
+              "[resilient] kill:1@14 not recovered as the reference does")
+        dk = reps["double kill"]
+        check(dk["n_shards_final"] == 2
+              and sorted(e["kind"] for e in dk["recoveries"])
+              == ["kill", "kill"] and dk["true_res_norm"] < 1e-8 * norm_b,
+              "[resilient] the double kill not recovered")
+        cr = reps["corrupt"]
+        check([(e["kind"], e["mode"]) for e in cr["recoveries"]]
+              == [("corrupt", "rollback_restart")]
+              and cr["recoveries"][0]["detector"] in ("checksum",
+                                                      "history_jump")
+              and cr["executed_iters"] > rep0["executed_iters"],
+              "[resilient] corrupt:2@8 not rolled back")
+        st = reps["stall"]
+        check([(e["kind"], e["mode"], e["shard"]) for e in st["recoveries"]]
+              == [("stall", "evict_continue", 0)]
+              and st["n_shards_final"] == 3,
+              "[resilient] stall:0@5 not evicted")
+        for name in ("kill", "double kill", "corrupt", "stall"):
+            rep = reps[name]
+            kinds = [e["kind"] for e in rep["recoveries"]]
+            bound_iters = sum(recovery_overhead_bound(k, RES_PERIOD)
+                              for k in kinds)
+            over = (rep["recoveries"][0]["detect_iters"] if name == "stall"
+                    else rep["executed_iters"] - rep0["executed_iters"])
+            say("resilient", case=repr(name), overhead_iters=over,
+                bound_iters=bound_iters,
+                ratio=f"{over / bound_iters:.3f}")
+            check(over <= RES_OVERHEAD_FACTOR * bound_iters,
+                  f"[resilient] {name}: overhead {over} > 2x {bound_iters}")
+        for kernel in ("pipecg_spmv_halo", "fused_dots"):
+            records[kernel]["launches"] += sum(
+                sum(o[k]["launches"][kernel] for k in range(len(names)))
+                for o in out)
+        # one synchronous save of the carried state (x, r, u, p at n)
+        state = {k: torch.zeros((1, RES_N), dtype=torch.float64)
+                 for k in ("x", "r", "u", "p")}
+        state.update(gamma_prev=torch.ones(1), alpha_prev=torch.ones(1),
+                     done=torch.zeros(1, dtype=torch.bool))
+        mgr = CheckpointManager(f"{tmp}/save", keep=1, async_write=False)
+        t0 = time.perf_counter()
+        mgr.save(1, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+    seg_ms = np.mean(reps["undisturbed"]["segment_walls"]) * 1e3
+    cost_iters = save_ms / (seg_ms / RES_PERIOD)
+    say("resilient", checkpoint_save_ms=f"{save_ms:.1f}",
+        bytes=4 * RES_N * 8, ms_per_iter=f"{seg_ms / RES_PERIOD:.3f}",
+        save_cost_iters=f"{cost_iters:.2f}",
+        optimal_period_at_fault_rate=" ".join(
+            f"{lam:g}:{optimal_checkpoint_period(cost_iters, lam):.1f}"
+            for lam in (1e-3, 1e-4)))
+    xs, rs = hand[0]["straight"]
+    x2, r2 = hand[0]["second"]
+    gap = float(np.linalg.norm(x2 - xs) / np.linalg.norm(xs))
+    say("resilient", case="'carried 4 -> 2'", iters="10+30",
+        x_rel_gap=f"{gap:.3e}", res_gap=f"{abs(r2 - rs):.3e}")
+    check(gap < 1e-10 and abs(r2 - rs) < 1e-10 * max(rs, 1.0),
+          "[resilient] the carried hand-off differs from the straight solve")
+
+
 def phase_wkv_entry(records):
     """``ops.wkv_recurrent``, the kernel's entry (no model path calls it:
     the JAX package's RWKV blocks use a chunked jnp form), once at
@@ -2716,6 +3036,8 @@ def main() -> int:
     phase_gmres(records)
     phase_bsr(records)
     phase_ranks(records)
+    phase_wire(records)
+    phase_resilient(records)
     phase_wkv_entry(records)
     phase_serve(records)
     phase_model()

@@ -8,11 +8,15 @@
    ``dev' = dev + eps (||r|| + 2 |alpha| ||w||)``, built from norms the
    fused reduction already carries.  Crossing ``tau * ||r||`` triggers
    adaptive residual replacement (cg.py ``rr_tau``).
+
+:func:`first_trip` scans a finished segment's detector history on the
+host and :class:`DetectionReport` records a verdict
+(distributed/fault.py); :func:`merge_reports` summarises a list of them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -65,6 +69,17 @@ def deviation_trip(dev, rr2, tau: float):
     return dev > tau * torch.sqrt(torch.clamp(rr2, min=0.0))
 
 
+def first_trip(values, threshold: float) -> int:
+    """First index where ``|values|`` exceeds ``threshold`` or is not
+    finite, -1 if none: a host scan of a segment's detector history (a
+    killed shard's NaN reaches the checksum row through the same
+    reduction, so non-finite entries trip unconditionally)."""
+    v = np.asarray(values, np.float64)
+    bad = ~np.isfinite(v) | (np.abs(v) > threshold)
+    idx = np.nonzero(bad)[0]
+    return int(idx[0]) if idx.size else -1
+
+
 @dataclasses.dataclass
 class DetectionReport:
     """Provenance record of one detector verdict on one solve (segment).
@@ -84,3 +99,16 @@ class DetectionReport:
     tau: float = DEFAULT_TAU
     action: str = "none"           # none | replace | rollback | quarantine
     confirmed: Optional[bool] = None
+
+
+def merge_reports(reports: List[DetectionReport]) -> dict:
+    """Summary of a report list: counts, first trip, detectors."""
+    tripped = [r for r in reports if r.tripped]
+    return {
+        "n_reports": len(reports),
+        "n_tripped": len(tripped),
+        "first_trip_iter": min((r.trip_iter for r in tripped
+                                if r.trip_iter >= 0), default=-1),
+        "detectors": sorted({r.detector for r in tripped}),
+        "confirmed": any(r.confirmed for r in tripped),
+    }

@@ -39,7 +39,15 @@ solve); ``iters``, ``res_norm`` and the histories are the same on every
 rank.  ``noise=`` (a NoiseHook, core/noise/injection.py) sleeps a sampled
 wait once per iteration on every rank: after each SpMV on the inline path,
 between the kernel launch and the issue of the reduction on the sharded
-path, so the stall sits on the critical path.
+path, so the stall sits on the critical path.  A fault injector
+(core/noise/faults.py) also returns a tick that is added to the SpMV
+output or to the partial row before its reduction: NaN from a killed rank
+poisons every rank's result within one iteration.
+
+The sharded PIPECG and p-BiCGStab bodies take the int8 wire of a
+``PrecisionPolicy`` (distributed/compression.py), and the PIPECG body the
+elastic warm start ``x0=`` / ``carried=`` / ``with_state=`` that
+distributed/fault.py::resilient_distributed_solve segments a solve with.
 """
 from __future__ import annotations
 
@@ -84,6 +92,82 @@ def _chain_exchange(v: torch.Tensor, w: int, axis: int, group=None
 def halo_exchange(x_local: torch.Tensor, halo: int, group=None):
     """1-D vector variant of :func:`halo_exchange_cols` (same semantics)."""
     return halo_exchange_cols(x_local, halo, group)
+
+
+def halo_exchange_compressed(x: torch.Tensor, halo: int, group,
+                             ef_lo: torch.Tensor, ef_hi: torch.Tensor,
+                             use_ef: bool):
+    """int8-wire variant of :func:`halo_exchange_cols`.
+
+    Each edge strip is quantized at the sender
+    (distributed/compression.py::compress_halo) and travels as ONE int8
+    message: the float32 scale's four bytes, then the int8 payload; a
+    quarter of an fp32 strip's bytes (an eighth of fp64's).  Both strips
+    derive only from the carried ``x``, never from the pending
+    reduction, so the split-phase order is unchanged.
+
+    ``ef_lo`` / ``ef_hi`` are the sender-side error-feedback strips of
+    the low and high edge of ``x`` (``x.shape[:-1] + (halo,)``, x's
+    dtype); with ``use_ef`` the quantization residual of the same rows
+    re-enters next iteration, else the returned feedback is zero.
+    Returns ``(lo, hi, new_ef_lo, new_ef_hi)``, the received strips in
+    x's dtype, zeros at the ends of the chain; one rank or ``halo == 0``
+    gives zero strips and zero feedback.
+    """
+    from repro_torch.distributed import compression as comp
+
+    rank, world = comm.rank_and_size(group)
+    shape = x.shape[:-1] + (halo,)
+    if world == 1 or halo == 0:
+        z = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        return z, z, torch.zeros_like(ef_lo), torch.zeros_like(ef_hi)
+    # the high edge travels up the chain (the neighbour's low strip), the
+    # low edge down, as on the full-width wire
+    q_hi, s_hi, ef_hi_new = comp.compress_halo(
+        x[..., -halo:], ef_hi if use_ef else None)
+    q_lo, s_lo, ef_lo_new = comp.compress_halo(
+        x[..., :halo], ef_lo if use_ef else None)
+
+    def pack(q, s):
+        return torch.cat([s.reshape(1).view(torch.int8), q.reshape(-1)])
+
+    staged = comm.host_staged(x.device, group)
+    nbytes = 4 + q_hi.numel()
+    low = rank - 1 if rank > 0 else None
+    high = rank + 1 if rank < world - 1 else None
+    sends, recvs, bufs = [], [], {}
+    for peer, packed in ((low, pack(q_lo, s_lo)), (high, pack(q_hi, s_hi))):
+        if peer is None:
+            continue
+        bufs[peer] = comm.wire_buffer((nbytes,), packed, staged)
+        sends.append((peer, comm.to_wire(packed, staged)))
+        recvs.append((peer, bufs[peer]))
+    comm.exchange(sends, recvs, group)
+
+    def unpack(peer):
+        if peer is None:
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
+        buf = bufs[peer].to(x.device)
+        return comp.decompress_halo(buf[4:].reshape(shape),
+                                    buf[:4].view(torch.float32), x.dtype)
+
+    if not use_ef:
+        ef_lo_new, ef_hi_new = torch.zeros_like(ef_lo), torch.zeros_like(ef_hi)
+    return unpack(low), unpack(high), ef_lo_new, ef_hi_new
+
+
+def _tick(noise, rank: int, like: torch.Tensor) -> torch.Tensor:
+    """Call ``noise`` for this rank and add its tick to ``like``.
+
+    A plain NoiseHook only sleeps and returns None (``like`` is returned
+    as it is); a fault injector (core/noise/faults.py) returns a scalar
+    tick, NaN once its shard is killed or a corrupt fault's magnitude,
+    which rides the row into the next reduction.
+    """
+    tick = noise(rank)
+    if tick is None:
+        return like
+    return like + torch.as_tensor(tick, dtype=like.dtype, device=like.device)
 
 
 def dia_matvec_local(offsets: Sequence[int], bands_local, x_local,
@@ -142,7 +226,7 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
                          group=None, ip: str = "id", M=None,
                          maxiter: int = 100, tol: float = 0.0, noise=None,
                          x0=None, carried=None, with_state: bool = False,
-                         precision=None, recorder=None) -> SolveResult:
+                         precision=None, recorder=None):
     """Per-rank PIPECG/PIPECR body of the ShardedFusedEngine.
 
     Each iteration is one halo sweep (``kops.pipecg_spmv_halo_step``) plus
@@ -153,7 +237,8 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
     2. the wait for the reduction issued at the end of the last iteration;
     3. the alpha/beta recurrence on its result;
     4. the kernel;
-    5. ``noise`` (if any), then the issue of this iteration's reduction.
+    5. ``noise`` (if any; its tick is added to the row), then the issue
+       of this iteration's reduction.
 
     ``recorder`` (an overlap.OrderRecorder) logs that order.  The history
     comes out shifted by one, since the reduction consumed at iteration i
@@ -164,33 +249,43 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
 
     ``M`` is None or "jacobi" (preconditioned in the kernel).  A bf16/fp8
     ``precision`` stores r, u, p and the operator narrow; x, the rows and
-    the recurrences stay at b's dtype.  The int8 wire and the warm-start
-    hooks are not ported yet and raise.
+    the recurrences stay at b's dtype.  The sweep's column sums are those
+    of the operator it streams, summed at the storage dtype as the JAX
+    package's halo wrapper sums them; the set-up row takes them from the
+    full-precision operator.  ``wire='int8'`` exchanges u and p through
+    :func:`halo_exchange_compressed` (sender-side error feedback unless
+    ``error_feedback=False``); ``wire_gram='int8'`` squeezes every partial
+    row through ``compression.compress_gram`` before its issue, the ABFT
+    checksum column preserved, a noise tick added after it.
+
+    Elastic warm start (distributed/fault.py): ``with_state=True`` also
+    returns this rank's carried state ``{x, r, u, p, gamma_prev,
+    alpha_prev, done}`` in the batched (k, .) form; ``carried=`` (the same
+    dict, sliced to this rank's rows) continues exactly from it, the
+    partial row recomputed from (r, u, A u); ``x0=`` restarts the
+    recurrence from an iterate with one synchronous ``r = b - A x0``.
+    The wire's feedback strips are not carried: they restart at zero.
     """
+    from repro_torch.distributed import compression as comp
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.checksum import dia_column_checksum
 
-    if x0 is not None or carried is not None or with_state:
-        raise NotImplementedError(
-            "x0= / carried= / with_state= (elastic warm start) come with "
-            "the fault-recovery slice (ROADMAP.md queue 1, item 11)")
+    if carried is not None and x0 is not None:
+        raise ValueError("pass either x0 (residual-replacement restart) or "
+                         "carried (exact continuation), not both")
     policy = as_policy(precision)
-    if policy.wire != "fp32" or policy.wire_gram != "fp32":
-        raise NotImplementedError(
-            "the int8 halo/Gram wire comes with the mixed-precision wire "
-            "slice (ROADMAP.md queue 1, item 10)")
     rank, _ = comm.rank_and_size(group)
     halo = max(abs(int(o)) for o in offsets)
     batched = b_local.dim() == 2
     B = b_local if batched else b_local[None]
     k_rhs, n_local = B.shape
-    dt = B.dtype
+    dt, dev = B.dtype, B.device
     if n_local < 2 * halo:
         raise ValueError(
             f"sharded_fused engine: local shard of {n_local} rows is "
             f"narrower than the 2*halo={2 * halo} stencil reach")
     if M is None:
-        invd = torch.ones((n_local,), dtype=dt, device=B.device)
+        invd = torch.ones((n_local,), dtype=dt, device=dev)
     elif isinstance(M, str) and M == "jacobi":
         invd = (1.0 / bands_local[list(offsets).index(0)]).to(dt)
     else:
@@ -203,36 +298,67 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
     bands_ext = torch.cat([bl, bands_local, br], dim=-1)
     il, ir = halo_exchange_cols(invd, halo, group)
     invd_ext = torch.cat([il, invd, ir], dim=-1)
-    # this rank's slice of the GLOBAL c = A^T 1, from the full-precision
-    # operator (every contributing band value is in the extended bands)
+    # this rank's slice of the GLOBAL c = A^T 1 (every contributing band
+    # value is in the extended bands): the set-up row's from the
+    # full-precision operator, the sweep's from the operator it streams
     csum = dia_column_checksum(offsets, bands_ext, halo=halo).to(dt)
     sdt = policy.storage_dtype
     sto = dt if sdt is None else sdt
-    # the kernel streams the operator, diag^-1 and c at the storage dtype
-    bands_s, invd_s, csum_s = (t.to(sto).contiguous()
-                               for t in (bands_ext, invd_ext, csum))
+    bands_s, invd_s = (t.to(sto).contiguous() for t in (bands_ext, invd_ext))
+    csum_s = dia_column_checksum(offsets, bands_s, halo=halo).contiguous()
+    wire_halo = policy.wire == "int8"
+    wire_gram = policy.wire_gram == "int8"
+    use_ef = policy.error_feedback
 
-    x = torch.zeros_like(B)
-    r = B
-    u = invd * r
-    p = torch.zeros_like(B)
+    one = torch.ones((k_rhs,), dtype=dt, device=dev)
+    if carried is not None:
+        x, r, u, p = (carried[k].to(dt) for k in ("x", "r", "u", "p"))
+        gamma_prev = carried["gamma_prev"].to(dt)
+        alpha_prev = carried["alpha_prev"].to(dt)
+        done = carried["done"].to(torch.bool)
+        first = False
+    else:
+        if x0 is None:
+            x, r = torch.zeros_like(B), B
+        else:
+            x = (x0 if batched else x0[None]).to(dt)
+            # the synchronous true residual: the residual-replacement
+            # re-glue after a disruptive recovery
+            r = B - dia_matvec_local(offsets, bands_local, x, group)
+        u = invd * r
+        p = torch.zeros_like(B)
+        gamma_prev, alpha_prev = one, one
+        done = torch.zeros((k_rhs,), dtype=torch.bool, device=dev)
+        first = True
     w = dia_matvec_local(offsets, bands_local, u, group)
     red = _local_partials(r, u, w, csum)
     r, u, p = r.to(sto), u.to(sto), p.to(sto)
-    tol2 = torch.as_tensor(tol, dtype=dt, device=B.device) ** 2 \
+    # the checksum column rides the reduction exact (compression.py)
+    chk_mask = torch.zeros((k_rhs, 6), dtype=torch.bool, device=dev)
+    chk_mask[:, 5] = True
+    if wire_gram:   # the feedback ``gef`` is read only with use_ef
+        red, gef = comp.compress_gram(red, None, preserve=chk_mask)
+    if wire_halo:
+        # sender-side feedback strips, one per edge per exchanged vector
+        efu_l = efu_r = efp_l = efp_r = torch.zeros(
+            (k_rhs, 2 * halo), dtype=sto, device=dev)
+    tol2 = torch.as_tensor(tol, dtype=dt, device=dev) ** 2 \
         * comm.all_reduce(torch.sum(B * B, dim=-1), group)
 
     reducer = SplitPhaseReduce(group, recorder)
     pending = reducer.issue(red, iteration=-1)
-    one = torch.ones((k_rhs,), dtype=dt, device=B.device)
-    gamma_prev, alpha_prev = one, one
-    done = torch.zeros((k_rhs,), dtype=torch.bool, device=B.device)
-    iters = torch.zeros((k_rhs,), dtype=torch.int32, device=B.device)
+    iters = torch.zeros((k_rhs,), dtype=torch.int32, device=dev)
     hist, chk_hist = [], []
     for i in range(maxiter):
         # 1. halo strips for THIS iteration's sweep: carried vectors only
-        ul, ur = halo_exchange_cols(u, 2 * halo, group)
-        pl, pr = halo_exchange_cols(p, 2 * halo, group)
+        if wire_halo:
+            ul, ur, efu_l, efu_r = halo_exchange_compressed(
+                u, 2 * halo, group, efu_l, efu_r, use_ef)
+            pl, pr, efp_l, efp_r = halo_exchange_compressed(
+                p, 2 * halo, group, efp_l, efp_r, use_ef)
+        else:
+            ul, ur = halo_exchange_cols(u, 2 * halo, group)
+            pl, pr = halo_exchange_cols(p, 2 * halo, group)
         if recorder is not None:
             recorder("halo", i)
         # 2. finish the reduction issued LAST iteration; its only
@@ -242,7 +368,7 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
                         else (red_sum[:, 3], red_sum[:, 4]))
         rr = red_sum[:, 2]
         chk = red_sum[:, 5]
-        if i == 0:
+        if first:
             beta = torch.zeros_like(gamma)
             alpha = gamma / delta
         else:
@@ -253,8 +379,13 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
             alpha, beta)
         if recorder is not None:
             recorder("launch", i)
+        if wire_gram:
+            red_new, gef = comp.compress_gram(
+                red_new, gef if use_ef else None, preserve=chk_mask)
         if noise is not None:
-            noise(rank)   # the stall delays this rank's contribution
+            # the stall delays this rank's contribution; a fault's tick
+            # rides the row into the reduction
+            red_new = _tick(noise, rank, red_new)
 
         mask = done
         if not policy.is_default:
@@ -269,6 +400,7 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
         red = _frz(mask, red_new, red)
         gamma_prev = _frz(mask, gamma, gamma_prev)
         alpha_prev = _frz(mask, alpha, alpha_prev)
+        first = False
         iters = iters + (~done).to(torch.int32)
         pending = reducer.issue(red, iteration=i)
         hist.append(torch.sqrt(torch.clamp(rr, min=0.0)))
@@ -281,12 +413,20 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
         hist = torch.stack(hist[1:] + [res])          # (maxiter, k)
         chk_hist = torch.stack(chk_hist[1:] + [red_fin[:, 5]])
     else:
-        hist = chk_hist = torch.zeros((0, k_rhs), dtype=dt, device=B.device)
+        hist = chk_hist = torch.zeros((0, k_rhs), dtype=dt, device=dev)
     if batched:
-        return SolveResult(x=x, iters=iters, res_norm=res,
-                           res_history=hist.T, detect_history=chk_hist.T)
-    return SolveResult(x=x[0], iters=iters[0], res_norm=res[0],
-                       res_history=hist[:, 0], detect_history=chk_hist[:, 0])
+        result = SolveResult(x=x, iters=iters, res_norm=res,
+                             res_history=hist.T, detect_history=chk_hist.T)
+    else:
+        result = SolveResult(x=x[0], iters=iters[0], res_norm=res[0],
+                             res_history=hist[:, 0],
+                             detect_history=chk_hist[:, 0])
+    if not with_state:
+        return result
+    # the batched (k, .) form always, so that a later segment under any
+    # group can take it back as ``carried=``
+    return result, dict(x=x, r=r, u=u, p=p, gamma_prev=gamma_prev,
+                        alpha_prev=alpha_prev, done=done)
 
 
 # ---------------------------------------------------------------------------
@@ -320,18 +460,21 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     residuals of ``A x = b`` and x is unscaled locally at the end.  The
     history is rolled into the local solver's alignment.  A bf16/fp8
     ``precision`` stores r, w, t, pa, a, c, r_hat and the operator
-    extension narrow; x, the payload, the column sums and the recurrence
-    stay at b's dtype.  The int8 wire is not ported yet and raises.
+    extension narrow; x, the payload and the recurrence stay at b's
+    dtype.  The sweep's column sums are those of the operator it streams
+    (summed at the storage dtype, as the JAX package's halo wrapper sums
+    them), the set-up row's those of the full-precision operator.
+    ``wire='int8'`` exchanges the w, t and c strips through
+    :func:`halo_exchange_compressed`; ``wire_gram='int8'`` squeezes each
+    partial payload through ``compression.compress_gram`` before its
+    issue, entry [6, 0] (the checksum) preserved.
     """
     from repro_torch.core.krylov.bicgstab import _eps, pbicgstab_scalars
+    from repro_torch.distributed import compression as comp
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.checksum import dia_column_checksum
 
     policy = as_policy(precision)
-    if policy.wire != "fp32" or policy.wire_gram != "fp32":
-        raise NotImplementedError(
-            "the int8 halo/Gram wire comes with the mixed-precision wire "
-            "slice (ROADMAP.md queue 1, item 10)")
     if b_local.dim() != 1:
         raise ValueError(
             "the sharded pipebicgstab path is single-RHS; batch over "
@@ -365,11 +508,16 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     bl, br = halo_exchange_cols(bands_local, halo, group)
     bands_ext = torch.cat([bl, bands_local, br], dim=-1)
     # this rank's slice of the GLOBAL c = A_hat^T 1, after the Jacobi
-    # fold and before any demotion
+    # fold: the set-up row's before any demotion, the sweep's of the
+    # operator it streams
     csum = dia_column_checksum(offsets, bands_ext, halo=halo).to(dt)
     sdt = policy.storage_dtype
     sto = dt if sdt is None else sdt
     bands_s = bands_ext.to(sto).contiguous()
+    csum_s = dia_column_checksum(offsets, bands_s, halo=halo).to(dt)
+    wire_halo = policy.wire == "int8"
+    wire_gram = policy.wire_gram == "int8"
+    use_ef = policy.error_feedback
 
     x = torch.zeros_like(b_local)
     r = b_local
@@ -382,6 +530,13 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     G_loc = torch.cat([V0 @ V0.T, chk0])   # this rank's PARTIAL payload
     r, w, t, zero = (v.to(sto) for v in (r, w, t, zero))
     r_hat, pa, a, c = r, zero, zero, zero
+    chk_mask = torch.zeros((7, 6), dtype=torch.bool, device=b_local.device)
+    chk_mask[6, 0] = True
+    if wire_gram:   # the feedback ``gef`` is read only with use_ef
+        G_loc, gef = comp.compress_gram(G_loc, None, preserve=chk_mask)
+    if wire_halo:
+        efw_l = efw_r = eft_l = eft_r = efc_l = efc_r = torch.zeros(
+            (2 * halo,), dtype=sto, device=b_local.device)
     tol2 = torch.as_tensor(tol, dtype=dt, device=b_local.device) ** 2 \
         * comm.all_reduce(torch.sum(b_local * b_local), group)
 
@@ -395,9 +550,17 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     hist, chk_hist = [], []
     for i in range(maxiter):
         # 1. strips for THIS iteration's sweep: carried vectors only
-        wl, wr = halo_exchange_cols(w, 2 * halo, group)
-        tl, tr = halo_exchange_cols(t, 2 * halo, group)
-        cl, cr = halo_exchange_cols(c, 2 * halo, group)
+        if wire_halo:
+            wl, wr, efw_l, efw_r = halo_exchange_compressed(
+                w, 2 * halo, group, efw_l, efw_r, use_ef)
+            tl, tr, eft_l, eft_r = halo_exchange_compressed(
+                t, 2 * halo, group, eft_l, eft_r, use_ef)
+            cl, cr, efc_l, efc_r = halo_exchange_compressed(
+                c, 2 * halo, group, efc_l, efc_r, use_ef)
+        else:
+            wl, wr = halo_exchange_cols(w, 2 * halo, group)
+            tl, tr = halo_exchange_cols(t, 2 * halo, group)
+            cl, cr = halo_exchange_cols(c, 2 * halo, group)
         if recorder is not None:
             recorder("halo", i)
         # 2. finish the payload issued LAST iteration; its only consumers
@@ -406,12 +569,17 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
         rr2, rho, alpha, beta, omega = pbicgstab_scalars(
             G, rho_prev, alpha_prev, omega_prev, i == 0, eps)
         x2, r2, w2, t2, pa2, a2, c2, G_new = kops.pipebicgstab_halo_step(
-            offsets, bands_s, csum, x, r, w, t, pa, a, c, r_hat,
+            offsets, bands_s, csum_s, x, r, w, t, pa, a, c, r_hat,
             wl, wr, tl, tr, cl, cr, alpha, beta, omega)
         if recorder is not None:
             recorder("launch", i)
+        if wire_gram:
+            G_new, gef = comp.compress_gram(
+                G_new, gef if use_ef else None, preserve=chk_mask)
         if noise is not None:
-            noise(rank)   # the stall delays this rank's contribution
+            # the stall delays this rank's contribution; a fault's tick
+            # rides the payload into the reduction
+            G_new = _tick(noise, rank, G_new)
 
         done = done | (rr2 <= tol2)
         if not policy.is_default:
@@ -573,7 +741,9 @@ def sharded_pipecg_depth_solve(offsets: Tuple[int, ...], bands_local,
         dev_row[0, 0] = torch.sum(csum_loc * x) + torch.sum(r.to(dt))
         payload = torch.cat([gram, dev_row])
         if noise is not None:
-            noise(rank)   # the stall delays this rank's contribution
+            # the stall delays this rank's contribution; a fault's tick
+            # rides the payload into the reduction
+            payload = _tick(noise, rank, payload)
         Ge = reducer.issue(payload, iteration=bi).wait()
         G = Ge[:-1]
         dets.append(bsum - Ge[-1, 0])
@@ -666,7 +836,9 @@ def _recompute_pipecg(b_local, invd, csum, mv, exchange, sweep, *, group,
         if recorder is not None:
             recorder("launch", i)
         if noise is not None:
-            noise(rank)   # the stall delays this rank's contribution
+            # the stall delays this rank's contribution; a fault's tick
+            # rides the row into the reduction
+            red_new = _tick(noise, rank, red_new)
         mask = done
         done = mask | (rr <= tol2)
         x, r, u, p, red, gamma_prev, alpha_prev = (
@@ -1117,12 +1289,28 @@ def _distributed_engine_solve(solver, A, b, group, eng, *, grid=None,
     if solver_kw:
         raise TypeError("unsupported kwargs for the sharded_fused path: "
                         f"{sorted(solver_kw)}")
-    res = body(A.offsets, A.bands[:, sl].contiguous(),
+    # the warm start's vectors are global: each rank takes its rows, and
+    # the recurrence scalars go whole
+    if warm.get("x0") is not None:
+        warm["x0"] = torch.as_tensor(warm["x0"], device=b.device)[
+            ..., sl].contiguous()
+    if warm.get("carried") is not None:
+        warm["carried"] = {
+            k: (v[..., sl].contiguous() if v.dim() == 2 else v)
+            for k, v in ((k, torch.as_tensor(v, device=b.device))
+                         for k, v in warm["carried"].items())}
+    out = body(A.offsets, A.bands[:, sl].contiguous(),
                b[..., sl].contiguous(), group=group,
                ip=_SHARDED_IP.get(name, "id"),
                M=M, maxiter=maxiter, tol=tol, noise=noise,
                precision=precision, recorder=recorder, **warm)
-    return _gather_x(res, group)
+    if not warm.get("with_state"):
+        return _gather_x(out, group)
+    res, state = out
+    # gathered to global (k, n) tensors, so that any group can take it
+    return _gather_x(res, group), {
+        k: (comm.all_gather_cols(v, group) if v.dim() == 2 else v)
+        for k, v in state.items()}
 
 
 def distributed_solve(solver: Callable, A, b: torch.Tensor,
@@ -1155,7 +1343,12 @@ def distributed_solve(solver: Callable, A, b: torch.Tensor,
     torch, single-RHS, depth 1 at the solve dtype.  ``options`` (a
     SolverOptions) bundles engine, maxiter/tol, M, depth, noise and
     precision; it cannot be mixed with the loose spellings.
-    ``precision`` needs the sharded engine.
+    ``precision`` needs the sharded engine.  The depth-1 PIPECG/PIPECR
+    body also takes ``x0=`` (a global iterate to restart from),
+    ``carried=`` (a global state to continue from exactly) and
+    ``with_state=True``, which returns ``(result, state)`` with the state
+    gathered to global tensors, so that a group of another size can take
+    it (:func:`sharded_pipecg_solve`).
     """
     from repro_torch.core.krylov.engine import ShardedFusedEngine, get_engine
 
@@ -1234,7 +1427,7 @@ def distributed_solve(solver: Callable, A, b: torch.Tensor,
         y = dia_matvec_local(offsets, bands_local, v, group,
                              use_kernel=use_kernel)
         if noise is not None:
-            noise(rank)
+            y = _tick(noise, rank, y)
         return y
 
     opts = SolverOptions(**{("depth" if k == "l" else k): solver_kw.pop(k)

@@ -1,6 +1,15 @@
 """OS-noise modelling: the Table-1 calibrated run generator, recorded-trace
 distributions, host sampling, wall-clock noise injection into real solver
-runs, and the per-iteration phase model on the card's figures."""
+runs, fault injection (kill / stall / corrupt) for the elastic controller,
+and the per-iteration phase model on the card's figures."""
+from repro_torch.core.noise.faults import (  # noqa: F401
+    FAULT_KINDS,
+    FaultEvent,
+    FaultInjector,
+    FaultSpec,
+    make_fault,
+    make_faults,
+)
 from repro_torch.core.noise.injection import (  # noqa: F401
     NoiseHook,
     make_noise_hook,

@@ -44,23 +44,28 @@ class NoiseHook:
         self._rngs: Dict[int, np.random.Generator] = {}
         self.shard_record: Dict[int, List[float]] = {}
 
+    def _draw(self, shard: int) -> float:
+        """One wait (seconds) from ``shard``'s substream."""
+        from repro_torch.core.noise.sampling import sample_np
+        rng = self._rngs.get(shard)
+        if rng is None:
+            rng = self._rngs[shard] = np.random.default_rng((self.seed, shard))
+        return float(sample_np(self.dist, rng, ())) * self.scale
+
+    def _record(self, shard: int, w: float) -> None:
+        self.shard_record.setdefault(shard, []).append(w)
+
     def sample(self, shard: int = 0) -> float:
         """Draw one waiting time in seconds (records it, does not sleep)."""
-        from repro_torch.core.noise.sampling import sample_np
         shard = int(shard)
-        w = 0.0
-        if self.dist is not None:
-            rng = self._rngs.get(shard)
-            if rng is None:
-                rng = self._rngs[shard] = np.random.default_rng(
-                    (self.seed, shard))
-            w = float(sample_np(self.dist, rng, ())) * self.scale
-        self.shard_record.setdefault(shard, []).append(w)
+        w = 0.0 if self.dist is None else self._draw(shard)
+        self._record(shard, w)
         return w
 
     def __call__(self, shard: int = 0) -> None:
         """Sleep a sampled wait on the host; ``shard`` is the caller's
-        rank and selects the substream."""
+        rank and selects the substream.  Returns None: a plain hook adds
+        nothing to the solve (a fault injector returns a tick)."""
         time.sleep(self.sample(shard))
 
     def shard_waits(self, shard: int) -> np.ndarray:

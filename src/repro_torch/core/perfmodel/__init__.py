@@ -10,6 +10,7 @@ Usage::
     >>> modeled_depth_speedup(Exponential(1.0), P=4, l=4, red_latency=2.0)
     >>> eq6_iteration_time(Exponential(1.0), P=4, red_latency=0.5)  # Eq. 6
     >>> folk_bound(2)     # the deterministic overlap-only ceiling (Sec. 2)
+    >>> recovery_overhead_bound("kill", 10)   # 11 iterations (resync.py)
 """
 from repro_torch.core.perfmodel.comm import (  # noqa: F401
     best_grid,
@@ -59,6 +60,17 @@ from repro_torch.core.perfmodel.makespan import (  # noqa: F401
 from repro_torch.core.perfmodel.queueing import (  # noqa: F401
     eq6_iteration_time,
     eq7_iteration_time,
+)
+from repro_torch.core.perfmodel.resync import (  # noqa: F401
+    FAULT_RECOVERY_KINDS,
+    abft_detection_iters,
+    adaptive_rr_overhead_iters,
+    adaptive_rr_replacements,
+    detection_iters,
+    expected_fault_makespan,
+    optimal_checkpoint_period,
+    recovery_overhead_bound,
+    resync_iter_time,
 )
 from repro_torch.core.perfmodel.speedup import (  # noqa: F401
     asymptotic_speedup,

@@ -75,8 +75,13 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
     """Post every send and receive at once, then wait for all of them.
 
     ``sends`` and ``recvs`` pair a group rank with a wire tensor; the
-    receive buffers are filled in place.
+    receive buffers are filled in place.  ``exchange.bytes`` sums the
+    bytes sent, by dtype name, so a test can read what went on the wire.
     """
+    for _, t in sends:
+        key = str(t.dtype).replace("torch.", "")
+        exchange.bytes[key] = exchange.bytes.get(key, 0) \
+            + t.numel() * t.element_size()
     ops = [dist.P2POp(dist.isend, t, global_rank(group, r), group)
            for r, t in sends]
     ops += [dist.P2POp(dist.irecv, t, global_rank(group, r), group)
@@ -84,6 +89,9 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+
+
+exchange.bytes = {}
 
 
 def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,

@@ -100,7 +100,8 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
     ``(py, px)`` process grid the group's ranks are laid on
     (``group=(None, grid)``).  Each outcome holds the result's
     fields, the kernel launches, the blocking all-reduces
-    (``comm.all_reduce`` calls) and the wall seconds of the solve (ranks
+    (``comm.all_reduce`` calls), the point-to-point bytes this rank sent
+    by dtype (``wire_bytes``) and the wall seconds of the solve (ranks
     start together; the card is synchronised around it) and this rank's
     injected waits; a sharded solve adds its order check (split-phase, or
     ``depth_order_ok`` for ``pipecg_l`` with ``l > 1``), the reductions
@@ -140,6 +141,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
             torch.cuda.synchronize(dev)
         ops.reset_launch_counts()
         comm.all_reduce.calls = 0
+        comm.exchange.bytes.clear()
         t0 = time.perf_counter()
         grid = case.get("grid")
         res = distributed_solve(solver, A, b, None if grid is None
@@ -163,6 +165,7 @@ def solve_cases(rank: int, world: int, cases: List[Dict[str, Any]],
             detect_history=_numpy(res.detect_history),
             launches=launches, seconds=seconds,
             all_reduces=comm.all_reduce.calls,
+            wire_bytes=dict(comm.exchange.bytes),
             reductions=(sum(e[0] == "issue" for e in rec.events)
                         if rec is not None else None),
             order_ok=order_ok,

@@ -235,17 +235,18 @@ def _jax_sharded_low_precision(A, b, kw):
     ``ref.pipebicgstab_fused_ref`` at the kernel's dtypes: the stored
     chains and the operator extension widen to x's dtype, the six chain
     outputs narrow back to their storage dtype, x and the Gram stay wide.
-    Row 6 takes c = A^T 1 from the full-precision operator, as the body's
-    init row does and the port's body does on every iteration (the JAX
-    halo wrapper sums the demoted extension instead).
+    Row 6 takes c = A^T 1 as the JAX halo wrapper does: the column sums
+    of the demoted extension, summed at the storage dtype (the port's
+    body does the same on every iteration; both set-up rows take the
+    full-precision operator's, H9).
     """
     assert kw.get("M") is None   # c below is that of the unfolded bands
     h = max(abs(o) for o in A.offsets)
-    csum = jcolsum(A.offsets, A.bands)
 
     def sweep(offsets, bands_ext, x, r, w, t, pa, a, c, r_hat, *strips,
               **_):
         alpha, beta, omega = strips[-3:]   # one device: the strips are 0
+        csum = jcolsum(offsets, bands_ext, halo=h).astype(x.dtype)
         wide = [v.astype(x.dtype) for v in (r, w, t, pa, a, c, r_hat)]
         x2, *chains, G = ref.pipebicgstab_fused_ref(
             offsets, bands_ext[:, h:-h].astype(x.dtype), x, *wide,
@@ -366,12 +367,15 @@ def test_distributed_solve_matches_reference(runs, references, name):
 
 
 # The ABFT checksum column stays below 1e-9, a rounding level (a corrupted
-# sweep moves it by O(1)), where the stored operator is exact: in float64,
-# and in bf16 on ex23's bands (-1, 2, -1).  Where bf16 rounds the bands
-# ("cd": -1.4, 2.2, -0.6) the sweep applies the demoted operator while
-# c = A^T 1 is the full-precision one, so the column reads (c_bf16 - c)^T w',
-# ~1e-3: such a case is held to the reference's row to rtol 1e-9 instead.
-ROUNDED_BANDS = {"pipebicgstab-bf16", "depth2-bf16"}
+# sweep moves it by O(1)).  The PIPECG and p-BiCGStab sweeps check the
+# operator they stream: with bf16 storage their c is the column sums of
+# the demoted bands, as the JAX halo wrappers sum them (H9), so the
+# column stays at rounding level where bf16 rounds the bands ("cd": -1.4,
+# 2.2, -0.6) too.  The depth body's deviation row takes the
+# full-precision c, as the JAX depth body does, so where bf16 rounds the
+# bands it reads the demotion error, ~1e-3: such a case is held to the
+# reference's row to rtol 1e-9 instead.
+ROUNDED_BANDS = {"depth2-bf16"}
 
 
 @pytest.mark.parametrize("name", [n for n in NAMES
@@ -586,17 +590,16 @@ def test_unsupported_options_raise(one_rank):
     cases = [
         (ValueError, "needs solver pipecg_l",
          dict(engine="sharded_fused", l=2)),
-        (NotImplementedError, "item 10",
-         dict(engine="sharded_fused", precision="bf16_int8wire")),
-        (NotImplementedError, "item 11",
-         dict(engine="sharded_fused", x0=torch.zeros(4096))),
-        (NotImplementedError, "item 11",
-         dict(engine="sharded_fused", with_state=True)),
+        (ValueError, "not both",
+         dict(engine="sharded_fused", x0=torch.zeros(4096),
+              carried=dict(x=torch.zeros(1, 4096)))),
         (ValueError, "M must be None",
          dict(engine="sharded_fused", M=lambda z: z)),
         (ValueError, "engine=None", dict(engine="fused")),
         (ValueError, "warm start", dict(x0=torch.zeros(4096))),
         (ValueError, "engine='sharded_fused'", dict(precision="bf16")),
+        (ValueError, "engine='sharded_fused'",
+         dict(precision="bf16_int8wire")),
         (ValueError, "recorder", dict(recorder=[])),
         (TypeError, "unsupported kwargs",
          dict(engine="sharded_fused", block=256)),
@@ -614,6 +617,21 @@ def test_unsupported_options_raise(one_rank):
             distributed_solve(pipecg, T, b, maxiter=3, **kw) \
                 if "options" not in kw else \
                 distributed_solve(pipecg, T, b, **kw)
+    # the int8 wire and the warm start run on the PIPECG body
+    wire = distributed_solve(pipecg, T, b, engine="sharded_fused",
+                             maxiter=3, precision="bf16_int8wire")
+    assert torch.isfinite(wire.res_history).all()
+    cold = distributed_solve(pipecg, T, b, engine="sharded_fused",
+                             maxiter=3)
+    warm = distributed_solve(pipecg, T, b, engine="sharded_fused",
+                             maxiter=3, x0=torch.zeros(4096))
+    assert torch.equal(warm.res_history, cold.res_history)
+    pair = distributed_solve(pipecg, T, b, engine="sharded_fused",
+                             maxiter=3, with_state=True)
+    assert isinstance(pair, tuple) and len(pair) == 2
+    assert sorted(pair[1]) == ["alpha_prev", "done", "gamma_prev", "p",
+                               "r", "u", "x"]
+    assert pair[1]["x"].shape == (1, 4096)
     # use_kernel=True runs the extended-x SpMV entry (its plain version
     # on the CPU) and gives the plain-torch route's numbers
     kernel = distributed_solve(cg, T, b, maxiter=3, use_kernel=True)
@@ -648,13 +666,14 @@ def test_unsupported_options_raise(one_rank):
     for exc, match, kw in (
             (ValueError, "mid-recurrence", dict(x0=torch.zeros(4096))),
             (ValueError, "mid-recurrence", dict(with_state=True)),
-            (NotImplementedError, "item 10",
-             dict(precision="bf16_int8wire")),
             (ValueError, "M must be None", dict(M=lambda z: z)),
             (TypeError, "unsupported kwargs", dict(rr=3))):
         with pytest.raises(exc, match=match):
             distributed_solve(pipebicgstab, T, b, engine="sharded_fused",
                               maxiter=3, **kw)
+    assert torch.isfinite(distributed_solve(
+        pipebicgstab, T, b, engine="sharded_fused", maxiter=3,
+        precision="bf16_int8allwire").res_history).all()
     with pytest.raises(ValueError, match="single-RHS"):
         distributed_solve(pipebicgstab, T, torch.stack([b, b]),
                           engine="sharded_fused", maxiter=3)
@@ -685,6 +704,8 @@ def test_geometry_routes_raise_as_the_reference(one_rank, monkeypatch):
                 (ValueError, "depth-1 only", pipecg, b, dict(l=2)),
                 (ValueError, "solve dtype only", pipecg, b,
                  dict(precision="bf16")),
+                (ValueError, "solve dtype only", pipecg, b,
+                 dict(precision="bf16_int8wire")),
                 (TypeError, "unsupported kwargs", pipecg, b,
                  dict(x0=torch.zeros_like(b))),
                 (ValueError, "M must be None", pipecg, b,

@@ -80,7 +80,13 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.core.stats.cramer_von_mises",
             "repro_torch.core.stats.lilliefors",
             "repro_torch.core.stats.report",
-            "repro_torch.convert"} <= set(names)
+            "repro_torch.convert",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.fault",
+            "repro_torch.core.noise.faults",
+            "repro_torch.core.perfmodel.resync",
+            "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpoint"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
