@@ -124,11 +124,13 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    halo / wait / launch / issue and the bytes a strip for each cell;
    then ``[resilient]``: ``resilient_distributed_solve`` on 4 ranks at
    n = 2,097,144 (tol 1e-10, a checkpoint every 10 iterations):
-   undisturbed, kill:1@14, kill:1@14 + kill:3@26, corrupt:2@8 and
-   stall:0@5, their recovery events and their overhead against 2x
-   ``recovery_overhead_bound``, a checkpoint save of the carried state
-   timed, ``optimal_checkpoint_period`` at it, and the carried hand-off
-   from 4 ranks to 2 against the straight solve;
+   undisturbed, kill:1@14, kill:1@14 + kill:3@26, corrupt:2@8,
+   stall:0@5, stall:0@5 + corrupt:2@25 and kill:1@14 + kill:3@32, their
+   recovery events and their overhead against 2x
+   ``recovery_overhead_bound``, a checkpoint save of the handed-off
+   device state timed as the loop makes it (host copy, background
+   write), ``optimal_checkpoint_period`` at the copy's cost, and the
+   carried hand-off from 4 ranks to 2 against the straight solve;
 6. LM: ``[wkv]``, the ``ops.wkv_recurrent`` entry once at rwkv6-7b's
    shape with the counts set to 0 just before it and read just after it;
    ``[serve]``, ``launch.serve.serve`` of qwen3-1.7b at full width (28
@@ -2544,10 +2546,29 @@ def phase_wire(records):
                   f"[wire] n={n}: no-EF not degraded ({noef:.4f})")
 
 
-def handoff_ranks(rank: int, world: int, A, b, device: str):
+def checkpoint_save_ms(state, directory: str, dev):
+    """One ``CheckpointManager.save`` of ``state`` as the resilient loop
+    makes it: ms of the host copy the segment waits for, ms of the
+    background write that ``wait()`` drains, and the bytes saved."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(directory, keep=1, async_write=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    t1 = time.perf_counter()
+    mgr.wait()
+    t2 = time.perf_counter()
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, nbytes
+
+
+def handoff_ranks(rank: int, world: int, A, b, device: str, save_dir: str):
     """Rank body of [resilient]'s carried hand-off: 10 iterations on every
     rank, the state handed to the first half, 30 more there, beside the
-    straight 40 (distributed/fault.py's warm start)."""
+    straight 40 (distributed/fault.py's warm start).  Rank 0 also times a
+    checkpoint save of the handed-off device state into ``save_dir``."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.krylov import distributed_solve, pipecg
@@ -2560,6 +2581,7 @@ def handoff_ranks(rank: int, world: int, A, b, device: str):
     straight = distributed_solve(pipecg, A, b, maxiter=40, **kw)
     _, state = distributed_solve(pipecg, A, b, maxiter=10, with_state=True,
                                  **kw)
+    save = checkpoint_save_ms(state, save_dir, dev) if rank == 0 else None
     half = dist.new_group(ranks=list(range(world // 2)))
     out = None
     if rank < world // 2:
@@ -2568,14 +2590,15 @@ def handoff_ranks(rank: int, world: int, A, b, device: str):
         out = (second.x.cpu().numpy(), float(second.res_norm))
     dist.barrier()
     return dict(straight=(straight.x.cpu().numpy(),
-                          float(straight.res_norm)), second=out)
+                          float(straight.res_norm)), second=out, save=save)
 
 
-def resilient_ranks(rank: int, world: int, spec, A, b, device: str):
+def resilient_ranks(rank: int, world: int, spec, A, b, device: str,
+                    save_dir: str):
     """Rank body of [resilient]: the resilient cases, then the hand-off."""
     from repro_torch.distributed import fault
     return (fault.resilient_cases(rank, world, spec, device),
-            handoff_ranks(rank, world, A, b, device))
+            handoff_ranks(rank, world, A, b, device, save_dir))
 
 
 def phase_resilient(records):
@@ -2583,18 +2606,21 @@ def phase_resilient(records):
 
     Cases: undisturbed, kill:1@14, kill:1@14 + kill:3@26, corrupt:2@8,
     stall:0@5 (no ambient noise, 1 ms stalls: the detector reads recorded
-    waits), each with the launch counts of its segments summed; then the
-    carried hand-off 4 -> 2.  Gates: tests/test_torch_fault.py's
+    waits), and two rollbacks after a segment accepted without a rank,
+    stall:0@5 + corrupt:2@25 and kill:1@14 + kill:3@32, each with the
+    launch counts of its segments summed; then the carried hand-off 4 ->
+    2.  Gates: tests/test_torch_fault.py's
     assertions (the double kill's true residual in relative form), and
     the overhead in iterations (executed minus undisturbed; a stall's
     ``detect_iters``) within 2x ``recovery_overhead_bound`` a fault.
-    Prints segments, recoveries, ms a segment, a synchronous checkpoint
-    save of the carried state and ``optimal_checkpoint_period`` at it.
+    Prints segments, recoveries, ms a segment, a checkpoint save of the
+    hand-off's device state as the loop makes it (the host copy a segment
+    waits for, the background write apart) and
+    ``optimal_checkpoint_period`` at the copy's cost.
     """
     import tempfile
 
     import torch
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.krylov import tridiagonal_laplacian
     from repro_torch.core.krylov.operators import DiaMatrix
     from repro_torch.core.perfmodel import (optimal_checkpoint_period,
@@ -2609,17 +2635,19 @@ def phase_resilient(records):
     norm_b = float(torch.linalg.norm(b))
     names = {"undisturbed": None, "kill": ["kill:1@14"],
              "double kill": ["kill:1@14", "kill:3@26"],
-             "corrupt": ["corrupt:2@8"], "stall": ["stall:0@5"]}
+             "corrupt": ["corrupt:2@8"], "stall": ["stall:0@5"],
+             "stall + corrupt": ["stall:0@5", "corrupt:2@25"],
+             "late double kill": ["kill:1@14", "kill:3@32"]}
     with tempfile.TemporaryDirectory(prefix="resilient_") as tmp:
         spec = [dict(A=A, b=b, faults=f, seed=k,
-                     fault_kw=dict(stall_s=1e-3) if name == "stall" else {},
+                     fault_kw=dict(stall_s=1e-3) if "stall" in name else {},
                      kw=dict(tol=RES_TOL, maxiter=160,
                              checkpoint_period=RES_PERIOD,
                              ckpt_dir=f"{tmp}/{k}"))
                 for k, (name, f) in enumerate(names.items())]
         t0 = time.perf_counter()
         both = ranks.run(resilient_ranks, RANKS, spec, A, b, DEVICE,
-                         device=DEVICE)
+                         f"{tmp}/save", device=DEVICE)
         out, hand = [o for o, _ in both], [h for _, h in both]
         say("resilient", n=RES_N, ranks=RANKS,
             spawn_and_solves_s=f"{time.perf_counter() - t0:.1f}")
@@ -2669,7 +2697,18 @@ def phase_resilient(records):
               == [("stall", "evict_continue", 0)]
               and st["n_shards_final"] == 3,
               "[resilient] stall:0@5 not evicted")
-        for name in ("kill", "double kill", "corrupt", "stall"):
+        # rollbacks after a segment accepted without a rank
+        sc = reps["stall + corrupt"]
+        check([(e["kind"], e["shard"]) for e in sc["recoveries"]]
+              == [("stall", 0), ("corrupt", 2)]
+              and sc["n_shards_final"] == 3,
+              "[resilient] stall:0@5 + corrupt:2@25 not recovered")
+        lk = reps["late double kill"]
+        check([(e["kind"], e["shard"]) for e in lk["recoveries"]]
+              == [("kill", 1), ("kill", 3)] and lk["n_shards_final"] == 2
+              and lk["true_res_norm"] < 1e-8 * norm_b,
+              "[resilient] kill:1@14 + kill:3@32 not recovered")
+        for name in list(names)[1:]:
             rep = reps[name]
             kinds = [e["kind"] for e in rep["recoveries"]]
             bound_iters = sum(recovery_overhead_bound(k, RES_PERIOD)
@@ -2685,19 +2724,12 @@ def phase_resilient(records):
             records[kernel]["launches"] += sum(
                 sum(o[k]["launches"][kernel] for k in range(len(names)))
                 for o in out)
-        # one synchronous save of the carried state (x, r, u, p at n)
-        state = {k: torch.zeros((1, RES_N), dtype=torch.float64)
-                 for k in ("x", "r", "u", "p")}
-        state.update(gamma_prev=torch.ones(1), alpha_prev=torch.ones(1),
-                     done=torch.zeros(1, dtype=torch.bool))
-        mgr = CheckpointManager(f"{tmp}/save", keep=1, async_write=False)
-        t0 = time.perf_counter()
-        mgr.save(1, state)
-        save_ms = (time.perf_counter() - t0) * 1e3
+    copy_ms, write_ms, save_bytes = hand[0]["save"]
     seg_ms = np.mean(reps["undisturbed"]["segment_walls"]) * 1e3
-    cost_iters = save_ms / (seg_ms / RES_PERIOD)
-    say("resilient", checkpoint_save_ms=f"{save_ms:.1f}",
-        bytes=4 * RES_N * 8, ms_per_iter=f"{seg_ms / RES_PERIOD:.3f}",
+    cost_iters = copy_ms / (seg_ms / RES_PERIOD)
+    say("resilient", checkpoint_copy_ms=f"{copy_ms:.1f}",
+        checkpoint_write_ms=f"{write_ms:.1f}", bytes=save_bytes,
+        ms_per_iter=f"{seg_ms / RES_PERIOD:.3f}",
         save_cost_iters=f"{cost_iters:.2f}",
         optimal_period_at_fault_rate=" ".join(
             f"{lam:g}:{optimal_checkpoint_period(cost_iters, lam):.1f}"

@@ -128,32 +128,24 @@ def halo_exchange_compressed(x: torch.Tensor, halo: int, group,
     q_lo, s_lo, ef_lo_new = comp.compress_halo(
         x[..., :halo], ef_lo if use_ef else None)
 
-    def pack(q, s):
-        return torch.cat([s.reshape(1).view(torch.int8), q.reshape(-1)])
+    # one cat: row 0 (the low strip) goes to the low neighbour, row 1 to
+    # the high one
+    packed = torch.cat([s_lo.reshape(1).view(torch.int8), q_lo.reshape(-1),
+                        s_hi.reshape(1).view(torch.int8), q_hi.reshape(-1)]
+                       ).view(2, -1)
+    from_low, from_high = _chain_exchange(packed, 1, 0, group)
 
-    staged = comm.host_staged(x.device, group)
-    nbytes = 4 + q_hi.numel()
-    low = rank - 1 if rank > 0 else None
-    high = rank + 1 if rank < world - 1 else None
-    sends, recvs, bufs = [], [], {}
-    for peer, packed in ((low, pack(q_lo, s_lo)), (high, pack(q_hi, s_hi))):
-        if peer is None:
-            continue
-        bufs[peer] = comm.wire_buffer((nbytes,), packed, staged)
-        sends.append((peer, comm.to_wire(packed, staged)))
-        recvs.append((peer, bufs[peer]))
-    comm.exchange(sends, recvs, group)
-
-    def unpack(peer):
-        if peer is None:
+    def unpack(buf, present):
+        if not present:     # the end of the chain: the zero extension
             return torch.zeros(shape, dtype=x.dtype, device=x.device)
-        buf = bufs[peer].to(x.device)
+        buf = buf.reshape(-1)
         return comp.decompress_halo(buf[4:].reshape(shape),
                                     buf[:4].view(torch.float32), x.dtype)
 
     if not use_ef:
         ef_lo_new, ef_hi_new = torch.zeros_like(ef_lo), torch.zeros_like(ef_hi)
-    return unpack(low), unpack(high), ef_lo_new, ef_hi_new
+    return (unpack(from_low, rank > 0), unpack(from_high, rank < world - 1),
+            ef_lo_new, ef_hi_new)
 
 
 def _tick(noise, rank: int, like: torch.Tensor) -> torch.Tensor:

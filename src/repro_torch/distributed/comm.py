@@ -107,10 +107,8 @@ def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,
     """
     shape = list(v.shape)
     shape[axis] = w
-    from_low = torch.zeros(shape, dtype=v.dtype, device=v.device)
-    from_high = torch.zeros_like(from_low)
-    if w == 0 or (low is None and high is None):
-        return from_low, from_high
+    if w == 0:
+        low = high = None
     staged = host_staged(v.device, group)
     ext = v.shape[axis]
     sends, recvs, bufs = [], [], {}
@@ -121,11 +119,14 @@ def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,
         sends.append((peer, to_wire(v.narrow(axis, start, w), staged)))
         recvs.append((peer, bufs[peer]))
     exchange(sends, recvs, group)
-    if low is not None:
-        from_low = bufs[low].to(v.device)
-    if high is not None:
-        from_high = bufs[high].to(v.device)
-    return from_low, from_high
+
+    # a strip that arrived is used as it is; zeros only where none did
+    def received(peer):
+        if peer is None:
+            return torch.zeros(shape, dtype=v.dtype, device=v.device)
+        return bufs[peer].to(v.device)
+
+    return received(low), received(high)
 
 
 def wire_buffer(shape, like: torch.Tensor, staged: bool) -> torch.Tensor:

@@ -311,9 +311,13 @@ def resilient_distributed_solve(
         + max_recoveries * 2 + 4
 
     def rollback():
-        """The last good checkpoint's iterate (survivors) and counts."""
+        """The last good checkpoint's iterate (survivors) and counts.
+
+        Decided on ``ckpt_steps``, which every rank shares: a rank outside
+        ``alive`` holds no carried state, but still joins the barrier.
+        """
         x = None
-        if last_good is not None:
+        if ckpt_steps > 0:
             ckpt.wait()
             dist.barrier(group=group)
             if me in alive:
@@ -463,7 +467,9 @@ def resilient_distributed_solve(
         accepted = True
         result = res
         productive += seg_len
-        carried = last_good = carried_out
+        carried = carried_out
+        if carried_out is not None:     # a rank outside alive keeps its own
+            last_good = carried_out
         last_good_iters, last_good_res = productive, res_norm
         res_prev = max(res_norm, tol * norm_b, 1e-300)
         ckpt_steps += 1

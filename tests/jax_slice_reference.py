@@ -125,9 +125,12 @@ def precision_problems(n: int):
                          np.where((i + o >= 0) & (i + o < n), -1.0, 0.0)
                          for o in offsets])
 
+    # the stage's bands are -1 and 3 for p-BiCGStab, exact in bf16; the
+    # rounded variant's 3.1 becomes 3.09375 there (the H9 check)
     return {"pipecg": ((-128, -1, 0, 1, 128), band((-128, -1, 0, 1, 128),
                                                    4.1)),
-            "pipebicgstab": ((-1, 0, 1), band((-1, 0, 1), 3.0))}
+            "pipebicgstab": ((-1, 0, 1), band((-1, 0, 1), 3.0)),
+            "pipebicgstab-rounded": ((-1, 0, 1), band((-1, 0, 1), 3.1))}
 
 
 def elastic_problem(n: int = 240):
@@ -172,7 +175,8 @@ def _wire_cases(cfg, out):
     for case in cfg["wire"]:
         solver, policy, world, iters = (case["solver"], case["policy"],
                                         case["world"], case["maxiter"])
-        offs, bands = probs[solver]
+        problem = case.get("problem", solver)
+        offs, bands = probs[problem]
         A = DiaMatrix(offsets=offs, bands=jnp.asarray(bands))
         mesh = Mesh(np.asarray(jax.devices()[:world]), ("shards",))
         opts = jk.SolverOptions(maxiter=iters, engine="sharded_fused",
@@ -181,7 +185,7 @@ def _wire_cases(cfg, out):
         res = jax.jit(functools.partial(
             jk.distributed_solve, getattr(jk, solver), A, mesh=mesh,
             options=opts))(jnp.asarray(rhs[solver]))
-        out[f"wire/{solver}/{policy}/{world}"] = _result(res)
+        out[f"wire/{problem}/{policy}/{world}"] = _result(res)
 
 
 def _elastic_cases(cfg, out):

@@ -19,8 +19,11 @@ hand-off 4 -> 2 (10 + 30 iterations) equals the straight 40 to 1e-10;
 an ``x0=`` restart; an undisturbed solve; ``kill:1@14``;
 ``kill:1@14`` + ``kill:3@26``; ``corrupt:2@8``; ``stall:0@5`` (no
 ambient noise, ``stall_s=1e-3``: the detector reads recorded waits, not
-wall time); and a clean bf16 segment loop, whose checksum must not trip
-(H9).  test_elastic.py's assertions hold, and each case's recovery events
+wall time); a clean bf16 segment loop, whose checksum must not trip
+(H9); and two rollbacks that follow a segment accepted without a rank,
+``stall:0@5`` + ``corrupt:2@25`` and ``kill:1@14`` + ``kill:3@32``
+(every process, the evicted and the dead ones too, passes the restore's
+barrier).  test_elastic.py's assertions hold, and each case's recovery events
 and iteration counts equal the JAX run's, x to 1e-8 relative.
 """
 import dataclasses
@@ -339,6 +342,12 @@ ELASTIC = [
     dict(name="stall", maxiter=120, faults=["stall:0@5"],
          fault_kw=dict(stall_s=1e-3)),
     dict(name="bf16", maxiter=120, precision="bf16"),
+    # rollbacks after a segment accepted without a rank: the rank outside
+    # the survivors must still join the restore's barrier
+    dict(name="stall-corrupt", maxiter=120,
+         faults=["stall:0@5", "corrupt:2@25"], fault_kw=dict(stall_s=1e-3)),
+    dict(name="late-double-kill", maxiter=160,
+         faults=["kill:1@14", "kill:3@32"], seed=5),
 ]
 
 
@@ -489,6 +498,15 @@ def test_elastic_assertions_of_the_reference(elastic):
     assert rep["converged"] and rep["n_shards_final"] == 3
     assert [(e["kind"], e["mode"], e["shard"]) for e in rep["recoveries"]] \
         == [("stall", "evict_continue", 0)]
+    rep = _case(elastic, "stall-corrupt")[0][0]["report"]
+    assert rep["converged"] and rep["n_shards_final"] == 3
+    assert [(e["kind"], e["shard"]) for e in rep["recoveries"]] == [
+        ("stall", 0), ("corrupt", 2)]
+    rep = _case(elastic, "late-double-kill")[0][0]["report"]
+    assert rep["converged"] and rep["n_shards_final"] == 2
+    assert [(e["kind"], e["shard"]) for e in rep["recoveries"]] == [
+        ("kill", 1), ("kill", 3)]
+    assert rep["true_res_norm"] < 1e-8
     # H9: a clean bf16 loop never trips the checksum detector
     rep = _case(elastic, "bf16")[0][0]["report"]
     assert rep["converged"] and not rep["recoveries"]

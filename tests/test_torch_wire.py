@@ -57,10 +57,10 @@ def _window(policy):
     return 30 if policy == "fp32" else 12
 
 
-def _problem(solver):
-    offs, bands = R.precision_problems(N)[solver]
+def _problem(problem):
+    offs, bands = R.precision_problems(N)[problem]
     b = (np.random.default_rng(SEED).standard_normal(N)
-         if solver == "pipecg" else np.ones(N))
+         if problem == "pipecg" else np.ones(N))
     return offs, bands, b
 
 
@@ -68,10 +68,25 @@ def _cells():
     return [(s, p) for s in SOLVERS for p in POLICIES]
 
 
+# the problem of each solver's H9 cell under bf16: the stage's
+# p-BiCGStab bands are exact in bf16, so it gets a variant that rounds,
+# run after the stage's cells
+H9_PROBLEMS = {"pipecg": "pipecg", "pipebicgstab": "pipebicgstab-rounded"}
+
+
+def _h9_index(solver):
+    """Index of ``solver``'s H9 cell among the port's cases."""
+    if solver == "pipecg":
+        return _cells().index(("pipecg", "bf16"))
+    return len(_cells())
+
+
 def _port_cases():
     out = []
-    for solver, policy in _cells():
-        offs, bands, b = _problem(solver)
+    cells = [(s, s, p) for s, p in _cells()]
+    cells.append(("pipebicgstab", H9_PROBLEMS["pipebicgstab"], "bf16"))
+    for solver, problem, policy in cells:
+        offs, bands, b = _problem(problem)
         out.append(dict(solver=solver,
                         A=DiaMatrix(offsets=offs,
                                     bands=torch.from_numpy(bands.copy())),
@@ -84,9 +99,12 @@ def _port_cases():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("wire") / "ref.pkl")
-    cfg = dict(devices=4, n=N, seed=SEED, out=out, elastic=[],
-               wire=[dict(solver=s, policy=p, world=w, maxiter=_window(p))
-                     for w in WORLDS for s, p in _cells()])
+    wire = [dict(solver=s, policy=p, world=w, maxiter=_window(p))
+            for w in WORLDS for s, p in _cells()]
+    wire += [dict(solver="pipebicgstab",
+                  problem=H9_PROBLEMS["pipebicgstab"], policy="bf16",
+                  world=w, maxiter=_window("bf16")) for w in WORLDS]
+    cfg = dict(devices=4, n=N, seed=SEED, out=out, elastic=[], wire=wire)
     proc = R.start(cfg)
     try:
         port = {w: ranks.run(ranks.solve_cases, w, _port_cases(), "cpu",
@@ -192,15 +210,18 @@ def test_halo_payload_is_int8_under_the_wire(runs, world, solver):
 def test_h9_checksum_row_checks_the_streamed_operator(runs, world, solver):
     """H9, decided: under bf16 storage the sweeps' column sums are those
     of the demoted operator, summed at bf16 as the JAX halo wrappers sum
-    them.  The pentadiagonal band's 4.1 rounds to 4.09375 in bf16, so a
-    c taken from the full-precision operator would leave (c - c_bf16)^T u'
-    in the row; in both packages the row stays at rounding level."""
+    them.  The pentadiagonal band's 4.1 rounds to 4.09375 in bf16, and
+    p-BiCGStab's cell runs the tridiagonal with 3.1 (3.09375 in bf16:
+    the stage's -1 and 3 are exact there), so a c taken from the
+    full-precision operator would leave (c - c_bf16)^T u' in the row; in
+    both packages the row stays at rounding level."""
     port, ref = runs
-    offs, bands, _ = _problem(solver)
+    problem = H9_PROBLEMS[solver]
+    offs, bands, _ = _problem(problem)
     demoted = torch.from_numpy(bands).to(torch.bfloat16).double().numpy()
-    assert (solver == "pipebicgstab") or not np.array_equal(demoted, bands)
-    i = _cells().index((solver, "bf16"))
-    want = ref[f"wire/{solver}/bf16/{world}"]["detect_history"]
+    assert not np.array_equal(demoted, bands)
+    i = _h9_index(solver)
+    want = ref[f"wire/{problem}/bf16/{world}"]["detect_history"]
     assert np.abs(want).max() < 1e-9
     for rank_out in port[world]:
         got = rank_out[i]["detect_history"]
