@@ -142,6 +142,18 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    logits against the dense route's on the same weights and prompt and
    its second token against a prefill over prompt + first token, at the
    JAX package's bf16 bars (|diff| <= 0.15, argmax agreement >= 0.5);
+   then ``[solve_serve]``: solver serving at ex23's n = 2,097,152 on the
+   fused engine, ``run_serve_exec`` with the JAX package's serve workload
+   (64 requests of 32-256 Laplacian modes, tol 1e-8, maxiter 600, k = 8
+   slots, blocks of 8: burst batched against a k = 1 server, 4 requests
+   solo against their batched records bit for bit, rho 0.7 paced
+   arrivals and the M/G/k quantiles within 0.10 of the 16,384-request
+   replay) and a ``SolverServer`` over 16 trace-paced requests under
+   the reference's chaos lane, the counts set to 0 just before and read
+   just after, each run's launches held to its blocks and admissions
+   (one sweep an iteration, two SpMVs an admission); each request
+   converged or reported not converged after maxiter (H14): requests/s,
+   occupancy, p50/p99/p999, ms a block, restarts and detections;
 7. model: ``asymptotic_speedup`` as in examples/quickstart.py, a
    ``simulate(Exponential(1), P=8192, K=200, trials=256)`` on the card,
    the s-sync model (``s_sync_speedup``, ``s_sync_ceiling``) and the depth
@@ -267,6 +279,21 @@ FLASH_F32_TOL = 2e-5
 WKV_REL_TOL = 2e-5
 LOGIT_TOL = 0.15
 ARGMAX_AGREE = 0.5
+# solver serving ([solve_serve]): the JAX package's serve workload (its
+# CampaignSpec defaults: 64 requests of 32-256 Laplacian modes, tol 1e-8,
+# maxiter 600, k = 8 slots, blocks of 8, rho 0.7, a 16,384-request
+# replay) at ex23's n on the fused engine; the chaos lane of the
+# reference's tests/test_serve.py on 16 trace-paced requests; the model's
+# p50/p99 within the stage's 0.10 of the replay
+SOLVE_SERVE_CHAOS = ("kill:1@3", "stall:0@6", "kill:2@9", "corrupt:3@5")
+SOLVE_SERVE_CHAOS_REQUESTS = 16
+SOLVE_SERVE_MODEL_TOL = 0.10
+SOLVE_SERVE_TIMED_BLOCKS = 10
+# the requests of the seed-0 workload that stop at maxiter 600 at this n
+# (ROADMAP H14), by run; each is held to the naive engine's true residual
+# at the same maxiter
+SOLVE_SERVE_CAPPED = {"burst batched": [2, 12], "burst sequential": [2, 12],
+                      "paced": [32], "chaos": [4]}
 
 
 # the row-window sweeps (#2, #3, #8, #9), the ghost-chain sweep (#4, #5),
@@ -2865,6 +2892,288 @@ def phase_serve(records):
         second_token_vs_prefill=f"{agree2:.2f}")
 
 
+def serve_mode_minima(n: int, count: int, modes, seed: int):
+    """Each request's smallest excited mode: the host draws of
+    ``serve.load.synthetic_requests`` replayed (mode count, mode indices,
+    one coefficient a mode, in that order)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        m = int(rng.integers(modes[0], modes[1] + 1))
+        js = rng.choice(n, size=m, replace=False) + 1
+        for _ in js:
+            rng.standard_normal()
+        out.append(int(js.min()))
+    return out
+
+
+def serve_run_checks(name: str, counts: dict, step_block: int) -> None:
+    """One server run's launches against its own bookkeeping: a sweep a
+    batch iteration, two SpMVs a batcher init or admission (restarts are
+    admissions), nothing else; and no detection outside the chaos run."""
+    sweeps = counts["launches"]["pipecg_spmv_fused"]
+    spmvs = counts["launches"]["spmv_dia"]
+    check(sweeps == step_block * counts["blocks"],
+          f"{name}: {sweeps} sweeps for {counts['blocks']} blocks")
+    check(spmvs == 2 * (counts["batcher_inits"] + counts["admissions"]),
+          f"{name}: {spmvs} SpMVs for {counts['admissions']} admissions")
+    check(sum(counts["launches"].values()) == sweeps + spmvs,
+          f"{name}: other kernels {counts['launches']}")
+
+
+def serve_converged(name: str, records, reqs) -> list:
+    """Every request retired once, and each either converged (true
+    residual within 1.01 tol ||b||: the server's host exit check, re-read
+    here) or ran its whole iteration budget and is reported not converged
+    with a finite true residual above that (ROADMAP H14: at n = 2^21 some
+    of the workload's requests need more than maxiter 600 iterations, in
+    the JAX package too).  Returns the ids of the latter."""
+    import math
+    import torch
+    check(sorted(r.rid for r in records) == sorted(q.rid for q in reqs),
+          f"{name}: records {len(records)} for {len(reqs)} requests")
+    by_rid = {q.rid: q for q in reqs}
+    capped = []
+    for rec in records:
+        req = by_rid[rec.rid]
+        bn = float(torch.linalg.vector_norm(torch.as_tensor(req.b).double()))
+        bar = 1.01 * req.tol * bn
+        if rec.converged and rec.res_norm <= bar:
+            continue
+        check(not rec.converged and rec.iters == req.maxiter
+              and math.isfinite(rec.res_norm) and rec.res_norm > bar,
+              f"{name}: request {rec.rid} res {rec.res_norm:.3e} after "
+              f"{rec.iters} iterations, {rec.restarts} restarts")
+        capped.append(rec.rid)
+    return sorted(capped)
+
+
+def phase_solve_serve(records):
+    """Solver serving at ex23's n = 2,097,152 (float64, the fused engine):
+    ``run_serve_exec`` with the JAX package's serve workload (burst:
+    batched k = 8 against a k = 1 sequential server; accuracy: 4 requests
+    served solo at k = 8 against their batched records, iterations equal
+    and x bit for bit; paced: rho 0.7 Poisson arrivals at the burst's
+    measured rate, the 16,384-request replay and the M/G/k quantiles),
+    then a ``SolverServer`` over 16 trace-paced requests under the
+    reference's chaos lane.  The counts are set to 0 just before and
+    read just after; each run's launches are held to its blocks and
+    admissions."""
+    import dataclasses
+    import torch
+    from repro_torch.experiments import get_preset
+    from repro_torch.experiments.serve_exec import (bench_record, jsonable,
+                                                    run_serve_exec)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ServeChaos, SolverServer, arrival_times,
+                                   synthetic_requests)
+
+    t_phase = time.perf_counter()
+    spec = dataclasses.replace(get_preset("smoke"), serve_n=N_EX23)
+    B, k = spec.serve_step_block, spec.serve_k_slots
+    check(spec.serve_engine == "fused", f"serve engine {spec.serve_engine}")
+    say("solve_serve", n=spec.serve_n, requests=spec.serve_requests,
+        k_slots=k, step_block=B, modes=spec.serve_modes, tol=spec.serve_tol,
+        maxiter=spec.serve_maxiter, rho=spec.serve_rho,
+        replay=spec.serve_replay_requests, engine=spec.serve_engine,
+        state_gb=f"{4 * k * spec.serve_n * 8 / 1e9:.3f}")
+    ops.reset_launch_counts()
+    serve = run_serve_exec(spec, device=DEVICE)
+    kept = serve["_servers"]
+    A = next(iter(kept["batched"].batchers.values())).A
+    lam = serve["paced"]["lam"]
+    reqs = synthetic_requests(
+        A, SOLVE_SERVE_CHAOS_REQUESTS, tol=spec.serve_tol,
+        maxiter=spec.serve_maxiter, modes=spec.serve_modes,
+        arrival=arrival_times("trace:PIPECG", SOLVE_SERVE_CHAOS_REQUESTS,
+                              lam, seed=spec.seed + 11, device=DEVICE),
+        seed=spec.seed + 11)
+    chaos = ServeChaos(list(SOLVE_SERVE_CHAOS))
+    csrv = SolverServer(k_slots=k, step_block=B, chaos=chaos)
+    csrv.warmup(reqs[0])
+    csrv.submit_all(reqs)
+    cstats = csrv.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    seconds = time.perf_counter() - t_phase
+
+    burst, paced = serve["burst"], serve["paced"]
+    runs = {"burst_batched": burst["run_counts"]["batched"],
+            "burst_sequential": burst["run_counts"]["sequential"],
+            "paced": paced["run_counts"], "chaos": csrv.run_counts}
+    runs.update({f"solo_{c['rid']}": c["run_counts"]
+                 for c in serve["accuracy"]})
+    # every server of the phase paid one warmup outside its run: a batcher
+    # init and an admission (4 SpMVs) and one block
+    warmups = len(runs)
+    for name, rc in runs.items():
+        serve_run_checks(name, rc, B)
+        if name != "chaos":
+            check(rc["detections"] == 0 and rc["restarts"] == 0,
+                  f"{name}: a clean run reported {rc['detections']} "
+                  f"detections, {rc['restarts']} restarts")
+    sweeps = sum(rc["blocks"] for rc in runs.values()) * B + warmups * B
+    spmvs = sum(2 * (rc["batcher_inits"] + rc["admissions"])
+                for rc in runs.values()) + 4 * warmups
+    say("solve_serve", launches=json.dumps(counts, separators=(",", ":")),
+        runs=len(runs), sweeps_expected=sweeps, spmvs_expected=spmvs)
+    check(counts["pipecg_spmv_fused"] == sweeps
+          and counts["spmv_dia"] == spmvs
+          and sum(counts.values()) == sweeps + spmvs,
+          f"[solve_serve] launches {counts}")
+    for name in ("pipecg_spmv_fused", "spmv_dia"):
+        records[name]["launches"] += counts[name]
+
+    b, s = burst["batched"], burst["sequential"]
+    minima = serve_mode_minima(spec.serve_n, spec.serve_requests,
+                               spec.serve_modes, spec.seed)
+    by_rid = {r.rid: r for r in kept["batched"].records}
+    say("solve_serve", requests="rid:min_mode:iters:restarts:true_res",
+        burst=" ".join(f"{i}:{j}:{by_rid[i].iters}:{by_rid[i].restarts}:"
+                       f"{by_rid[i].res_norm:.3e}"
+                       for i, j in enumerate(minima)))
+    pminima = serve_mode_minima(spec.serve_n, spec.serve_requests,
+                                spec.serve_modes, spec.seed + 2)
+    by_rid = {r.rid: r for r in kept["paced"].records}
+    say("solve_serve", requests="rid:min_mode:iters:restarts:true_res",
+        paced=" ".join(f"{i}:{j}:{by_rid[i].iters}:{by_rid[i].restarts}:"
+                       f"{by_rid[i].res_norm:.3e}"
+                       for i, j in enumerate(pminima)))
+    capped = {
+        "burst batched": serve_converged("burst batched",
+                                         kept["batched"].records,
+                                         kept["burst_requests"]),
+        "burst sequential": serve_converged("burst sequential",
+                                            kept["sequential"].records,
+                                            kept["burst_requests"]),
+        "paced": serve_converged("paced", kept["paced"].records,
+                                 kept["paced_requests"])}
+    for name, st in (("burst batched", b), ("burst sequential", s),
+                     ("paced", paced["wall"])):
+        check(st["drained"] and st["n_converged"] + len(capped[name])
+              == st["n_requests"],
+              f"{name}: drained {st['drained']}, converged "
+              f"{st['n_converged']} of {st['n_requests']}")
+    check(capped["burst batched"] == capped["burst sequential"],
+          f"capped requests differ between k = {k} and k = 1: {capped}")
+    blocks = runs["burst_batched"]["blocks"]
+    seq_blocks = runs["burst_sequential"]["blocks"]
+    ms_block = b["wall_s"] / blocks * 1e3
+    seq_ms_block = s["wall_s"] / seq_blocks * 1e3
+    say("solve_serve", stage="burst",
+        batched_rps=f"{b['throughput_rps']:.4f}",
+        sequential_rps=f"{s['throughput_rps']:.4f}",
+        ratio=f"{burst['throughput_speedup']:.4f}",
+        occupancy=f"{b['occupancy_mean']:.4f}",
+        p50_s=f"{b['latency']['p50']:.4f}",
+        p99_s=f"{b['latency']['p99']:.4f}",
+        p999_s=f"{b['latency']['p999']:.4f}",
+        blocks=blocks, ms_per_block=f"{ms_block:.4f}",
+        ms_per_iter=f"{ms_block / B:.4f}",
+        sequential_blocks=seq_blocks,
+        sequential_ms_per_block=f"{seq_ms_block:.4f}",
+        wall_s=f"{b['wall_s']:.3f}", sequential_wall_s=f"{s['wall_s']:.3f}")
+    for c in serve["accuracy"]:
+        check(c["iters_solo"] == c["iters_batched"] and c["bitwise"],
+              f"accuracy rid {c['rid']}: iters {c['iters_solo']} vs "
+              f"{c['iters_batched']}, max diff {c['max_abs_diff']}")
+    say("solve_serve", stage="accuracy",
+        cells=" ".join(f"{c['rid']}:{c['iters_solo']}:{c['max_abs_diff']}"
+                       for c in serve["accuracy"]), bitwise=True)
+    rel = paced["rel_err"]
+    check(rel["p50"] <= SOLVE_SERVE_MODEL_TOL
+          and rel["p99"] <= SOLVE_SERVE_MODEL_TOL,
+          f"M/G/k quantiles vs replay: {rel}")
+    w = paced["wall"]
+    say("solve_serve", stage="paced", lam=f"{lam:.4f}",
+        t_iter_ms=f"{paced['t_iter_s'] * 1e3:.4f}",
+        service_mean_s=f"{paced['service_mean_s']:.4f}",
+        wall_p50_s=f"{w['latency']['p50']:.4f}",
+        wall_p99_s=f"{w['latency']['p99']:.4f}",
+        wall_p999_s=f"{w['latency']['p999']:.4f}",
+        wall_occupancy=f"{w['occupancy_mean']:.4f}",
+        replay_p50_s=f"{paced['sim']['p50']:.4f}",
+        replay_p99_s=f"{paced['sim']['p99']:.4f}",
+        model_p50_s=f"{paced['predicted']['p50']:.4f}",
+        model_p99_s=f"{paced['predicted']['p99']:.4f}",
+        rel_err_p50=f"{rel['p50']:.4f}", rel_err_p99=f"{rel['p99']:.4f}",
+        rel_err_p999=f"{rel['p999']:.4f}",
+        replay_occupancy=f"{paced['sim_occupancy']:.4f}")
+
+    capped["chaos"] = serve_converged("chaos", csrv.records, reqs)
+    check(cstats.drained
+          and cstats.n_converged + len(capped["chaos"]) == len(reqs),
+          f"chaos: drained {cstats.drained}, converged "
+          f"{cstats.n_converged} of {len(reqs)}")
+    say("solve_serve", check="converged, or not converged after maxiter "
+        "(H14)", **{f"capped_{key.replace(' ', '_')}":
+                    ",".join(map(str, v)) or "none"
+                    for key, v in capped.items()})
+    check(spec.seed == 0 and capped == SOLVE_SERVE_CAPPED,
+          f"capped requests {capped}, expected {SOLVE_SERVE_CAPPED} (H14)")
+    fired = [e.kind for e in chaos.events]
+    n_fatal = sum(kind in ("kill", "corrupt") for kind in fired)
+    check(cstats.restarts >= max(2, n_fatal),
+          f"chaos: {cstats.restarts} restarts for faults {fired}")
+    check("corrupt" in fired and "kill" in fired, f"chaos fired {fired}")
+    check(all(d.confirmed for d in csrv.detections),
+          "chaos: an unconfirmed detection (a clean column tripped)")
+    say("solve_serve", stage="chaos", lane=",".join(SOLVE_SERVE_CHAOS),
+        fired=",".join(f"{e.kind}:{e.shard}@{e.at_iter}"
+                       for e in chaos.events),
+        restarts=cstats.restarts, detections=len(csrv.detections),
+        confirmed=sum(bool(d.confirmed) for d in csrv.detections),
+        blocks=runs["chaos"]["blocks"], wall_s=f"{cstats.wall_s:.3f}",
+        p99_s=f"{cstats.latency.p99:.4f}")
+
+    # each capped request served again through the naive engine (plain
+    # torch, no kernel; after the counts were read) at the same maxiter:
+    # the fused serve path's true residual is no larger than its
+    sources = {"burst": kept["burst_requests"],
+               "paced": kept["paced_requests"], "chaos": reqs}
+    served = {"burst batched": ("burst", kept["batched"]),
+              "burst sequential": ("burst", kept["sequential"]),
+              "paced": ("paced", kept["paced"]), "chaos": ("chaos", csrv)}
+    distinct = sorted({(served[name][0], rid) for name, rids in
+                       capped.items() for rid in rids})
+    plain = SolverServer(k_slots=k, step_block=B, engine="naive")
+    plain.submit_all([dataclasses.replace(sources[src][rid], rid=i,
+                                          arrival_s=0.0)
+                      for i, (src, rid) in enumerate(distinct)])
+    plain.run()
+    plain_res = {distinct[r.rid]: r for r in plain.records}
+    versus = []
+    for name, rids in capped.items():
+        src, srv = served[name]
+        recs = {r.rid: r for r in srv.records}
+        for rid in rids:
+            ref = plain_res[(src, rid)]
+            got = recs[rid]
+            check(ref.iters == got.iters and got.res_norm <= ref.res_norm,
+                  f"{name} request {rid}: fused true residual "
+                  f"{got.res_norm:.3e} after {got.iters} iterations, naive "
+                  f"{ref.res_norm:.3e} after {ref.iters}")
+            versus.append(f"{name.replace(' ', '_')}:{rid}:"
+                          f"{got.res_norm:.3e}:{ref.res_norm:.3e}")
+    say("solve_serve", check="capped fused true residual <= naive at "
+        "maxiter", cases="name:rid:fused:naive " + " ".join(versus))
+
+    # the batch step alone (8 frozen columns, no retire work), timed on
+    # the drained batcher after the counts were read
+    cur = next(iter(kept["batched"].batchers.values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SOLVE_SERVE_TIMED_BLOCKS):
+        cur.step()
+    step_ms = (time.perf_counter() - t0) / SOLVE_SERVE_TIMED_BLOCKS * 1e3
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "solve_serve.json").write_text(json.dumps(jsonable(
+        dict(bench_record(serve), detail=serve)), indent=1, sort_keys=True))
+    say("solve_serve", step_only_ms_per_block=f"{step_ms:.4f}",
+        step_only_ms_per_iter=f"{step_ms / B:.4f}", seconds=f"{seconds:.2f}")
+
+
 def phase_model():
     import torch
     from repro_torch.core.perfmodel import (SOLVER_SYNC_COUNTS, Exponential,
@@ -3072,6 +3381,7 @@ def main() -> int:
     phase_resilient(records)
     phase_wkv_entry(records)
     phase_serve(records)
+    phase_solve_serve(records)
     phase_model()
     order = ("spmv_dia", "spmv_dia_ext", "pipecg_spmv_fused",
              "pipecg_spmv_halo",

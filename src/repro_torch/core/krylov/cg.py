@@ -237,9 +237,21 @@ def pipecr(A, b, x0=None, **kw) -> SolveResult:
 # Engine-driven PIPECG (single- and multi-RHS)
 # ---------------------------------------------------------------------------
 
-def _pipecg_scalars(st, first: bool):
-    """(alpha, beta) from the carried fused-reduction results, on device."""
+def _pipecg_scalars(st, first):
+    """(alpha, beta) from the carried fused-reduction results, on device.
+
+    ``first`` is a Python bool for a whole batch, or a per-column bool
+    tensor (the serve batcher admits columns mid-flight, so "first
+    iteration" is per column): both branches are then taken and
+    ``torch.where`` picks per column, as the reference does.
+    """
     gamma, delta = st["gamma"], st["delta"]
+    if isinstance(first, torch.Tensor):
+        beta = torch.where(first, torch.zeros_like(gamma),
+                           gamma / st["gamma_prev"])
+        alpha = torch.where(first, gamma / delta,
+                            gamma / (delta - beta * gamma / st["alpha_prev"]))
+        return alpha, beta
     if first:
         return gamma / delta, torch.zeros_like(gamma)
     beta = gamma / st["gamma_prev"]

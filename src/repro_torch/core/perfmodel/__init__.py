@@ -58,8 +58,13 @@ from repro_torch.core.perfmodel.makespan import (  # noqa: F401
     single_delay_makespans,
 )
 from repro_torch.core.perfmodel.queueing import (  # noqa: F401
+    QueueModel,
     eq6_iteration_time,
     eq7_iteration_time,
+    erlang_c,
+    predicted_sojourn_quantiles,
+    quantile_key,
+    simulate_batch_queue,
 )
 from repro_torch.core.perfmodel.resync import (  # noqa: F401
     FAULT_RECOVERY_KINDS,

@@ -30,8 +30,9 @@ def trace_makespans(times: torch.Tensor) -> Tuple[float, float]:
 
 
 def staggered_delay_trace(W: float, T0: float, K: int, P: int = 2,
-                          device="cpu") -> torch.Tensor:
-    """Process p waits W on step p (p < K), T0 otherwise (Figs. 3-4)."""
+                          device="cuda") -> torch.Tensor:
+    """Process p waits W on step p (p < K), T0 otherwise (Figs. 3-4), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     times = torch.full((K, P), float(T0), dtype=torch.float64, device=device)
     for p in range(min(P, K)):
         times[p, p] = W

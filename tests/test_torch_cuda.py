@@ -27,7 +27,11 @@ takes powers of two).  The LM kernels sum in another order than their
 plain versions' matmuls: ``flash_attention`` is held to its float32 plain
 version, to 2e-5 on float32 inputs and, on bfloat16 inputs (P rounded to
 bf16 on the tensor cores), to the two-part bar of
-``flash_attn.bf16_error``; ``wkv_recurrent`` to 2e-5 of max |o|.
+``flash_attn.bf16_error``; ``wkv_recurrent`` to 2e-5 of max |o|.  The
+serve batcher on the fused sweep (k = 8): retired columns equal solo
+serves bit for bit, a NaN-poisoned column and garbage in free columns
+leave the live columns' bits alone, and a mid-flight admission perturbs
+no in-flight column.
 """
 import pytest
 import torch
@@ -1186,3 +1190,88 @@ def test_window_sweeps_mask_rows_past_n_valid(cuda, entry):
         assert torch.equal(gv, fv)
     assert _partial_rel(got[nvec], want) <= 1e-10
     assert not torch.allclose(got[nvec], full[nvec])
+
+
+# -- the serve batcher on the fused sweep (kernel #2 at k = 8) ---------------
+
+def _serve_on_card(reqs, k=8):
+    import dataclasses
+    from repro_torch.serve import SolverServer
+    srv = SolverServer(k_slots=k, step_block=8)   # engine "fused"
+    srv.warmup(reqs[0])
+    srv.submit_all([dataclasses.replace(r) for r in reqs])
+    return srv, srv.run()
+
+
+@pytest.mark.cuda
+def test_serve_retired_columns_equal_solo_serves_on_card(cuda):
+    import numpy as np
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.serve import synthetic_requests
+    A = tridiagonal_laplacian(4096)
+    reqs = synthetic_requests(A, 12, tol=1e-8, maxiter=600, modes=(16, 64),
+                              seed=0)
+    srv, stats = _serve_on_card(reqs)
+    assert stats.drained and stats.n_converged == 12
+    rc = srv.run_counts
+    assert rc["launches"]["pipecg_spmv_fused"] == 8 * rc["blocks"]
+    assert rc["launches"]["spmv_dia"] == 2 * rc["admissions"]
+    assert sum(rc["launches"].values()) == \
+        8 * rc["blocks"] + 2 * rc["admissions"]
+    batched = {r.rid: r for r in srv.records}
+    for req in reqs[:4]:
+        solo, _ = _serve_on_card([req])
+        got, want = solo.records[0], batched[req.rid]
+        assert got.iters == want.iters
+        assert np.array_equal(got.x, want.x)
+
+
+@pytest.mark.cuda
+def test_serve_nan_and_free_garbage_leave_live_columns_alone_on_card(cuda):
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousBatcher, synthetic_requests
+    A = tridiagonal_laplacian(4096)
+    reqs = synthetic_requests(A, 3, tol=1e-8, maxiter=600, modes=(16, 64),
+                              seed=1)
+    ref, hit = ContinuousBatcher(A, 8), ContinuousBatcher(A, 8)
+    for bt in (ref, hit):
+        for slot, req in enumerate(reqs):
+            bt.admit(slot, req)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for v in hit.state["vecs"].values():   # frozen garbage, free columns
+        v[3:] = 1e300 * torch.randn(v[3:].shape, generator=g, device=cuda,
+                                    dtype=v.dtype)
+    for key in ("gamma", "delta", "alpha_prev"):
+        hit.state[key][3:] = float("nan")
+    hit.poison(2)                          # a killed live column
+    before = ops.launch_counts()["pipecg_spmv_fused"]
+    for _ in range(4):
+        ref.step()
+        hit.step()
+    assert ops.launch_counts()["pipecg_spmv_fused"] - before == 2 * 4 * 8
+    for key, v in ref.state["vecs"].items():
+        assert torch.equal(hit.state["vecs"][key][:2], v[:2]), key
+        assert not bool(torch.isfinite(hit.state["vecs"][key][2]).any())
+    for key in ("gamma", "delta", "iters", "done"):
+        assert torch.equal(hit.state[key][:2], ref.state[key][:2]), key
+
+
+@pytest.mark.cuda
+def test_serve_admission_never_perturbs_in_flight_columns_on_card(cuda):
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.serve import ContinuousBatcher, synthetic_requests
+    A = tridiagonal_laplacian(4096)
+    reqs = synthetic_requests(A, 2, tol=1e-8, maxiter=600, modes=(16, 64),
+                              seed=2)
+    solo, both = ContinuousBatcher(A, 8), ContinuousBatcher(A, 8)
+    solo.admit(0, reqs[0])
+    both.admit(0, reqs[0])
+    solo.step()
+    both.step()
+    both.admit(5, reqs[1])      # mid-flight admission into a free column
+    for _ in range(3):
+        solo.step()
+        both.step()
+    for key, v in solo.state["vecs"].items():
+        assert torch.equal(both.state["vecs"][key][0], v[0]), key

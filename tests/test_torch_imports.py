@@ -86,7 +86,17 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.core.noise.faults",
             "repro_torch.core.perfmodel.resync",
             "repro_torch.checkpoint",
-            "repro_torch.checkpoint.checkpoint"} <= set(names)
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.serve.request",
+            "repro_torch.serve.queue",
+            "repro_torch.serve.batcher",
+            "repro_torch.serve.server",
+            "repro_torch.serve.chaos",
+            "repro_torch.serve.load",
+            "repro_torch.experiments",
+            "repro_torch.experiments.spec",
+            "repro_torch.experiments.noise_sources",
+            "repro_torch.experiments.serve_exec"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"

@@ -65,7 +65,7 @@ def test_folk_theorem_matches_the_reference():
         _close(g, w)
     assert got[0] == got[1]   # deterministic times admit no speedup
     for W, T0, K, P in ((5.0, 1.0, 10, 2), (3.0, 0.5, 4, 4), (2.0, 1.0, 2, 3)):
-        trace = folk_theorem.staggered_delay_trace(W, T0, K, P)
+        trace = folk_theorem.staggered_delay_trace(W, T0, K, P, device="cpu")
         jtrace = jfolk.staggered_delay_trace(W, T0, K, P)
         np.testing.assert_array_equal(trace.numpy(), np.asarray(jtrace))
         for g, w in zip(folk_theorem.trace_makespans(trace),
@@ -84,7 +84,7 @@ def test_folk_theorem_matches_the_reference():
     # Eq. (5) on the staggered trace: T/T' = (2 + alpha)/(1 + alpha)
     W, T0, K = 4.0, 1.0, 12
     T, Tp = folk_theorem.trace_makespans(
-        folk_theorem.staggered_delay_trace(W, T0, K, 2))
+        folk_theorem.staggered_delay_trace(W, T0, K, 2, device="cpu"))
     alpha = K * T0 / (W - T0)
     _close(T / Tp, folk_theorem.overlap_speedup_bound(alpha))
     assert T / Tp <= folk_theorem.folk_bound(2)

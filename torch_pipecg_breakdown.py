@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where one fused PIPECG, p-BiCGStab, depth-l iteration or (P)GMRES
-Arnoldi step spends its time.
+"""Where one fused PIPECG, p-BiCGStab, depth-l iteration, (P)GMRES
+Arnoldi step or serve-batcher iteration spends its time.
 
     python3 torch_pipecg_breakdown.py [pipecg | pipecg_bsr | pipebicgstab |
-                                       pipecg_l [L] | gmres | pgmres]
+                                       pipecg_l [L] | gmres | pgmres |
+                                       serve_block]
 
 Run from the root of a checkout on one NVIDIA GPU (exits with 2 without
 one).  Solves ex23 (chip_smoke.py's problem: the tridiagonal Laplacian at
@@ -16,7 +17,10 @@ sweep per block of L iterations), or, given ``pipecg_bsr``, ex23 as a
 ``BsrMatrix`` at bs 4 (chip_smoke.py's ``[bsr]`` phase: one BSR sweep per
 iteration), or, given ``gmres`` / ``pgmres``, one restart-40 cycle of it on
 ex23 through the fused engine (chip_smoke.py's ``[gmres]``; per Arnoldi
-step: 40 steps, PGMRES's 42), and reports
+step: 40 steps, PGMRES's 42), or, given ``serve_block``, 25 blocks of 8
+iterations of the serve batcher (``serve.ContinuousBatcher`` on ex23, k =
+8, fused engine, 8 columns admitted from chip_smoke.py's
+``[solve_serve]`` workload; per iteration: 200), and reports
 
 * the host-clock time per iteration of a synchronised solve (best of 3),
   and of one solve with ``torch.profiler`` attached;
@@ -81,7 +85,7 @@ def main() -> int:
 
     solver = sys.argv[1] if len(sys.argv) > 1 else "pipecg"
     if solver not in ("pipecg", "pipecg_bsr", "pipebicgstab", "pipecg_l",
-                      "gmres", "pgmres"):
+                      "gmres", "pgmres", "serve_block"):
         print(f"torch_pipecg_breakdown: unknown solver {solver!r}",
               file=sys.stderr)
         return 2
@@ -101,6 +105,18 @@ def main() -> int:
         if solver == "pipecg_bsr":
             A = dia_to_bsr(A, bs=smoke.BSR_BS)
         run, opts = pipecg, SolverOptions(engine="fused", maxiter=ITERS)
+    elif solver == "serve_block":
+        from repro_torch.serve import ContinuousBatcher, synthetic_requests
+        A, b = smoke.ex23(gen)
+        batcher = ContinuousBatcher(A, 8, step_block=8)
+        for slot, req in enumerate(synthetic_requests(
+                A, 8, tol=1e-8, maxiter=600, modes=(32, 256), seed=0)):
+            batcher.admit(slot, req)
+        opts = None
+
+        def run(*_args, **_kw):
+            for _ in range(ITERS // batcher.step_block):
+                batcher.step()
     elif solver == "pipecg_l":
         A, b = smoke.ex23(gen)
         run, opts = pipecg_l, SolverOptions(engine="fused", maxiter=ITERS,
