@@ -68,20 +68,20 @@ _SHARDED_IP = {"pipecg": "id", "pipecg_multi": "id", "pipecr": "A"}
 _SHARDED_FAMILY = {"pipecg_l": "pipecg_l", "pipebicgstab": "pipebicgstab"}
 
 
-def halo_exchange_cols(x: torch.Tensor, halo: int, group=None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def halo_exchange_cols(x, halo: int, group=None):
     """(left, right) strips of width ``halo`` along the LAST axis.
 
     Works for any leading shape: vectors (n,), right-hand-side batches
     (k, n) and band stacks (n_bands, n) exchange their edge columns with
     the chain neighbours; the chain's end ranks receive zeros (the zero
-    extension of the DIA bands at the matrix boundary).
+    extension of the DIA bands at the matrix boundary).  A list of
+    tensors of one shape exchanges in one message a neighbour and gives a
+    list of pairs (:func:`comm.exchange_along`).
     """
     return _chain_exchange(x, halo, -1, group)
 
 
-def _chain_exchange(v: torch.Tensor, w: int, axis: int, group=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _chain_exchange(v, w: int, axis: int, group=None):
     """:func:`comm.exchange_along` with the chain neighbours rank -+ 1."""
     rank, world = comm.rank_and_size(group)
     return comm.exchange_along(v, w, axis, rank - 1 if rank > 0 else None,
@@ -94,58 +94,68 @@ def halo_exchange(x_local: torch.Tensor, halo: int, group=None):
     return halo_exchange_cols(x_local, halo, group)
 
 
-def halo_exchange_compressed(x: torch.Tensor, halo: int, group,
-                             ef_lo: torch.Tensor, ef_hi: torch.Tensor,
+def halo_exchange_compressed(xs, halo: int, group, ef_lo, ef_hi,
                              use_ef: bool):
-    """int8-wire variant of :func:`halo_exchange_cols`.
+    """int8-wire variant of :func:`halo_exchange_cols` for a list of
+    vectors of one shape (every vector's strips travel in one message a
+    neighbour).
 
     Each edge strip is quantized at the sender
-    (distributed/compression.py::compress_halo) and travels as ONE int8
-    message: the float32 scale's four bytes, then the int8 payload; a
-    quarter of an fp32 strip's bytes (an eighth of fp64's).  Both strips
-    derive only from the carried ``x``, never from the pending
-    reduction, so the split-phase order is unchanged.
+    (distributed/compression.py::compress_halo) and travels as int8: the
+    float32 scale's four bytes, then the int8 payload; a quarter of an
+    fp32 strip's bytes (an eighth of fp64's).  The strips derive only
+    from the carried vectors, never from the pending reduction, so the
+    split-phase order is unchanged.
 
-    ``ef_lo`` / ``ef_hi`` are the sender-side error-feedback strips of
-    the low and high edge of ``x`` (``x.shape[:-1] + (halo,)``, x's
-    dtype); with ``use_ef`` the quantization residual of the same rows
-    re-enters next iteration, else the returned feedback is zero.
-    Returns ``(lo, hi, new_ef_lo, new_ef_hi)``, the received strips in
-    x's dtype, zeros at the ends of the chain; one rank or ``halo == 0``
-    gives zero strips and zero feedback.
+    ``ef_lo`` / ``ef_hi`` list the sender-side error-feedback strips of
+    the low and high edge of each vector (``x.shape[:-1] + (halo,)``,
+    x's dtype); with ``use_ef`` the quantization residual of the same
+    rows re-enters next iteration, else the returned feedback is zero.
+    Returns one ``(lo, hi, new_ef_lo, new_ef_hi)`` a vector: the
+    received strips in x's dtype, zeros at the ends of the chain; one
+    rank or ``halo == 0`` gives zero strips and zero feedback.
     """
     from repro_torch.distributed import compression as comp
 
     rank, world = comm.rank_and_size(group)
-    shape = x.shape[:-1] + (halo,)
+    shape = xs[0].shape[:-1] + (halo,)
     if world == 1 or halo == 0:
-        z = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        return z, z, torch.zeros_like(ef_lo), torch.zeros_like(ef_hi)
-    # the high edge travels up the chain (the neighbour's low strip), the
-    # low edge down, as on the full-width wire
-    q_hi, s_hi, ef_hi_new = comp.compress_halo(
-        x[..., -halo:], ef_hi if use_ef else None)
-    q_lo, s_lo, ef_lo_new = comp.compress_halo(
-        x[..., :halo], ef_lo if use_ef else None)
+        out = []
+        for v, lo, hi in zip(xs, ef_lo, ef_hi):
+            z = torch.zeros(shape, dtype=v.dtype, device=v.device)
+            out.append((z, z, torch.zeros_like(lo), torch.zeros_like(hi)))
+        return out
+    packs, feedback = [], []
+    for v, lo, hi in zip(xs, ef_lo, ef_hi):
+        # the high edge travels up the chain (the neighbour's low strip),
+        # the low edge down, as on the full-width wire
+        q_hi, s_hi, ef_hi_new = comp.compress_halo(
+            v[..., -halo:], hi if use_ef else None)
+        q_lo, s_lo, ef_lo_new = comp.compress_halo(
+            v[..., :halo], lo if use_ef else None)
+        # one cat: row 0 (the low strip) goes to the low neighbour, row 1
+        # to the high one
+        packs.append(torch.cat([s_lo.reshape(1).view(torch.int8),
+                                q_lo.reshape(-1),
+                                s_hi.reshape(1).view(torch.int8),
+                                q_hi.reshape(-1)]).view(2, -1))
+        feedback.append((ef_lo_new, ef_hi_new) if use_ef else
+                        (torch.zeros_like(lo), torch.zeros_like(hi)))
+    arrived = _chain_exchange(packs, 1, 0, group)
 
-    # one cat: row 0 (the low strip) goes to the low neighbour, row 1 to
-    # the high one
-    packed = torch.cat([s_lo.reshape(1).view(torch.int8), q_lo.reshape(-1),
-                        s_hi.reshape(1).view(torch.int8), q_hi.reshape(-1)]
-                       ).view(2, -1)
-    from_low, from_high = _chain_exchange(packed, 1, 0, group)
-
-    def unpack(buf, present):
+    def unpack(buf, present, dtype, device):
         if not present:     # the end of the chain: the zero extension
-            return torch.zeros(shape, dtype=x.dtype, device=x.device)
-        buf = buf.reshape(-1)
+            return torch.zeros(shape, dtype=dtype, device=device)
+        buf = buf.reshape(-1)   # (a view at any offset: copy the scale)
         return comp.decompress_halo(buf[4:].reshape(shape),
-                                    buf[:4].view(torch.float32), x.dtype)
+                                    buf[:4].clone().view(torch.float32),
+                                    dtype)
 
-    if not use_ef:
-        ef_lo_new, ef_hi_new = torch.zeros_like(ef_lo), torch.zeros_like(ef_hi)
-    return (unpack(from_low, rank > 0), unpack(from_high, rank < world - 1),
-            ef_lo_new, ef_hi_new)
+    return [(unpack(from_low, rank > 0, v.dtype, v.device),
+             unpack(from_high, rank < world - 1, v.dtype, v.device),
+             ef_l, ef_h)
+            for v, (from_low, from_high), (ef_l, ef_h)
+            in zip(xs, arrived, feedback)]
 
 
 def _tick(noise, rank: int, like: torch.Tensor) -> torch.Tensor:
@@ -343,14 +353,14 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
     hist, chk_hist = [], []
     for i in range(maxiter):
         # 1. halo strips for THIS iteration's sweep: carried vectors only
+        # (both vectors' strips in one message a neighbour)
         if wire_halo:
-            ul, ur, efu_l, efu_r = halo_exchange_compressed(
-                u, 2 * halo, group, efu_l, efu_r, use_ef)
-            pl, pr, efp_l, efp_r = halo_exchange_compressed(
-                p, 2 * halo, group, efp_l, efp_r, use_ef)
+            (ul, ur, efu_l, efu_r), (pl, pr, efp_l, efp_r) = \
+                halo_exchange_compressed([u, p], 2 * halo, group,
+                                         [efu_l, efp_l], [efu_r, efp_r],
+                                         use_ef)
         else:
-            ul, ur = halo_exchange_cols(u, 2 * halo, group)
-            pl, pr = halo_exchange_cols(p, 2 * halo, group)
+            (ul, ur), (pl, pr) = halo_exchange_cols([u, p], 2 * halo, group)
         if recorder is not None:
             recorder("halo", i)
         # 2. finish the reduction issued LAST iteration; its only
@@ -422,7 +432,7 @@ def sharded_pipecg_solve(offsets: Tuple[int, ...], bands_local, b_local, *,
 
 
 # ---------------------------------------------------------------------------
-# Sharded pipelined BiCGStab: 3 strip exchanges + ONE (7, 6) all-reduce
+# Sharded pipelined BiCGStab: ONE strip exchange + ONE (7, 6) all-reduce
 # ---------------------------------------------------------------------------
 
 def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
@@ -438,7 +448,8 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     ``1^T t' - c^T w'`` in row 6.  The reduction is split-phase, in the
     order of :func:`sharded_pipecg_solve`:
 
-    1. the strip exchanges of w, t and c (the carried vectors only);
+    1. the strip exchange of w, t and c (the carried vectors only, one
+       message a neighbour);
     2. the wait for the payload issued at the end of the last iteration;
     3. the alpha/beta/omega recurrence on it
        (core/krylov/bicgstab.py::pbicgstab_scalars), which hides all four
@@ -542,17 +553,15 @@ def sharded_pipebicgstab_solve(offsets: Tuple[int, ...], bands_local,
     hist, chk_hist = [], []
     for i in range(maxiter):
         # 1. strips for THIS iteration's sweep: carried vectors only
+        # (the three vectors' strips in one message a neighbour)
         if wire_halo:
-            wl, wr, efw_l, efw_r = halo_exchange_compressed(
-                w, 2 * halo, group, efw_l, efw_r, use_ef)
-            tl, tr, eft_l, eft_r = halo_exchange_compressed(
-                t, 2 * halo, group, eft_l, eft_r, use_ef)
-            cl, cr, efc_l, efc_r = halo_exchange_compressed(
-                c, 2 * halo, group, efc_l, efc_r, use_ef)
+            ((wl, wr, efw_l, efw_r), (tl, tr, eft_l, eft_r),
+             (cl, cr, efc_l, efc_r)) = halo_exchange_compressed(
+                [w, t, c], 2 * halo, group, [efw_l, eft_l, efc_l],
+                [efw_r, eft_r, efc_r], use_ef)
         else:
-            wl, wr = halo_exchange_cols(w, 2 * halo, group)
-            tl, tr = halo_exchange_cols(t, 2 * halo, group)
-            cl, cr = halo_exchange_cols(c, 2 * halo, group)
+            (wl, wr), (tl, tr), (cl, cr) = halo_exchange_cols(
+                [w, t, c], 2 * halo, group)
         if recorder is not None:
             recorder("halo", i)
         # 2. finish the payload issued LAST iteration; its only consumers
@@ -717,8 +726,7 @@ def sharded_pipecg_depth_solve(offsets: Tuple[int, ...], bands_local,
     hists, dets = [], []
     for bi in range(nblocks):
         # 1. ONE strip exchange per block, of the carried vectors only
-        pl_, pr_ = halo_exchange_cols(p, H, group)
-        rl_, rr_ = halo_exchange_cols(r, H, group)
+        (pl_, pr_), (rl_, rr_) = halo_exchange_cols([p, r], H, group)
         if recorder is not None:
             recorder("halo", bi)
         # 2. the chain and this rank's partial Gram
@@ -948,7 +956,9 @@ def sharded_pipecg_bsr_solve(boffs, bblocks_local, b_local, *, group=None,
         return _bsr_apply(boffs, bblocks_local, ext(v, hb, -2), hb)
 
     def exchange(u, p):
-        return ext(u, 2 * hb, -2), ext(p, 2 * hb, -2)
+        (ul, uh), (pl, ph) = _chain_exchange([u, p], 2 * hb, -2, group)
+        return (torch.cat([ul, u, uh], dim=-2),
+                torch.cat([pl, p, ph], dim=-2))
 
     def sweep(u_e, p_e, alpha, beta):
         pp_e = u_e + beta * p_e                        # extent 2hb
@@ -974,8 +984,8 @@ def _grid_neighbours(group, grid: Tuple[int, int]):
              rank + 1 if gx < px - 1 else None))
 
 
-def halo_exchange_2d(v: torch.Tensor, wy: int, wx: int,
-                     grid: Tuple[int, int], group=None) -> torch.Tensor:
+def halo_exchange_2d(v, wy: int, wx: int, grid: Tuple[int, int],
+                     group=None):
     """Two-phase, corner-carrying halo exchange on a 2-D process grid.
 
     ``v`` is (..., ly, lx), this rank's tile of a (ny, nx) field.  Phase 1
@@ -983,13 +993,17 @@ def halo_exchange_2d(v: torch.Tensor, wy: int, wx: int,
     strips of width ``wx`` of the ROW-EXTENDED tile, so the corners ride
     through the edge neighbours: 4 messages per field and no diagonal one
     (``HaloSpec.neighbors``).  Returns the (..., ly + 2 wy, lx + 2 wx)
-    extension, zeros past the grid's edge.
+    extension, zeros past the grid's edge.  A list of fields of one shape
+    exchanges in one message a neighbour and phase, and gives a list.
     """
+    many = isinstance(v, (list, tuple))
+    vs = list(v) if many else [v]
     (north, south), (west, east) = _grid_neighbours(group, grid)
-    n_, s_ = comm.exchange_along(v, wy, -2, north, south, group)
-    v = torch.cat([n_, v, s_], dim=-2)
-    w_, e_ = comm.exchange_along(v, wx, -1, west, east, group)
-    return torch.cat([w_, v, e_], dim=-1)
+    vs = [torch.cat([n_, x, s_], dim=-2) for x, (n_, s_) in
+          zip(vs, comm.exchange_along(vs, wy, -2, north, south, group))]
+    vs = [torch.cat([w_, x, e_], dim=-1) for x, (w_, e_) in
+          zip(vs, comm.exchange_along(vs, wx, -1, west, east, group))]
+    return vs if many else vs[0]
 
 
 def _apply2d(doffs, bands_e: torch.Tensor, v_e: torch.Tensor,
@@ -1071,8 +1085,8 @@ def sharded_pipecg_solve_2d(doffs, bands_local, b_local, *,
                         halo_exchange_2d(v, hy, hx, grid, group), hy, hx)
 
     def exchange(u, p):
-        return (halo_exchange_2d(u, 2 * hy, 2 * hx, grid, group),
-                halo_exchange_2d(p, 2 * hy, 2 * hx, grid, group))
+        u_e, p_e = halo_exchange_2d([u, p], 2 * hy, 2 * hx, grid, group)
+        return u_e, p_e
 
     def sweep(u_e, p_e, alpha, beta):
         pp_e = u_e + beta * p_e                          # extent 2h

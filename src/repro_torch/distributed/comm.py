@@ -9,6 +9,14 @@ here takes a process ``group`` (None: the default group) and works in
 that group's ranks.  A 2-D process grid is the same group read row-major:
 rank r sits at grid position ``(r // px, r % px)``, and
 :func:`exchange_along` names the two neighbours along one grid axis.
+
+Host copies land in pinned memory, so that the copy back to the card is
+asynchronous (:func:`from_wire`): a solve's iteration then blocks on the
+card once per strip exchange and not once per strip.  Where this process
+maps the shared-memory wire of its spawned gloo ranks
+(distributed/shm.py), the sums and strips of the whole group go through
+it and not through gloo's sockets; every helper here first publishes
+the sums this rank has posted to it.
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import shm
 
 
 def rank_and_size(group=None) -> Tuple[int, int]:
@@ -33,11 +43,35 @@ def host_staged(device: torch.device, group=None) -> bool:
     return device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
+def wire_for(group):
+    """The shared-memory wire when it carries ``group`` (the whole group of
+    spawned gloo ranks), else None."""
+    wire = shm.current()
+    if wire is None or not (group is None or group is dist.group.WORLD):
+        return None
+    return wire
+
+
+def flush() -> None:
+    """Publish the sums this rank has posted to its wire (if any)."""
+    wire = shm.current()
+    if wire is not None:
+        wire.flush()
+
+
 def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
-    """A contiguous copy of ``t`` on the wire's side (host if staged)."""
+    """A contiguous copy of ``t`` on the wire's side: pinned host memory
+    if staged (a blocking copy), else a clone."""
     if staged:
-        return t.to("cpu", memory_format=torch.contiguous_format)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t)
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def from_wire(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``buf`` on ``device``; from pinned memory the copy does not block
+    the host (the card's stream orders it before what reads it)."""
+    return buf.to(device, non_blocking=buf.is_pinned())
 
 
 def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
@@ -50,9 +84,14 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
     """
     all_reduce.calls += 1
     buf = to_wire(t, host_staged(t.device, group))
-    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
-                             "max": dist.ReduceOp.MAX}[op], group=group)
-    return buf.to(t.device)
+    wire = wire_for(group)
+    if wire is not None and buf.device.type == "cpu" and wire.fits(buf):
+        wire.result(wire.post(buf), buf, op)
+    else:
+        flush()
+        dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op], group=group)
+    return from_wire(buf, t.device)
 
 
 all_reduce.calls = 0
@@ -66,8 +105,9 @@ def all_gather_cols(x: torch.Tensor, group=None) -> torch.Tensor:
     staged = host_staged(x.device, group)
     buf = to_wire(x, staged)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    flush()
     dist.all_gather(parts, buf, group=group)
-    return torch.cat(parts, dim=-1).to(x.device)
+    return from_wire(torch.cat(parts, dim=-1), x.device)
 
 
 def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
@@ -75,27 +115,41 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
     """Post every send and receive at once, then wait for all of them.
 
     ``sends`` and ``recvs`` pair a group rank with a wire tensor; the
-    receive buffers are filled in place.  ``exchange.bytes`` sums the
-    bytes sent, by dtype name, so a test can read what went on the wire.
+    receive buffers are filled in place.  A message that fits a slot of
+    the group's shared-memory wire goes through it (both ends see the
+    same size, so both choose alike), any other through gloo.
+    ``exchange.bytes`` sums the bytes sent, by dtype name, so a test can
+    read what went on the wire.
     """
     for _, t in sends:
         key = str(t.dtype).replace("torch.", "")
         exchange.bytes[key] = exchange.bytes.get(key, 0) \
             + t.numel() * t.element_size()
+    wire = wire_for(group)
+
+    def shared(t):
+        return wire is not None and t.device.type == "cpu" and wire.fits(t)
+
+    flush()
     ops = [dist.P2POp(dist.isend, t, global_rank(group, r), group)
-           for r, t in sends]
+           for r, t in sends if not shared(t)]
     ops += [dist.P2POp(dist.irecv, t, global_rank(group, r), group)
-            for r, t in recvs]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            for r, t in recvs if not shared(t)]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    for r, t in sends:
+        if shared(t):
+            wire.send(r, t)
+    for r, t in recvs:
+        if shared(t):
+            wire.recv(r, t)
+    for work in works:
+        work.wait()
 
 
 exchange.bytes = {}
 
 
-def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,
-                   group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def exchange_along(v, w: int, axis: int, low, high, group=None):
     """Edge strips of width ``w`` along ``axis`` from two neighbours.
 
     ``low`` and ``high`` are group ranks (None: no neighbour there).
@@ -103,33 +157,58 @@ def exchange_along(v: torch.Tensor, w: int, axis: int, low, high,
     ``axis`` of ``low``'s ``v`` and the first ``w`` of ``high``'s, zeros
     where there is no neighbour (the zero extension at the matrix edge).
     This rank sends its first ``w`` entries to ``low`` and its last ``w``
-    to ``high`` in the same exchange.
+    to ``high`` in the same exchange.  ``v`` may also be a list of
+    tensors of one shape and dtype: then every strip of every vector
+    leaves in one copy off the card and one message a face, and the
+    result is a list of such pairs, one a vector.
+    ``exchange_along.sends`` counts the strips sent by face,
+    ``"<axis>:lo"`` / ``"<axis>:hi"``: one per vector and face.
     """
-    shape = list(v.shape)
+    many = isinstance(v, (list, tuple))
+    vs = list(v) if many else [v]
+    x0 = vs[0]
+    shape = list(x0.shape)
     shape[axis] = w
     if w == 0:
         low = high = None
-    staged = host_staged(v.device, group)
-    ext = v.shape[axis]
-    sends, recvs, bufs = [], [], {}
-    for peer, start in ((low, 0), (high, ext - w)):
-        if peer is None:
-            continue
-        bufs[peer] = wire_buffer(shape, v, staged)
-        sends.append((peer, to_wire(v.narrow(axis, start, w), staged)))
-        recvs.append((peer, bufs[peer]))
-    exchange(sends, recvs, group)
+    staged = host_staged(x0.device, group)
+    ext = x0.shape[axis]
+    faces = [(peer, start) for peer, start in ((low, 0), (high, ext - w))
+             if peer is not None]
+    arrived = None
+    if faces:
+        strips = torch.stack([x.narrow(axis, start, w)
+                              for _, start in faces for x in vs]
+                             ).view([len(faces), len(vs)] + shape)
+        host = to_wire(strips, True) if staged else strips
+        got = wire_buffer(list(host.shape), x0, staged)
+        for _, start in faces:
+            face = f"{axis}:{'lo' if start == 0 else 'hi'}"
+            exchange_along.sends[face] = \
+                exchange_along.sends.get(face, 0) + len(vs)
+        exchange([(peer, host[k]) for k, (peer, _) in enumerate(faces)],
+                 [(peer, got[k]) for k, (peer, _) in enumerate(faces)],
+                 group)
+        arrived = from_wire(got, x0.device)
 
     # a strip that arrived is used as it is; zeros only where none did
-    def received(peer):
+    def received(peer, at, j):
         if peer is None:
-            return torch.zeros(shape, dtype=v.dtype, device=v.device)
-        return bufs[peer].to(v.device)
+            return torch.zeros(shape, dtype=x0.dtype, device=x0.device)
+        return arrived[at][j]
 
-    return received(low), received(high)
+    lo_at, hi_at = 0, (1 if low is not None else 0)
+    pairs = [(received(low, lo_at, j), received(high, hi_at, j))
+             for j in range(len(vs))]
+    return pairs if many else pairs[0]
+
+
+exchange_along.sends = {}
 
 
 def wire_buffer(shape, like: torch.Tensor, staged: bool) -> torch.Tensor:
-    """An empty receive buffer of ``like``'s dtype on the wire's side."""
-    dev = torch.device("cpu") if staged else like.device
-    return torch.empty(shape, dtype=like.dtype, device=dev)
+    """An empty receive buffer of ``like``'s dtype on the wire's side
+    (pinned host memory if staged)."""
+    if staged:
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)

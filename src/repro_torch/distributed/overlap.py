@@ -75,6 +75,40 @@ class OrderRecorder:
         return {k: v / max(count[k], 1) for k, v in out.items()}
 
 
+class CountingRecorder(OrderRecorder):
+    """An :class:`OrderRecorder` that also reads the wire's counters when
+    the set-up's reduction is issued (iteration -1), so that what the
+    iterations sent can be told from the set-up's exchanges:
+    :meth:`loop_counts` gives the blocking all-reduces (``comm.all_reduce``
+    calls) and the strips sent by face (``comm.exchange_along.sends``)
+    from then on.  The split-phase reductions are the ``issue`` events."""
+
+    def __init__(self):
+        super().__init__()
+        self._at_setup = None
+
+    def __call__(self, event: str, iteration: int) -> None:
+        if event == "issue" and iteration == -1:
+            self._at_setup = (comm.all_reduce.calls,
+                              dict(comm.exchange_along.sends))
+        super().__call__(event, iteration)
+
+    def loop_counts(self) -> Dict[str, object]:
+        """``{"issues", "blocking", "sends"}`` since the set-up's issue
+        (its own issue excluded); None entries if it never came."""
+        if self._at_setup is None:
+            return {"issues": None, "blocking": None, "sends": None}
+        calls, sends = self._at_setup
+        now = comm.exchange_along.sends
+        return {
+            "issues": sum(e[0] == "issue" and e[1] >= 0
+                          for e in self.events),
+            "blocking": comm.all_reduce.calls - calls,
+            "sends": {face: now[face] - sends.get(face, 0) for face in now
+                      if now[face] != sends.get(face, 0)},
+        }
+
+
 def split_phase_ok(events, iterations: int) -> bool:
     """True when the log shows the split-phase order for every iteration.
 
@@ -137,10 +171,14 @@ class Pending:
         self._iteration, self._record = iteration, record
 
     def wait(self) -> torch.Tensor:
-        self._work.wait()
+        if isinstance(self._work, tuple):        # (wire, sum number)
+            wire, k = self._work
+            wire.result(k, self._buf)
+        else:
+            self._work.wait()
         if self._record is not None:
             self._record("wait", self._iteration)
-        return self._buf.to(self._device)
+        return comm.from_wire(self._buf, self._device)
 
 
 class SplitPhaseReduce:
@@ -151,9 +189,29 @@ class SplitPhaseReduce:
         self.record = record
 
     def issue(self, t: torch.Tensor, iteration: int) -> Pending:
-        """Start summing a copy of ``t``; ``t`` itself is left unchanged."""
-        buf = comm.to_wire(t, comm.host_staged(t.device, self.group))
-        work = dist.all_reduce(buf, group=self.group, async_op=True)
+        """Start summing a copy of ``t``; ``t`` itself is left unchanged.
+
+        On the shared-memory wire a row on the card is copied to pinned
+        host memory without blocking, and posted with the event after the
+        copy: the next strip exchange's synchronisation (or the wait)
+        publishes it, so the row and the strips leave the card in one
+        synchronisation."""
+        staged = comm.host_staged(t.device, self.group)
+        wire = comm.wire_for(self.group)
+        if wire is not None and (staged or t.device.type == "cpu") \
+                and wire.fits(t):
+            if staged:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                buf, ready = comm.to_wire(t, False), None
+            work = (wire, wire.post(buf, ready))
+        else:
+            buf = comm.to_wire(t, staged)
+            comm.flush()
+            work = dist.all_reduce(buf, group=self.group, async_op=True)
         if self.record is not None:
             self.record("issue", iteration)
         return Pending(work, buf, t.device, iteration, self.record)

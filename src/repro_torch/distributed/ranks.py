@@ -10,7 +10,9 @@ installed module (``solve_cases`` below) or of the script that calls
 
 Backend: NCCL when every rank has its own card, gloo when ranks share a
 card (NCCL refuses two ranks on one device) or run on the CPU.  The
-choice follows the device count, never a retry after an error.
+choice follows the device count, never a retry after an error.  Gloo
+ranks also map one shared-memory wire (distributed/shm.py), which
+carries the whole group's sums and strips.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from repro_torch.distributed import shm
 
 #: seconds a rank waits on a peer before its collective fails
 TIMEOUT_S = 300
@@ -54,12 +58,66 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S),
                             **kw)
+    wire = os.path.join(tmp, "wire")
+    if os.path.exists(wire):
+        shm.attach(wire, rank, world)
     try:
         out = fn(rank, world, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
+        shm.detach()
         dist.destroy_process_group()
+
+
+class Spawned:
+    """Ranks started by :func:`start`; :meth:`result` waits for them."""
+
+    def __init__(self, context, tmp, world: int):
+        self._context, self._tmp, self._world = context, tmp, world
+
+    def result(self) -> List[Any]:
+        """Each rank's return value, in rank order (a failing rank raises
+        here)."""
+        try:
+            while not self._context.join():
+                pass
+            out = []
+            for r in range(self._world):
+                with open(os.path.join(self._tmp.name, f"rank{r}.pkl"),
+                          "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            self._tmp.cleanup()
+
+    def cancel(self) -> None:
+        """Stop the ranks (a caller that will not wait for them)."""
+        for p in self._context.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        self._tmp.cleanup()
+
+
+def start(fn: Callable, world: int, *args, device="cuda") -> Spawned:
+    """Start ``fn(rank, world, *args)`` on ``world`` spawned ranks and
+    return at once; ``.result()`` waits for them (see :func:`run`)."""
+    backend = backend_for(world, device)
+    if torch.device(device).type == "cuda":
+        from repro_torch.kernels import build
+        build.build()
+    tmp = tempfile.TemporaryDirectory(prefix="repro_torch_ranks_")
+    try:
+        if backend == "gloo" and shm.usable():
+            shm.create(os.path.join(tmp.name, "wire"), world)
+        context = mp.spawn(_rank_main, args=(fn, world, backend, str(device),
+                                             tmp.name, args),
+                           nprocs=world, join=False)
+    except BaseException:
+        tmp.cleanup()
+        raise
+    return Spawned(context, tmp, world)
 
 
 def run(fn: Callable, world: int, *args, device="cuda") -> List[Any]:
@@ -70,18 +128,7 @@ def run(fn: Callable, world: int, *args, device="cuda") -> List[Any]:
     built here first, so the ranks do not each compile them.  A failing
     rank raises here.
     """
-    backend = backend_for(world, device)
-    if torch.device(device).type == "cuda":
-        from repro_torch.kernels import build
-        build.build()
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
-        mp.spawn(_rank_main, args=(fn, world, backend, str(device), tmp,
-                                   args), nprocs=world, join=True)
-        out = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-    return out
+    return start(fn, world, *args, device=device).result()
 
 
 def _numpy(v):

@@ -25,9 +25,10 @@ serving process amortizes them):
    p999 is recorded (tail atoms of a finite run are coarser).
 
 Each server run also records ``run_counts`` (blocks, admissions, batchers
-built, kernel launches; ``serve/server.py``).  The JAX package's record
-also carries ``autotune_stats``; the port has no block autotuner yet (its
-block sizes are fixed), so that key is absent.
+built, kernel launches; ``serve/server.py``), and the record carries the
+reference's ``autotune_stats``: the block autotuner's hits and misses
+over the stage (kernels/autotune.py: a sweep looks its tile cap up once,
+when its device plan is built, so a warm stage adds no miss).
 
 CLI (on the card; ``--device cpu`` runs the plain versions on the host)::
 
@@ -53,6 +54,7 @@ from repro_torch.core.perfmodel.queueing import (
     simulate_batch_queue,
 )
 from repro_torch.experiments.spec import CampaignSpec, get_preset
+from repro_torch.kernels import autotune
 
 QUANTILES = (0.5, 0.99, 0.999)
 DEFAULT_OUT = "chiprun_out/serve_exec.json"
@@ -200,15 +202,23 @@ def run_serve_exec(spec: CampaignSpec, device="cuda") -> Dict:
     reqs = synthetic_requests(A, spec.serve_requests, tol=spec.serve_tol,
                               maxiter=spec.serve_maxiter,
                               modes=spec.serve_modes, seed=spec.seed)
+    autotune_before = autotune.cache_stats()
     burst, server, seq = _burst_stage(spec, reqs)
     accuracy = _accuracy_stage(spec, server, reqs)
     paced, wall, paced_reqs = _paced_stage(spec, A, server)
+    after = autotune.cache_stats()
     return {
         "burst": burst,
         "accuracy": accuracy,
         "paced": paced,
         "trace_counts": dict(
             next(iter(server.batchers.values())).trace_counts),
+        # block-autotune cache traffic over the stage: a warm serve
+        # process re-tunes nothing (misses stay at the cold-start count)
+        "autotune_stats": {
+            "hits": after["hits"] - autotune_before["hits"],
+            "misses": after["misses"] - autotune_before["misses"],
+        },
         "_servers": {"batched": server, "sequential": seq, "paced": wall,
                      "burst_requests": reqs,
                      "paced_requests": paced_reqs},

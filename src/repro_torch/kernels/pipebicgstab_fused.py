@@ -58,11 +58,14 @@ BICG_TILE = 2048
 BICG_SMEM_TARGET = 96 * 1024
 
 
-def sweep_plan(offsets: Sequence[int], acc_bytes: int
-               ) -> Tuple[int, List[int], int]:
+def sweep_plan(offsets: Sequence[int], acc_bytes: int,
+               max_tile: int = None) -> Tuple[int, List[int], int]:
     """The sweep's row-window plan (``pipecg_spmv_fused.window_plan``:
-    three own-row arrays, r', a', c', tiles up to ``BICG_TILE``)."""
-    return window_plan(offsets, acc_bytes, 3, BICG_TILE, BICG_SMEM_TARGET)
+    three own-row arrays, r', a', c', tiles up to ``max_tile``, default
+    ``BICG_TILE``; the autotuner's cap, kernels/autotune.py)."""
+    return window_plan(offsets, acc_bytes, 3,
+                       BICG_TILE if max_tile is None else max_tile,
+                       BICG_SMEM_TARGET)
 
 
 def _sweep_plain(offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
@@ -150,13 +153,15 @@ def pipebicgstab_halo_plain(offsets: Sequence[int], bands_ext, csum,
 
 def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
             alpha, beta, omega, oext: int, strips=None,
-            n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+            n_valid: Optional[int] = None, max_tile: Optional[int] = None
+            ) -> Tuple[torch.Tensor, ...]:
     """Check the operands and launch the sweep kernel on x's device.
 
     ``bands`` (n_bands, n + 2 oext) holds the operator rows
     [-oext, n + oext); ``strips`` is None (zero outside [0, n)) or
     (w_lo, w_hi, t_lo, t_hi, c_lo, c_hi), each (2h,).  Rows >= ``n_valid``
-    (default n) stay out of the payload.
+    (default n) stay out of the payload.  ``max_tile`` caps the CTA's
+    tile (:func:`device_plan`; None: the autotuner's).
     """
     (n,) = x.shape
     nb = len(offsets)
@@ -184,8 +189,8 @@ def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
                              f"expected {shape} {dt}")
     _b.check_cuda(name, x.device, x=x, alpha=sc[0], beta=sc[1],
                   omega=sc[2], **{key: v for key, v, _, _ in shapes})
-    tile, plan, smem = device_plan(sweep_plan, offsets, x.element_size(),
-                                   x.device)
+    tile, plan, smem = device_plan(sweep_plan, offsets, x, max_tile,
+                                   None if sto == acc else sto)
     nblk = -(-n // tile)
     ngroups = finish_groups(nblk)
     outs = [torch.empty_like(v) for v in (x, r, w, t, pa, a, c)]
@@ -210,20 +215,24 @@ def _launch(name: str, offsets, bands, csum, x, r, w, t, pa, a, c, r_hat,
 
 
 def pipebicgstab_fused(offsets: Sequence[int], bands, csum,
-                       x, r, w, t, pa, a, c, r_hat, alpha, beta, omega
+                       x, r, w, t, pa, a, c, r_hat, alpha, beta, omega,
+                       max_tile: Optional[int] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """One fused p-BiCGStab iteration on one device (see module doc).
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
-    :func:`pipebicgstab_fused_plain`.  ``pipebicgstab_fused.launches``
-    counts kernel launches.
+    :func:`pipebicgstab_fused_plain`.  ``max_tile`` caps the kernel's tile
+    (None: the autotuner's, looked up when the sweep's plan is built;
+    a probe passes its candidates).
+    ``pipebicgstab_fused.launches`` counts kernel launches.
     """
     if _on_cpu("pipebicgstab_fused", x, bands, csum, r, w, t, pa, a, c,
                r_hat):
         return pipebicgstab_fused_plain(offsets, bands, csum, x, r, w, t,
                                         pa, a, c, r_hat, alpha, beta, omega)
     outs = _launch("pipebicgstab_fused", offsets, bands, csum, x, r, w, t,
-                   pa, a, c, r_hat, alpha, beta, omega, oext=0)
+                   pa, a, c, r_hat, alpha, beta, omega, oext=0,
+                   max_tile=max_tile)
     pipebicgstab_fused.launches += 1
     return outs
 
@@ -231,7 +240,8 @@ def pipebicgstab_fused(offsets: Sequence[int], bands, csum,
 def pipebicgstab_halo(offsets: Sequence[int], bands_ext, csum,
                       x, r, w, t, pa, a, c, r_hat,
                       w_lo, w_hi, t_lo, t_hi, c_lo, c_hi,
-                      alpha, beta, omega) -> Tuple[torch.Tensor, ...]:
+                      alpha, beta, omega, max_tile: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """One rank's fused p-BiCGStab iteration with its neighbours' rows.
 
     Vectors (n,) local rows; the strips (2h,) the rows [-2h, 0) and
@@ -242,8 +252,9 @@ def pipebicgstab_halo(offsets: Sequence[int], bands_ext, csum,
     PARTIAL payload.
 
     CUDA tensors launch the sweep kernel (or raise); CPU tensors take
-    :func:`pipebicgstab_halo_plain`.  ``pipebicgstab_halo.launches``
-    counts kernel launches.
+    :func:`pipebicgstab_halo_plain`.  ``max_tile`` as for
+    :func:`pipebicgstab_fused`.  ``pipebicgstab_halo.launches`` counts
+    kernel launches.
     """
     strips = (w_lo, w_hi, t_lo, t_hi, c_lo, c_hi)
     if _on_cpu("pipebicgstab_halo", x, bands_ext, csum, r, w, t, pa, a, c,
@@ -253,7 +264,7 @@ def pipebicgstab_halo(offsets: Sequence[int], bands_ext, csum,
                                        alpha, beta, omega)
     outs = _launch("pipebicgstab_halo", offsets, bands_ext, csum, x, r, w,
                    t, pa, a, c, r_hat, alpha, beta, omega,
-                   oext=_halo(offsets), strips=strips)
+                   oext=_halo(offsets), strips=strips, max_tile=max_tile)
     pipebicgstab_halo.launches += 1
     return outs
 

@@ -174,8 +174,7 @@ def window_plan(offsets: Sequence[int], acc_bytes: int, own: int,
         smem = window_smem(table, tile, own, acc_bytes)
         if smem > target:
             continue
-        batches = sum(-(-w // SWEEP_STEP) for w in (table[2], table[3], tile))
-        cost = (batches + SWEEP_FIXED) / tile
+        cost = plan_cost(tile, table)
         if best is None or cost < best_cost:
             best, best_cost = (tile, table, smem), cost
     if best is not None:
@@ -188,26 +187,49 @@ def window_plan(offsets: Sequence[int], acc_bytes: int, own: int,
     raise AssertionError("no window fits shared memory")
 
 
-def sweep_plan(offsets: Sequence[int], acc_bytes: int
-               ) -> Tuple[int, List[int], int]:
-    """The PIPECG sweep's :func:`window_plan` (one own-row array, r')."""
-    return window_plan(offsets, acc_bytes, 1)
+def plan_cost(tile: int, table: Sequence[int]) -> float:
+    """Batches of window slots per row of a CTA of ``tile`` rows with the
+    window ``table``: the outer and inner windows' and the own rows'
+    batches, plus ``SWEEP_FIXED`` (the cost :func:`window_plan` ranks)."""
+    batches = sum(-(-w // SWEEP_STEP) for w in (table[2], table[3], tile))
+    return (batches + SWEEP_FIXED) / tile
+
+
+def sweep_plan(offsets: Sequence[int], acc_bytes: int,
+               max_tile: int = None) -> Tuple[int, List[int], int]:
+    """The PIPECG sweep's :func:`window_plan` (one own-row array, r'),
+    tiles up to ``max_tile`` (default ``SWEEP_TILE``; the autotuner's
+    cap, kernels/autotune.py)."""
+    return window_plan(offsets, acc_bytes, 1, max_tile)
 
 
 _PLANS: Dict[tuple, Tuple[int, torch.Tensor, int]] = {}
 _TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
-def device_plan(plan: Callable, offsets: Sequence[int], acc_bytes: int,
-                device: torch.device) -> Tuple[int, torch.Tensor, int]:
-    """A sweep's ``plan(offsets, acc_bytes)`` (its :func:`sweep_plan`)
-    with the table on ``device``, built once per operator, dtype and
-    device (the sweeps reuse it every iteration)."""
-    key = (plan, tuple(int(o) for o in offsets), acc_bytes, str(device))
+def device_plan(plan: Callable, offsets: Sequence[int], x: torch.Tensor,
+                max_tile: int = None, dtype_storage: torch.dtype = None
+                ) -> Tuple[int, torch.Tensor, int]:
+    """A sweep's ``plan(offsets, acc_bytes, cap)`` (its :func:`sweep_plan`)
+    for the rows of ``x`` ((n,) or (k, n) at the accumulator dtype;
+    ``dtype_storage`` the operands' when it differs), with the table on
+    x's device, built once per operator, shape, dtypes, device and
+    ``max_tile`` (the sweeps reuse it every iteration).  Without a
+    ``max_tile`` the cap is the block autotuner's (kernels/autotune.py),
+    looked up once, when the plan is built, never at a launch."""
+    n, k = x.shape[-1], (x.shape[0] if x.dim() == 2 else 1)
+    key = (plan, tuple(int(o) for o in offsets), x.dtype, dtype_storage,
+           str(x.device), n, k, max_tile)
     if key not in _PLANS:
-        tile, table, smem = plan(offsets, acc_bytes)
+        cap = max_tile
+        if cap is None:
+            from repro_torch.kernels import autotune
+            cap = autotune.sweep_tile_cap(
+                autotune.sweep_of(plan), offsets, n, x.dtype,
+                device=x.device, k_rhs=k, dtype_storage=dtype_storage)
+        tile, table, smem = plan(offsets, x.element_size(), cap)
         _PLANS[key] = (tile, torch.tensor(table, dtype=torch.int32,
-                                          device=device), smem)
+                                          device=x.device), smem)
     return _PLANS[key]
 
 
@@ -298,14 +320,15 @@ def pipecg_spmv_halo_plain(offsets: Sequence[int], bands_ext, invd_ext, csum,
 
 
 def _launch(name: str, offsets, bands, inv_diag, csum, x, r, u, p, alpha,
-            beta, oext: int, strips=None, n_valid: Optional[int] = None
-            ) -> Tuple[torch.Tensor, ...]:
+            beta, oext: int, strips=None, n_valid: Optional[int] = None,
+            max_tile: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Check the operands and launch the sweep kernel on x's device.
 
     ``bands`` (n_bands, n + 2 oext) and ``inv_diag`` (n + 2 oext,) hold the
     operator rows [-oext, n + oext); ``strips`` is None (zero outside
     [0, n)) or (u_lo, u_hi, p_lo, p_hi), each (k, 2h).  Rows >= ``n_valid``
-    (default n) stay out of the reduction row.
+    (default n) stay out of the reduction row.  ``max_tile`` caps the
+    CTA's tile (:func:`device_plan`; None: the autotuner's).
     """
     k, n = x.shape
     nb = len(offsets)
@@ -329,8 +352,8 @@ def _launch(name: str, offsets, bands, inv_diag, csum, x, r, u, p, alpha,
             raise ValueError(f"{name}: {key} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} {dt}")
     _b.check_cuda(name, x.device, x=x, **{key: t for key, t, _, _ in shapes})
-    tile, plan, smem = device_plan(sweep_plan, offsets, x.element_size(),
-                                   x.device)
+    tile, plan, smem = device_plan(sweep_plan, offsets, x, max_tile,
+                                   None if sto == x.dtype else sto)
     nblk = -(-n // tile)
     ngroups = finish_groups(nblk)
     xo, ro, uo, po = (torch.empty_like(v) for v in (x, r, u, p))
@@ -367,25 +390,29 @@ def _on_cpu(name: str, x, *tensors) -> bool:
 
 
 def pipecg_spmv_fused(offsets: Sequence[int], bands, inv_diag, csum,
-                      x, r, u, p, alpha, beta) -> Tuple[torch.Tensor, ...]:
+                      x, r, u, p, alpha, beta, max_tile: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """One fused PIPECG iteration for k right-hand sides (see module doc).
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
-    :func:`pipecg_spmv_fused_plain`.  ``pipecg_spmv_fused.launches``
-    counts kernel launches.
+    :func:`pipecg_spmv_fused_plain`.  ``max_tile`` caps the kernel's tile
+    (None: the autotuner's, looked up when the sweep's plan is built;
+    a probe passes its candidates).
+    ``pipecg_spmv_fused.launches`` counts kernel launches.
     """
     if _on_cpu("pipecg_spmv_fused", x, bands, inv_diag, csum, r, u, p,
                alpha, beta):
         return pipecg_spmv_fused_plain(offsets, bands, inv_diag, csum,
                                        x, r, u, p, alpha, beta)
     outs = _launch("pipecg_spmv_fused", offsets, bands, inv_diag, csum,
-                   x, r, u, p, alpha, beta, oext=0)
+                   x, r, u, p, alpha, beta, oext=0, max_tile=max_tile)
     pipecg_spmv_fused.launches += 1
     return outs
 
 
 def pipecg_spmv_halo(offsets: Sequence[int], bands_ext, invd_ext, csum,
-                     x, r, u, p, u_lo, u_hi, p_lo, p_hi, alpha, beta
+                     x, r, u, p, u_lo, u_hi, p_lo, p_hi, alpha, beta,
+                     max_tile: Optional[int] = None
                      ) -> Tuple[torch.Tensor, ...]:
     """One rank's fused PIPECG iteration with its neighbours' rows.
 
@@ -396,7 +423,8 @@ def pipecg_spmv_halo(offsets: Sequence[int], bands_ext, invd_ext, csum,
     (x', r', u', p', red) with red (k, 6) this rank's partial row.
 
     CUDA tensors launch the sweep kernel (or raise); CPU tensors take
-    :func:`pipecg_spmv_halo_plain`.  ``pipecg_spmv_halo.launches`` counts
+    :func:`pipecg_spmv_halo_plain`.  ``max_tile`` as for
+    :func:`pipecg_spmv_fused`.  ``pipecg_spmv_halo.launches`` counts
     kernel launches.
     """
     strips = (u_lo, u_hi, p_lo, p_hi)
@@ -406,7 +434,7 @@ def pipecg_spmv_halo(offsets: Sequence[int], bands_ext, invd_ext, csum,
                                       x, r, u, p, *strips, alpha, beta)
     outs = _launch("pipecg_spmv_halo", offsets, bands_ext, invd_ext, csum,
                    x, r, u, p, alpha, beta, oext=_halo(offsets),
-                   strips=strips)
+                   strips=strips, max_tile=max_tile)
     pipecg_spmv_halo.launches += 1
     return outs
 

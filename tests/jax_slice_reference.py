@@ -4,8 +4,9 @@ tests/test_torch_fault.py).
 
 Under this JAX the Pallas halo sweeps do not run (ROADMAP.md queue 3,
 H1), so :func:`patch_sweeps` replaces ``repro.kernels.ops.
-pipecg_spmv_halo_step`` and ``pipebicgstab_halo_step`` with the TPU
-kernels' arithmetic in jnp at their dtypes: loads widen to x's dtype,
+pipecg_spmv_halo_step``, ``pipebicgstab_halo_step`` and
+``ghost_chain_halo_step`` with the TPU kernels' arithmetic in jnp at
+their dtypes: loads widen to x's dtype,
 the vectors extend by their neighbours' strips, the operator by h zero
 rows, the stores narrow back, and the column sums of the checksum entry
 are those of the (possibly demoted) extension the JAX wrappers sum.
@@ -111,8 +112,34 @@ def patch_sweeps():
                 t2[loc].astype(t.dtype), pa2[loc].astype(pa.dtype),
                 a2[loc].astype(a.dtype), c2[loc].astype(c.dtype), G)
 
+    def chain_halo(offsets, bands_ext, p, r, p_l, p_r, r_l, r_r, theta, l,
+                   accum_dtype=None, **_):
+        acc = accum_dtype or jnp.promote_types(p.dtype, jnp.float32)
+        h = max(abs(o) for o in offsets)
+        H, n = l * h, p.shape[0]
+        th_inv = 1.0 / jnp.asarray(theta, acc)
+        bands = bands_ext.astype(acc)
+
+        def links(v, depth):
+            a = v.astype(acc)
+            out = [a[H:H + n]]
+            for j in range(1, depth + 1):
+                width = n + 2 * (H - j * h)
+                nxt = jnp.zeros((width,), acc)
+                for k, off in enumerate(offsets):
+                    nxt = nxt + bands[k, j * h:j * h + width] \
+                        * a[h + off:h + off + width]
+                a = nxt * th_inv
+                out.append(a[H - j * h:H - j * h + n])
+            return out
+
+        C = jnp.stack(links(jnp.concatenate([p_l, p, p_r]), l)
+                      + links(jnp.concatenate([r_l, r, r_r]), l - 1))
+        return C.astype(p.dtype), C @ C.T
+
     jops.pipecg_spmv_halo_step = pipecg_halo
     jops.pipebicgstab_halo_step = bicgstab_halo
+    jops.ghost_chain_halo_step = chain_halo
 
 
 def precision_problems(n: int):
@@ -168,6 +195,8 @@ def _wire_cases(cfg, out):
     import repro.core.krylov as jk
     from repro.core.krylov.operators import DiaMatrix
 
+    if not cfg.get("wire"):
+        return
     probs = precision_problems(cfg["n"])
     rng = np.random.default_rng(cfg["seed"])
     rhs = {"pipecg": rng.standard_normal(cfg["n"]),
@@ -203,6 +232,8 @@ def _elastic_cases(cfg, out):
     from repro.core.noise.faults import FaultInjector, make_faults
     from repro.distributed.fault import resilient_distributed_solve
 
+    if not cfg.get("elastic"):
+        return
     offs, bands, b = elastic_problem(cfg.get("elastic_n", 240))
     A = DiaMatrix(offsets=offs, bands=jnp.asarray(bands))
     b = jnp.asarray(b)
@@ -256,6 +287,33 @@ def _elastic_cases(cfg, out):
         out[f"elastic/{name}"] = dict(result=_result(res), report=rep)
 
 
+def _campaign_cases(cfg, out):
+    """The JAX package's campaign stages on the same configurations as the
+    port's (tests/test_torch_campaign_exec.py): the execution cells of
+    ``runner`` on the naive engine, and each rank stage's ``_run_cells``
+    worker body, run here in-process on the forced host devices."""
+    from repro.experiments import (abft_exec, fault_exec, geometry_exec,
+                                   precision_exec)
+    from repro.experiments import runner as jrunner
+    from repro.experiments.noise_sources import make_distribution
+
+    c = cfg.get("campaign") or {}
+    if "engine" in c:
+        out["campaign/engine"] = jrunner.run_engine_exec(**c["engine"])
+    if "depth" in c:
+        out["campaign/depth"] = jrunner.run_depth_exec(**c["depth"])
+    if "noisy" in c:
+        kw = dict(c["noisy"])
+        kw["dist"] = make_distribution(kw.pop("noise"))
+        out["campaign/noisy"] = jrunner.run_noisy_exec(**kw)
+    for name, stage in (("fault", fault_exec), ("abft", abft_exec),
+                        ("precision", precision_exec),
+                        ("precision_window", precision_exec),
+                        ("geometry", geometry_exec)):
+        if name in c:
+            out[f"campaign/{name}"] = stage._run_cells(c[name])
+
+
 def jit_distributed_solve():
     """Run each ``distributed_solve`` of the JAX package under ``jax.jit``.
 
@@ -285,6 +343,7 @@ def run(cfg):
     out = {}
     _wire_cases(cfg, out)
     _elastic_cases(cfg, out)
+    _campaign_cases(cfg, out)
     with open(cfg["out"], "wb") as f:
         pickle.dump(out, f)
 

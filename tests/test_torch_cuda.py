@@ -1275,3 +1275,69 @@ def test_serve_admission_never_perturbs_in_flight_columns_on_card(cuda):
         both.step()
     for key, v in solo.state["vecs"].items():
         assert torch.equal(both.state["vecs"][key][0], v[0]), key
+
+
+# -- the block autotuner (kernels/autotune.py) --------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_autotuner_probe_picks_a_feasible_tile_bit_for_bit(cuda, entry):
+    """``best_block`` with a CUDA-event probe over a sweep's tile caps
+    returns one of them, and the sweep launched at it equals its plain
+    version bit for bit (partials at the gates)."""
+    from repro_torch.kernels import autotune
+    offsets, n = (-1, 0, 1), 1 << 16
+    sweep = "pipecg" if entry.startswith("pipecg") else "pipebicgstab"
+    fn, plain, _ = _ENTRIES[entry]
+    g = torch.Generator(device=cuda).manual_seed(21)
+    args = _entry_args(entry, offsets, n, torch.float64, torch.float64, g,
+                       cuda)
+    autotune.clear_cache()
+    cap = autotune.sweep_tile_cap(
+        sweep, offsets, n, torch.float64, device=cuda, reps=3,
+        probe=lambda c: (lambda: fn(*args, max_tile=c)))
+    key = autotune.sweep_key(sweep, offsets, n, torch.float64, device=cuda)
+    assert cap in autotune.sweep_candidates(sweep)
+    assert [b for _, b in autotune.scores(key)] == list(
+        autotune.sweep_candidates(sweep))
+    assert all(ms > 0 for ms, _ in autotune.scores(key))
+    _sweep_bit_for_bit(entry, args, torch.float64)   # the default cap
+    got = fn(*args, max_tile=cap)
+    want = plain(*args)
+    nvec = 4 if sweep == "pipecg" else 7
+    for gv, wv in zip(got[:nvec], want[:nvec]):
+        assert torch.equal(gv, wv)
+    assert _partial_rel(got[nvec], want[nvec]) <= 1e-10
+    autotune.clear_cache()
+
+
+@pytest.mark.cuda
+def test_warm_serve_on_card_adds_no_autotune_miss(cuda):
+    """The reference's warm-reuse pin on the card: the first server's step
+    builds the sweep's plan and looks its tile cap up; a second server
+    over a same-shape operator with other coefficients adds no miss."""
+    from repro_torch.core.krylov import tridiagonal_laplacian
+    from repro_torch.core.krylov.operators import DiaMatrix
+    from repro_torch.kernels import autotune
+    from repro_torch.serve import SolverServer, synthetic_requests
+    from repro_torch.serve.batcher import clear_compile_cache
+
+    def serve(A, seed):
+        srv = SolverServer(k_slots=2, step_block=8)   # engine "fused"
+        srv.submit_all(synthetic_requests(A, 1, tol=1e-8, maxiter=200,
+                                          modes=(4, 16), seed=seed))
+        return srv.run()
+    clear_compile_cache()
+    autotune.clear_cache()
+    n = 94                       # a shape no other test of this file plans
+    A = tridiagonal_laplacian(n, device=cuda)
+    before = pipecg_spmv_fused.launches
+    assert serve(A, 3).n_converged == 1
+    assert pipecg_spmv_fused.launches > before
+    cold = autotune.cache_stats()
+    assert cold["misses"] >= 1
+    A2 = DiaMatrix(offsets=A.offsets, bands=A.bands * 1.5)
+    assert serve(A2, 4).n_converged == 1
+    assert autotune.cache_stats()["misses"] == cold["misses"]
+    clear_compile_cache()
+    autotune.clear_cache()

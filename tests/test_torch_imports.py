@@ -48,6 +48,7 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.distributed.comm",
             "repro_torch.distributed.overlap",
             "repro_torch.distributed.ranks",
+            "repro_torch.distributed.shm",
             "repro_torch.kernels.fused_dots",
             "repro_torch.kernels.pipecg_spmv_fused",
             "repro_torch.core.krylov.bicgstab",
@@ -96,7 +97,17 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.experiments",
             "repro_torch.experiments.spec",
             "repro_torch.experiments.noise_sources",
-            "repro_torch.experiments.serve_exec"} <= set(names)
+            "repro_torch.experiments.serve_exec",
+            "repro_torch.experiments.runner",
+            "repro_torch.experiments.fitting",
+            "repro_torch.experiments.validation",
+            "repro_torch.experiments.report",
+            "repro_torch.experiments.campaign",
+            "repro_torch.experiments.abft_exec",
+            "repro_torch.experiments.fault_exec",
+            "repro_torch.experiments.geometry_exec",
+            "repro_torch.experiments.precision_exec",
+            "repro_torch.kernels.autotune"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"

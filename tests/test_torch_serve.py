@@ -473,11 +473,14 @@ def test_solver_server_options():
 
 def test_serve_exec_smoke_schema():
     """A tiny end-to-end serve_exec run keeps the reference's record
-    schema (its own validator reads it) minus ``autotune_stats``."""
-    from repro.experiments.validation import validate_serve_cells
+    schema, ``autotune_stats`` included, and the port's validator reads
+    it as the reference's does."""
+    from repro.experiments.validation import (
+        validate_serve_cells as ref_validate_serve_cells)
     from repro_torch.experiments import CampaignSpec, get_preset
     from repro_torch.experiments.serve_exec import (bench_record, jsonable,
                                                     run_serve_exec)
+    from repro_torch.experiments.validation import validate_serve_cells
 
     assert get_preset("smoke").serve_engine == "fused"
     spec = CampaignSpec(name="serve-test", serve_requests=8, serve_n=96,
@@ -487,12 +490,14 @@ def test_serve_exec_smoke_schema():
                         serve_replay_requests=512, seed=5)
     serve = run_serve_exec(spec, device=CPU)
     assert {key for key in serve if not key.startswith("_")} == {
-        "burst", "accuracy", "paced", "trace_counts"}
+        "burst", "accuracy", "paced", "trace_counts", "autotune_stats"}
     assert set(serve["_servers"]) == {"batched", "sequential", "paced",
                                       "burst_requests", "paced_requests"}
     assert set(jsonable(serve)) == {"burst", "accuracy", "paced",
-                                    "trace_counts"}
+                                    "trace_counts", "autotune_stats"}
+    assert set(serve["autotune_stats"]) == {"hits", "misses"}
     v = validate_serve_cells(serve)
+    assert v == ref_validate_serve_cells(serve)
     assert v["drained"] and v["all_converged"] and v["accuracy_ok"]
     assert all(c["bitwise"] for c in serve["accuracy"])
     assert math.isfinite(v["p50_rel_err"]) and math.isfinite(v["p99_rel_err"])

@@ -326,10 +326,10 @@ def test_plans_are_built_once(monkeypatch):
     """The device table is built once per sweep, operator and dtype; the
     wrapper reuses it (a CPU device stands in for the card here)."""
     monkeypatch.setattr(pcg, "_PLANS", {})
-    cpu = torch.device("cpu")
-    first = pcg.device_plan(pcg.sweep_plan, (-1, 0, 1), 8, cpu)
-    again = pcg.device_plan(pcg.sweep_plan, [-1, 0, 1], 8, cpu)
+    x = torch.zeros((1, 64), dtype=torch.float64)   # float64 rows on a CPU
+    first = pcg.device_plan(pcg.sweep_plan, (-1, 0, 1), x)
+    again = pcg.device_plan(pcg.sweep_plan, [-1, 0, 1], x)
     assert first[1] is again[1] and first[1].dtype == torch.int32
     assert first[1].tolist() == window_table((-1, 0, 1), first[0])
-    other = pcg.device_plan(bicg.sweep_plan, (-1, 0, 1), 8, cpu)
+    other = pcg.device_plan(bicg.sweep_plan, (-1, 0, 1), x)
     assert other[0] != first[0] and other[1] is not first[1]
