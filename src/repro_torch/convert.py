@@ -19,9 +19,13 @@ import torch
 from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 from repro_torch.core.krylov.options import PrecisionPolicy
+from repro_torch.configs.base import RECURRENT, RWKV
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Linear, RMSNorm
-from repro_torch.models.transformer import LM, Block, check_supported
+from repro_torch.models.moe import MoE
+from repro_torch.models.recurrent import RGLRU
+from repro_torch.models.recurrent import RWKV as RWKVParams
+from repro_torch.models.transformer import LM, Block
 
 
 def dia_from_numpy(offsets: Sequence[int], bands: np.ndarray,
@@ -107,8 +111,9 @@ def layers_in_order(cfg, tree) -> List[Any]:
 
 def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
     """The port's model over copies of a reference ``init_params`` tree
-    whose leaves are numpy arrays (dtypes kept)."""
-    check_supported(cfg)
+    whose leaves are numpy arrays (dtypes kept): attention, MoE (``moe``),
+    RG-LRU (``rec``) and RWKV (``tm``) layers, and the ``cb{i}``
+    embeddings and heads of codebook configs."""
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)
@@ -119,19 +124,46 @@ def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
     def norm(p):
         return RMSNorm(t(p["scale"]))
 
-    def block(kind, p):
+    def mixer(kind, p):
+        if kind == RECURRENT:
+            r = p["rec"]
+            return {"rec": RGLRU(lin(r["in_x"]), lin(r["in_gate"]),
+                                 t(r["conv_w"]), lin(r["gate_a"]),
+                                 lin(r["gate_i"]), t(r["lambda"]),
+                                 lin(r["out"]))}
+        if kind == RWKV:
+            m = p["tm"]
+            return {"tm": RWKVParams(
+                **{k: t(m[k]) for k in ("mu", "w0", "u", "ln_x", "cm_mu")},
+                **{k: lin(m[k]) for k in ("wr", "wk", "wv", "wg", "wo",
+                                          "decay_a", "decay_b", "cm_k",
+                                          "cm_v", "cm_r")})}
         a = p["attn"]
-        attn = Attention(lin(a["wq"]), lin(a["wk"]), lin(a["wv"]),
-                         lin(a["wo"]),
-                         norm(a["qnorm"]) if "qnorm" in a else None,
-                         norm(a["knorm"]) if "knorm" in a else None)
-        f = p["ffn"]
-        ffn = MLP(lin(f["up"]), lin(f["down"]),
-                  lin(f["gate"]) if "gate" in f else None)
-        return Block(kind, norm(p["norm1"]), norm(p["norm2"]), attn, ffn)
+        return {"attn": Attention(lin(a["wq"]), lin(a["wk"]), lin(a["wv"]),
+                                  lin(a["wo"]),
+                                  norm(a["qnorm"]) if "qnorm" in a else None,
+                                  norm(a["knorm"]) if "knorm" in a else None)}
+
+    def block(kind, p):
+        kw = mixer(kind, p)
+        if "ffn" in p:
+            f = p["ffn"]
+            kw["ffn"] = MLP(lin(f["up"]), lin(f["down"]),
+                            lin(f["gate"]) if "gate" in f else None)
+        if "moe" in p:
+            m = p["moe"]
+            kw["moe"] = MoE(lin(m["router"]), t(m["up"]), t(m["down"]),
+                            t(m["gate"]) if "gate" in m else None)
+        return Block(kind, norm(p["norm1"]), norm(p["norm2"]), **kw)
 
     blocks = [block(kind, p) for kind, p in
               zip(cfg.layer_kinds(), layers_in_order(cfg, tree["blocks"]))]
-    head = lin(tree["head"]) if "head" in tree else None
-    return LM(cfg, t(tree["embed"]["tokens"]), blocks,
-              norm(tree["final_norm"]), head)
+    ncb = cfg.num_codebooks
+    if ncb > 1:
+        embed = [t(tree["embed"][f"cb{i}"]) for i in range(ncb)]
+        head = ([lin(tree["head"][f"cb{i}"]) for i in range(ncb)]
+                if "head" in tree else None)
+    else:
+        embed = t(tree["embed"]["tokens"])
+        head = lin(tree["head"]) if "head" in tree else None
+    return LM(cfg, embed, blocks, norm(tree["final_norm"]), head)

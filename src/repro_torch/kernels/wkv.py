@@ -13,8 +13,12 @@ so that every word it reads from shared memory serves several FMAs, the
 row slices of a column summed by a warp-shuffle butterfly, the steps
 software-pipelined, and the step inputs staged a chunk of steps at a
 time by bulk copies into a two-stage ring (:func:`wkv_plan`).
-Nothing in the port's model calls it yet (the JAX package's RWKV blocks
-use a chunked jnp form too): ``ops.wkv_recurrent`` is its entry.
+The model's RWKV block does not call it: like the JAX package's, it runs
+the chunked form with a carried state (``models/recurrent.py::
+_wkv_chunked``), and the kernel takes no initial state and returns no
+last one.  ``ops.wkv_recurrent`` is its entry; chip_smoke.py holds the
+kernel and the chunked form together from a zero state on rwkv6-7b's
+layer 0.
 """
 from __future__ import annotations
 

@@ -1,6 +1,10 @@
-"""Batched serving driver: prefill + greedy decode with per-layer KV caches.
+"""Batched serving: prefill + greedy decode with per-layer state.
 
-The port of the JAX package's ``launch/serve.py``.  On the card:
+The port of the JAX package's ``launch/serve.py``, for every family: the
+per-layer state is a KV cache (attention) or a recurrent state (RG-LRU,
+RWKV); frontend configs get a zero (B, F, d) bf16 stub in front of the
+prompt, codebook configs a (B, S, ncb) prompt and one greedy token per
+codebook a step.  On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --prompt-len 2048 --decode-steps 32 --batch 4 \
@@ -30,26 +34,52 @@ from repro_torch.serve.metrics import LatencyStats
 def prefill_to_decode_state(cfg: ModelConfig, prefill_state, cache_len: int):
     """Convert prefill output states to a decode cache of ``cache_len``.
 
-    Attention caches (layout (B, S, KV, D)) are zero-padded along S.
-    Local-attn caches become full-length caches with the window enforced
-    by masking (the decode path supports both ring and masked-window
-    layouts)."""
+    Attention caches (layout (B, S, KV, D)) are zero-padded along S;
+    recurrent states pass through unchanged.  Local-attn caches become
+    full-length caches with the window enforced by masking (the decode
+    path supports both ring and masked-window layouts)."""
     def pad(x):
         extra = cache_len - x.shape[-3]
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra)) \
             if extra > 0 else x
 
     layers = [AttnState(k=pad(st.k), v=pad(st.v))
+              if isinstance(st, AttnState) else st
               for st in prefill_state["layers"]]
     return {"layers": layers, "pos": prefill_state["pos"]}
 
 
 def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int,
                   device="cuda", seed: int = 1) -> torch.Tensor:
-    """The driver's random prompt, (batch, prompt_len) token ids."""
+    """``serve``'s random prompt: (batch, prompt_len) token ids, or
+    (batch, prompt_len, ncb) with codebooks."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                         generator=g, device=device)
+    shape = (batch, prompt_len) + ((cfg.num_codebooks,)
+                                   if cfg.num_codebooks > 1 else ())
+    return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                         device=device)
+
+
+def serve_batch(cfg: ModelConfig, batch: int, prompt_len: int,
+                device="cuda") -> dict:
+    """The prefill batch ``serve`` runs: the prompt and, for a frontend
+    config, its precomputed embeddings as the reference's ``serve`` makes
+    them: zeros (batch, F, d_model) in bf16."""
+    b = {"tokens": prompt_tokens(cfg, batch, prompt_len, device)}
+    if cfg.frontend is not None:
+        b["frontend"] = torch.zeros(
+            (batch, cfg.frontend.num_positions, cfg.d_model),
+            dtype=torch.bfloat16, device=device)
+    return b
+
+
+def greedy(logits) -> torch.Tensor:
+    """The last position's argmax: (B,), or (B, ncb) for a tuple of
+    codebook logits."""
+    if isinstance(logits, tuple):
+        return torch.stack([torch.argmax(lg[:, -1, :], dim=-1)
+                            for lg in logits], dim=-1)
+    return torch.argmax(logits[:, -1, :], dim=-1)
 
 
 def _sync(device) -> None:
@@ -68,29 +98,28 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 16,
     """Prefill a random prompt, then decode greedily.
 
     ``params`` defaults to ``init_params`` from seed 0 on ``device``.
-    Returns the tokens (batch, decode_steps), the prefill's last-position
-    logits, the prefill and decode seconds, the per-step latency summary
+    Returns the tokens (batch, decode_steps[, ncb]), the prefill's
+    last-position logits (a tuple with codebooks), the prefill and decode
+    seconds, the per-step latency summary
     (decode_steps - 1 steps, each timed to a device synchronize) and the
     kernel launches of each stage.
     """
     if params is None:
         params = init_params(cfg, torch.Generator(device=device)
                              .manual_seed(0), device)
-    cache_len = prompt_len + decode_steps
-    b = {"tokens": prompt_tokens(cfg, batch, prompt_len, device)}
+    F = cfg.frontend.num_positions if cfg.frontend is not None else 0
+    cache_len = prompt_len + decode_steps + F
+    b = serve_batch(cfg, batch, prompt_len, device)
 
     prefill_fn = make_prefill_step(cfg)
     decode_fn = make_decode_step(cfg)
-
-    def sample(lg):
-        return torch.argmax(lg[:, -1, :], dim=-1)
 
     _sync(device)
     counts0 = ops.launch_counts()
     t0 = time.perf_counter()
     logits, pstate = prefill_fn(params, b)
     state = prefill_to_decode_state(cfg, pstate, cache_len)
-    tok = sample(logits)
+    tok = greedy(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     counts1 = ops.launch_counts()
@@ -101,7 +130,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 16,
     for _ in range(decode_steps - 1):
         ts = time.perf_counter()
         state, lg = decode_fn(params, state, tok)
-        tok = sample(lg)
+        tok = greedy(lg)
         _sync(device)
         step_s.append(time.perf_counter() - ts)
         generated.append(tok)

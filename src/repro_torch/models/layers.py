@@ -25,7 +25,7 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 def _normal(shape, stddev, dtype, generator, device) -> torch.Tensor:
     z = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (stddev * z).to(dtype)
+    return z.mul_(stddev).to(dtype)  # in place: one fp32 copy at a time
 
 
 class Linear(nn.Module):

@@ -1,8 +1,9 @@
-"""The decoder LM, attention families: dense GQA and sliding-window layers.
+"""The unified decoder LM covering all ten configs of ``configs/registry``.
 
-The port of the JAX package's ``models/transformer.py`` for the block
-kinds ``ATTN`` and ``ATTN_LOCAL`` (qwen3-1.7b, minitron-8b,
-starcoder2-15b, command-r-plus-104b).  The layer stack is
+The port of the JAX package's ``models/transformer.py``: dense GQA and
+sliding-window attention layers, MoE FFNs (with the arctic-style dense
+residual beside them), RG-LRU and RWKV-6 recurrent layers, modality
+frontends and parallel codebooks.  The layer stack is
 ``cfg.block_pattern`` cycled over ``cfg.num_layers``; where the reference
 stacks each pattern position's parameters and scans over them, the port
 keeps one module per layer in an ``nn.ModuleList`` in layer order and
@@ -11,15 +12,22 @@ reference's tree: scanned groups first, then the remainder layers).
 
 Modes:
   train   — full forward (the loss comes with training)
-  prefill — full forward, returns last-position logits + per-layer caches
-  decode  — one token with the per-layer KV caches
+  prefill — full forward, returns last-position logits + per-layer states
+  decode  — one token with the per-layer states
 
-State: ``{"layers": [AttnState per layer], "pos": int}``; ``pos`` is a
-Python int, the host's count of the positions already in the caches.
+Modality frontends (pixtral patches, musicgen frames) are stubs, as in
+the reference: precomputed (B, F, d) embeddings occupy the first F
+positions.  Codebook configs (musicgen) take tokens (B, S, ncb), sum the
+codebooks' embeddings and return a tuple of logits, one per codebook.
+
+State: ``{"layers": [per-layer state], "pos": int}``, a layer's state an
+``AttnState`` (KV cache), ``RGLRUState`` or ``RWKVState``; ``pos`` is a
+Python int, the host's count of the positions already seen (frontend
+positions included).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -32,9 +40,16 @@ from repro_torch.models.layers import (MLP, Linear, RMSNorm, _normal,
                                        _param, init_linear, init_mlp,
                                        init_rmsnorm, linear, mlp, rms_norm,
                                        sinusoidal_positions)
+from repro_torch.models.moe import MoE, init_moe, moe_ffn
+from repro_torch.models.recurrent import (RGLRU, RWKV as RWKVParams,
+                                          RGLRUState, RWKVState, init_rglru,
+                                          init_rwkv, rglru_block,
+                                          rwkv_channel_mix, rwkv_time_mix)
 
-AUX_KEYS = ("moe_aux", "moe_z")
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1 item 8)"
+#: the MoE loss terms (``loss_fn`` weighs them) and, port only, the count
+#: of (token, expert) assignments dropped at capacity; each summed over
+#: layers
+AUX_KEYS = ("moe_aux", "moe_z", "moe_dropped")
 
 
 class Hints:
@@ -55,53 +70,66 @@ class Hints:
         return x
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the families the port lacks."""
-    what = []
-    if cfg.moe is not None:
-        what.append("MoE FFNs")
-    what += [f"{kind} blocks" for kind in sorted(set(cfg.block_pattern))
-             if kind in (RECURRENT, RWKV)]
-    if cfg.frontend is not None:
-        what.append("modality frontends")
-    if cfg.num_codebooks > 1:
-        what.append("parallel codebooks")
-    if what:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(what)} "
-                                  f"{NOT_PORTED}")
-
-
 class Block(nn.Module):
-    """One layer: pre-norms, attention and the FFN."""
+    """One layer: pre-norms, the mixer (``attn``, ``rec`` or ``tm``) and
+    the FFN (``ffn`` dense, ``moe``, or both for a dense residual; a RWKV
+    layer's channel-mix lives in ``tm``)."""
 
-    def __init__(self, kind: str, norm1: RMSNorm, norm2: RMSNorm,
-                 attn: Attention, ffn: MLP):
+    def __init__(self, kind: str, norm1: RMSNorm, norm2: RMSNorm, *,
+                 attn: Optional[Attention] = None,
+                 rec: Optional[RGLRU] = None,
+                 tm: Optional[RWKVParams] = None,
+                 ffn: Optional[MLP] = None, moe: Optional[MoE] = None):
         super().__init__()
+        want = {ATTN: "attn", ATTN_LOCAL: "attn", RECURRENT: "rec",
+                RWKV: "tm"}[kind]
+        mixers = {"attn": attn, "rec": rec, "tm": tm}
+        if mixers[want] is None or any(v is not None for k, v in
+                                       mixers.items() if k != want):
+            raise ValueError(f"a {kind} block takes {want} alone")
         self.kind = kind
         self.norm1, self.norm2 = norm1, norm2
-        self.attn, self.ffn = attn, ffn
+        self.attn, self.rec, self.tm = attn, rec, tm
+        self.ffn, self.moe = ffn, moe
 
 
 class LM(nn.Module):
-    """The model's parameters: token embedding, layers in order, final
-    norm and (untied) head."""
+    """The model's parameters: token embedding(s), layers in order, final
+    norm and (untied) head(s).  With codebooks ``embed`` is a
+    ``ParameterList`` and ``head`` a ``ModuleList``, one per codebook."""
 
-    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
+    def __init__(self, cfg: ModelConfig,
+                 embed: Union[torch.Tensor, Sequence[torch.Tensor]],
                  blocks: List[Block], final_norm: RMSNorm,
-                 head: Optional[Linear] = None):
+                 head: Union[None, Linear, Sequence[Linear]] = None):
         super().__init__()
-        check_supported(cfg)
         if len(blocks) != cfg.num_layers or tuple(
                 b.kind for b in blocks) != cfg.layer_kinds():
             raise ValueError(f"{cfg.name}: blocks do not follow "
                              f"{cfg.layer_kinds()}")
+        for b in blocks:
+            want_moe = cfg.moe is not None and b.kind != RWKV
+            want_ffn = b.kind != RWKV and (
+                cfg.moe is None or cfg.moe.dense_residual)
+            if (b.moe is not None) != want_moe or \
+                    (b.ffn is not None) != want_ffn:
+                raise ValueError(f"{cfg.name}: a {b.kind} block's FFN "
+                                 "does not follow the config")
         if (head is None) != cfg.tie_embeddings:
             raise ValueError(f"{cfg.name}: tie_embeddings="
                              f"{cfg.tie_embeddings} but head is {head}")
-        self.embed = _param(embed)  # (V, d)
+        ncb = cfg.num_codebooks
+        if ncb > 1:
+            if len(embed) != ncb or (head is not None and len(head) != ncb):
+                raise ValueError(f"{cfg.name}: {ncb} codebooks need as many "
+                                 "embeddings and heads")
+            self.embed = nn.ParameterList([_param(e) for e in embed])
+            self.head = None if head is None else nn.ModuleList(head)
+        else:
+            self.embed = _param(embed)  # (V, d)
+            self.head = head
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
-        self.head = head
 
 
 # ---------------------------------------------------------------------------
@@ -111,47 +139,81 @@ class LM(nn.Module):
 def _init_block(cfg: ModelConfig, kind: str, generator, device) -> Block:
     dt = getattr(torch, cfg.param_dtype)
     kw = dict(generator=generator, device=device)
-    return Block(kind, init_rmsnorm(cfg.d_model, dt, device=device),
-                 init_rmsnorm(cfg.d_model, dt, device=device),
-                 init_attention(cfg, **kw),
-                 init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
-                          cfg.use_bias, **kw))
+    norms = (init_rmsnorm(cfg.d_model, dt, device=device),
+             init_rmsnorm(cfg.d_model, dt, device=device))
+    if kind == RWKV:  # channel-mix lives inside 'tm' (cm_*)
+        return Block(kind, *norms, tm=init_rwkv(cfg, **kw))
+    mixer = ({"rec": init_rglru(cfg, **kw)} if kind == RECURRENT
+             else {"attn": init_attention(cfg, **kw)})
+    moe = init_moe(cfg, **kw) if cfg.moe is not None else None
+    ffn = None
+    if cfg.moe is None or cfg.moe.dense_residual:
+        ffn = init_mlp(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
+                       cfg.use_bias, **kw)
+    return Block(kind, *norms, ffn=ffn, moe=moe, **mixer)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> LM:
     """Random parameters, drawn from ``generator`` (seed 0 if None) on
-    ``device``: embeddings N(0, 0.02), projections N(0, 1/d_in), norms 1,
-    biases 0, as the reference's initializers."""
-    check_supported(cfg)
+    ``device`` with the reference's initializers: embeddings N(0, 0.02),
+    projections and experts N(0, 1/d_in), the recurrent blocks' own
+    (``init_rglru``, ``init_rwkv``), norms 1, biases 0."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = getattr(torch, cfg.param_dtype)
-    d, V = cfg.d_model, cfg.vocab_size
-    embed = _normal((V, d), 0.02, dt, generator, device)
+    d, V, ncb = cfg.d_model, cfg.vocab_size, cfg.num_codebooks
+    embeds = [_normal((V, d), 0.02, dt, generator, device)
+              for _ in range(ncb)]
     blocks = [_init_block(cfg, kind, generator, device)
               for kind in cfg.layer_kinds()]
-    head = None
+    heads = None
     if not cfg.tie_embeddings:
-        head = init_linear(d, V, dt, generator=generator, device=device)
-    return LM(cfg, embed, blocks, init_rmsnorm(d, dt, device=device), head)
+        heads = [init_linear(d, V, dt, generator=generator, device=device)
+                 for _ in range(ncb)]
+    if ncb == 1:
+        embeds = embeds[0]
+        heads = None if heads is None else heads[0]
+    return LM(cfg, embeds, blocks, init_rmsnorm(d, dt, device=device), heads)
 
 
 # ---------------------------------------------------------------------------
 # Per-layer state (decode / prefill)
 # ---------------------------------------------------------------------------
 
+def _init_block_state(cfg: ModelConfig, kind: str, batch: int,
+                      cache_len: int, dtype, device):
+    if kind in (ATTN, ATTN_LOCAL):
+        eff = (min(cache_len, cfg.window)
+               if (kind == ATTN_LOCAL and cfg.window) else cache_len)
+        return init_attn_state(cfg, batch, eff, dtype, device)
+    if kind == RECURRENT:
+        w = cfg.lru_width or cfg.d_model
+        return RGLRUState(
+            h=torch.zeros((batch, w), dtype=torch.float32, device=device),
+            conv=torch.zeros((batch, cfg.conv1d_width - 1, w), dtype=dtype,
+                             device=device))
+    if kind == RWKV:
+        hd = cfg.rwkv_head_dim
+        H = cfg.d_model // hd
+        return RWKVState(
+            s=torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                          device=device),
+            tm_last=torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                device=device),
+            cm_last=torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                device=device))
+    raise ValueError(kind)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device="cuda") -> Dict:
     """Zero decode state for all layers, in layer order."""
-    check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
-    layers = []
-    for kind in cfg.layer_kinds():
-        eff = (min(cache_len, cfg.window)
-               if (kind == ATTN_LOCAL and cfg.window) else cache_len)
-        layers.append(init_attn_state(cfg, batch, eff, dtype, device))
-    return {"layers": layers, "pos": 0}
+    return {"layers": [_init_block_state(cfg, kind, batch, cache_len, dtype,
+                                         device)
+                       for kind in cfg.layer_kinds()],
+            "pos": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -159,30 +221,64 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _zero_aux():
-    # the MoE load-balancing terms; 0 for every ported family (Python
-    # floats, so a dense layer launches nothing for them)
-    return {k: 0.0 for k in AUX_KEYS}
+    # Python zeros, so a layer without experts launches nothing for them
+    return {k: 0 for k in AUX_KEYS}
+
+
+def _ffn_part(p: Block, cfg: ModelConfig, h, dtype):
+    # the reference's expert-parallel route needs a mesh; the port's
+    # Hints.mesh is None, so moe_ffn is the one route, as the reference's
+    # without a mesh
+    if cfg.moe is not None:
+        out, aux = moe_ffn(p.moe, cfg, h, dtype)
+        if cfg.moe.dense_residual:
+            out = out + mlp(p.ffn, h, cfg.gated_mlp, dtype)
+        return out, aux
+    return mlp(p.ffn, h, cfg.gated_mlp, dtype), _zero_aux()
 
 
 def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
                 mode="train", state=None, pos=None, hints: Hints = Hints()):
-    if kind not in (ATTN, ATTN_LOCAL):
-        raise NotImplementedError(f"{kind} blocks {NOT_PORTED}")
     dtype = getattr(torch, cfg.dtype)
     eps = cfg.norm_eps
     h = rms_norm(p.norm1, x, eps)
-    aux = _zero_aux()
-    window = cfg.window if kind == ATTN_LOCAL else 0
-    a_out, new_state = attention_block(
-        p.attn, cfg, h, positions, dtype, mode=mode, state=state, pos=pos,
-        window=window, hints=hints)
-    if cfg.parallel_block:
-        f_out = mlp(p.ffn, h, cfg.gated_mlp, dtype)
-        return hints.activation(x + a_out + f_out), new_state, aux
-    x = x + a_out
-    h2 = rms_norm(p.norm2, x, eps)
-    f_out = mlp(p.ffn, h2, cfg.gated_mlp, dtype)
-    return hints.activation(x + f_out), new_state, aux
+
+    if kind in (ATTN, ATTN_LOCAL):
+        window = cfg.window if kind == ATTN_LOCAL else 0
+        a_out, new_state = attention_block(
+            p.attn, cfg, h, positions, dtype, mode=mode, state=state,
+            pos=pos, window=window, hints=hints)
+        if cfg.parallel_block:
+            f_out, aux = _ffn_part(p, cfg, h, dtype)
+            return hints.activation(x + a_out + f_out), new_state, aux
+        x = x + a_out
+        h2 = rms_norm(p.norm2, x, eps)
+        f_out, aux = _ffn_part(p, cfg, h2, dtype)
+        return hints.activation(x + f_out), new_state, aux
+
+    if kind == RECURRENT:
+        r_out, new_state = rglru_block(p.rec, cfg, h, dtype, mode=mode,
+                                       state=state)
+        x = x + r_out
+        h2 = rms_norm(p.norm2, x, eps)
+        f_out, aux = _ffn_part(p, cfg, h2, dtype)
+        return hints.activation(x + f_out), new_state, aux
+
+    if kind == RWKV:
+        tm_out, tm_state = rwkv_time_mix(p.tm, cfg, h, dtype, mode=mode,
+                                         state=state)
+        x = x + tm_out
+        h2 = rms_norm(p.norm2, x, eps)
+        cm_last = state.cm_last if state is not None else None
+        cm_out, new_cm_last = rwkv_channel_mix(p.tm, cfg, h2, dtype,
+                                               mode=mode, last=cm_last)
+        new_state = None
+        if mode != "train":
+            new_state = RWKVState(s=tm_state.s, tm_last=tm_state.tm_last,
+                                  cm_last=new_cm_last)
+        return hints.activation(x + cm_out), new_state, _zero_aux()
+
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +287,22 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
 
 def embed_tokens(params: LM, cfg: ModelConfig, tokens):
     # gather the rows, then cast: the same bits as the reference's cast of
-    # the whole table followed by the gather
-    return params.embed[tokens].to(getattr(torch, cfg.dtype))
+    # the whole table followed by the gather; codebooks summed in order
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.num_codebooks > 1:
+        return sum(params.embed[i][tokens[..., i]].to(dtype)
+                   for i in range(cfg.num_codebooks))
+    return params.embed[tokens].to(dtype)
 
 
 def unembed(params: LM, cfg: ModelConfig, x, hints: Hints = Hints()):
+    """Logits (B, S, V); a tuple of them, one per codebook."""
     dtype = getattr(torch, cfg.dtype)
+    if cfg.num_codebooks > 1:
+        if cfg.tie_embeddings:
+            return tuple(hints.logits(x @ e.to(dtype).T)
+                         for e in params.embed)
+        return tuple(hints.logits(linear(h, x, dtype)) for h in params.head)
     if cfg.tie_embeddings:
         return hints.logits(x @ params.embed.to(dtype).T)
     return hints.logits(linear(params.head, x, dtype))
@@ -208,10 +314,13 @@ def unembed(params: LM, cfg: ModelConfig, x, hints: Hints = Hints()):
 
 def forward(params: LM, cfg: ModelConfig, batch, *, mode="train",
             hints: Hints = Hints()):
-    """Full-sequence forward.  batch: {"tokens": (B, S)}.  Returns
-    (x_final, states|None, aux)."""
+    """Full-sequence forward.  batch: tokens (B, S_tok[, ncb]), and
+    'frontend' (B, F, d) when the config has one.  Returns (x_final,
+    states|None, aux)."""
     dtype = getattr(torch, cfg.dtype)
     x = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend is not None:
+        x = torch.cat([batch["frontend"].to(dtype), x], dim=1)
     B, S, d = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if cfg.num_heads and not cfg.use_rope:
@@ -239,11 +348,12 @@ def prefill(params: LM, cfg: ModelConfig, batch, *, hints: Hints = Hints()):
 
 def decode_step(params: LM, cfg: ModelConfig, state, token, *,
                 hints: Hints = Hints()):
-    """One decode step.  token (B,) integer; state from init_decode_state
-    or prefill (its caches are written in place).  Returns (new_state,
-    logits (B, 1, V))."""
+    """One decode step.  token (B,[ncb]) integer; state from
+    init_decode_state or prefill (its KV caches are written in place).
+    Returns (new_state, logits (B, 1, V), a tuple of them with codebooks)."""
     pos = state["pos"]
-    x = embed_tokens(params, cfg, token[:, None])
+    tok = token[:, None] if cfg.num_codebooks == 1 else token[:, None, :]
+    x = embed_tokens(params, cfg, tok)
     B, _, d = x.shape
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     if cfg.num_heads and not cfg.use_rope:

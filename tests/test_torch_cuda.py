@@ -27,7 +27,11 @@ takes powers of two).  The LM kernels sum in another order than their
 plain versions' matmuls: ``flash_attention`` is held to its float32 plain
 version, to 2e-5 on float32 inputs and, on bfloat16 inputs (P rounded to
 bf16 on the tensor cores), to the two-part bar of
-``flash_attn.bf16_error``; ``wkv_recurrent`` to 2e-5 of max |o|.  The
+``flash_attn.bf16_error``; ``wkv_recurrent`` to 2e-5 of max |o|, and
+so the model's chunked RWKV form from a zero state.  ``moe_ffn`` on the
+card matches its CPU run to 2e-5 with the same drops, and a MoE and a
+codebook + frontend config launch one flash kernel per attention layer
+in prefill.  The
 serve batcher on the fused sweep (k = 8): retired columns equal solo
 serves bit for bit, a NaN-poisoned column and garbage in free columns
 leave the live columns' bits alone, and a mid-flight admission perturbs
@@ -948,6 +952,96 @@ def test_serve_prefill_goes_through_the_flash_kernel(cuda):
             cfg, 2, 100, cuda)})
     gap = (out["logits"].float() - lp.float()).abs()
     assert float(gap.max()) <= 0.15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [-2.0, -8.0])
+def test_rwkv_chunked_form_matches_wkv_kernel_on_card(cuda, decay):
+    """The model's chunked RWKV form from a zero state against the
+    ``wkv_recurrent`` kernel on (B*H, S, D) contiguous copies of the same
+    inputs: within 2e-5 of max |o|."""
+    from repro_torch.kernels.wkv import wkv_recurrent
+    from repro_torch.models.recurrent import _wkv_chunked
+    g = torch.Generator(device=cuda).manual_seed(22)
+    B, S, H, D = 2, 256, 4, 64
+    r, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda)
+               for _ in range(3))
+    logw = -torch.exp(torch.randn(B, S, H, D, generator=g, device=cuda)
+                      + decay)
+    u = 0.5 * torch.randn(H, D, generator=g, device=cuda)
+    o, _ = _wkv_chunked(r, k, v, logw, u,
+                        torch.zeros(B, H, D, D, device=cuda))
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
+
+    before = wkv_recurrent.launches
+    want = wkv_recurrent(fold(r), fold(k), fold(v), fold(logw),
+                         u.repeat(B, 1))
+    assert wkv_recurrent.launches == before + 1
+    got = fold(o)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_card_matches_its_cpu_run(cuda):
+    """olmoe's smoke MoE in float32, with a capacity that drops tokens and
+    at the decode case T = B: the card's output and aux terms against the
+    CPU run on the same weights, the same drops, and bit-equal repeats."""
+    import dataclasses
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models.moe import init_moe, moe_ffn
+    base = dataclasses.replace(smoke_config("olmoe-1b-7b"), dtype="float32")
+    for cf, S in ((0.5, 32), (2.0, 1)):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=cf))
+        p = init_moe(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+        x = torch.randn(4, S, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        want, waux = moe_ffn(p, cfg, x, torch.float32)
+        p.to(cuda)
+        got, gaux = moe_ffn(p, cfg, x.to(cuda), torch.float32)
+        again, _ = moe_ffn(p, cfg, x.to(cuda), torch.float32)
+        assert torch.equal(got, again)
+        assert float((got.cpu() - want).abs().max()) <= 2e-5
+        for key in ("moe_aux", "moe_z"):
+            assert abs(float(gaux[key]) - float(waux[key])) <= 2e-5
+        assert int(gaux["moe_dropped"]) == int(waux["moe_dropped"])
+        assert (int(waux["moe_dropped"]) > 0) == (cf == 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "musicgen-medium"])
+def test_family_prefill_launches_one_flash_per_attention_layer(cuda, arch):
+    """A MoE and a codebook + frontend config at smoke width (head dim
+    64 for the kernel, float32 compute: in bf16 the two routes' rounding
+    can turn a near-tied top-2 choice of 4 experts, which moves a
+    token's logits by O(1)): one flash launch per attention layer in
+    prefill, none in decode, and the prefill logits within 1e-3 of the
+    dense route's on the same weights and prompt."""
+    import dataclasses
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import serve, serve_batch
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(smoke_config(arch), head_dim=64,
+                              attn_kernel=True, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    out = serve(cfg, batch=2, prompt_len=100, decode_steps=4, device=cuda,
+                params=params, progress=lambda s: None)
+    assert out["launches"]["prefill"]["flash_attention"] == cfg.num_layers
+    assert out["launches"]["decode"]["flash_attention"] == 0
+    ncb = cfg.num_codebooks
+    assert tuple(out["tokens"].shape) == (2, 4) + ((ncb,) if ncb > 1
+                                                   else ())
+    plain = dataclasses.replace(cfg, attn_kernel=False)
+    with torch.inference_mode():
+        lp, _ = prefill(params, plain, serve_batch(cfg, 2, 100, cuda))
+    got = out["logits"] if ncb > 1 else (out["logits"],)
+    lp = lp if ncb > 1 else (lp,)
+    for a, b in zip(got, lp):
+        assert float((a - b).abs().max()) <= 1e-3
 
 
 # -- the row-window sweeps (PIPECG and p-BiCGStab, both entries) -------------

@@ -26,7 +26,7 @@ from repro.models import layers as jlay
 from repro.models import transformer as jtf
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
-from repro_torch.configs.base import ATTN, ATTN_LOCAL
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, RECURRENT, RWKV
 from repro_torch.convert import layers_in_order, lm_params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import prefill_to_decode_state, serve
@@ -357,14 +357,32 @@ def test_serve_is_deterministic_and_main_parses_overrides():
     assert torch.equal(a["tokens"], b["tokens"])
 
 
-@pytest.mark.parametrize("arch", [a for a in jreg.list_archs()
-                                  if a not in DENSE])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", jreg.list_archs())
+def test_every_family_builds_and_prefills(arch):
+    """All ten configs: the port's ``init_params`` at smoke size builds
+    the layer kinds ``cfg.layer_kinds()`` names (with the FFN the config
+    asks for), and a one-token prefill is finite."""
     cfg = treg.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ttf.init_decode_state(cfg, 1, 4, device="cpu")
-    jparams = jtf.init_params(jreg.smoke_config(arch), jax.random.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm_params_from_numpy(cfg, _np_tree(jparams), device="cpu")
+    model = ttf.init_params(cfg, device="cpu")
+    assert tuple(b.kind for b in model.blocks) == cfg.layer_kinds()
+    mixer = {ATTN: "attn", ATTN_LOCAL: "attn", RECURRENT: "rec", RWKV: "tm"}
+    for b in model.blocks:
+        assert getattr(b, mixer[b.kind]) is not None
+        if b.kind != RWKV:
+            assert (b.moe is not None) == (cfg.moe is not None)
+    ncb = cfg.num_codebooks
+    toks = torch.zeros((2, 1) + ((ncb,) if ncb > 1 else ()),
+                       dtype=torch.long)
+    batch = {"tokens": toks}
+    if cfg.frontend is not None:
+        batch["frontend"] = torch.zeros(
+            (2, cfg.frontend.num_positions, cfg.d_model))
+    with torch.inference_mode():
+        logits, st = ttf.prefill(model, cfg, batch)
+    logits = logits if ncb > 1 else (logits,)
+    assert len(logits) == ncb
+    for lg in logits:
+        assert tuple(lg.shape) == (2, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(lg.float()).all())
+    F = cfg.frontend.num_positions if cfg.frontend is not None else 0
+    assert st["pos"] == F + 1 and len(st["layers"]) == cfg.num_layers
