@@ -162,6 +162,23 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    MoE drops at capacity; the ``wkv_recurrent`` kernel against the
    chunked form on rwkv6-7b's layer-0 r, k, v, logw (float32, zero
    state, 1e-4 of max |o|, one launch); within SERVE_FAMILIES_BUDGET_S;
+   then ``[train]``: ``launch.train.train`` at published widths (fp32
+   masters, bf16 compute, remat "full", ``SyntheticTokens`` seed 0,
+   warmup 2) for qwen3-1.7b (28 layers, batch 4 x 2048, 10 steps,
+   pipelined clipping), olmoe-1b-7b cut to 4 of 16 layers (its 6.9 B
+   parameters at 16 bytes each do not fit; batch 4 x 2048, 6 steps, sync
+   clipping) and recurrentgemma-2b (26 layers, batch 2 x 2048, 6 steps),
+   each with the counts set to 0 just before and read just after (no
+   kernel launches: the flash kernel has no backward): loss, gnorm, lr
+   (and MoE aux terms and drops) and ms a step, ms a step (median from
+   step 3), tokens/s, peak memory, the loss falling by 0.1; qwen3's step
+   with and without ``save_attn_out`` (peak memory, ms); the H2 repeat
+   (qwen3 at 2 layers, olmoe at 1, full width: two gradients from one
+   state bit for bit); ``krylov_newton_step`` with PIPECG and with CG on
+   qwen3 at 2 layers in float32 (batch 1 x 256, 10 iterations, damping
+   1e-2: ms an HVP, both residuals, the directions within the CPU tests'
+   1e-3); a train step with ``attn_kernel=True`` raising at the flash
+   wrapper and ``train`` refusing it; within TRAIN_BUDGET_S;
    then ``[solve_serve]``: solver serving at ex23's n = 2,097,152 on the
    fused engine, ``run_serve_exec`` with the JAX package's serve workload
    (64 requests of 32-256 Laplacian modes, tol 1e-8, maxiter 600, k = 8
@@ -325,6 +342,25 @@ FAMILY_FLASH = {"olmoe-1b-7b": 16, "rwkv6-7b": 0, "recurrentgemma-2b": 0,
                 "musicgen-medium": 48, "pixtral-12b": 40, "arctic-480b": 1}
 FAMILY_WKV_TOL = 1e-4      # of max |o|: the kernel against the chunked form
 SERVE_FAMILIES_BUDGET_S = 120.0   # 43.49-50.16 s on an H100 80GB HBM3, 700 W
+# training ([train]): launch.train.train at published widths, fp32 masters,
+# bf16 compute, remat "full", SyntheticTokens seed 0, warmup 2: (arch,
+# cut, batch, seq, steps, pipelined clipping).  olmoe-1b-7b's 6.9 B
+# parameters at 16 bytes each (params, grads, fp32 m and v) do not fit
+# 80 GB: 4 of its 16 layers (~1.9 B) do
+TRAIN_CELLS = (("qwen3-1.7b", {}, 4, 2048, 10, True),
+               ("olmoe-1b-7b", {"num_layers": 4}, 4, 2048, 6, False),
+               ("recurrentgemma-2b", {}, 2, 2048, 6, True))
+TRAIN_TIMED_FROM = 2        # ms a step: the median of steps 3 on
+TRAIN_LOSS_DROP = 0.1       # the last loss below the first by this much
+# H2 repeat (two gradients from one state, bit for bit) and the
+# Krylov-Newton step, on these configs cut to a few layers at full width
+TRAIN_REPEAT = (("qwen3-1.7b", 2), ("olmoe-1b-7b", 1))
+TRAIN_REPEAT_SHAPE = (4, 2048)   # batch, seq
+KN_LAYERS = 2
+KN_BATCH, KN_SEQ = 1, 256
+KN_CG_ITERS, KN_DAMPING = 10, 1e-2
+KN_DIRECTION_RTOL = 1e-3    # tests/test_torch_train.py pins it on the CPU
+TRAIN_BUDGET_S = 120.0
 # solver serving ([solve_serve]): the JAX package's serve workload (its
 # CampaignSpec defaults: 64 requests of 32-256 Laplacian modes, tol 1e-8,
 # maxiter 600, k = 8 slots, blocks of 8, rho 0.7, a 16,384-request
@@ -3253,6 +3289,253 @@ def phase_serve_families(records):
           f"{SERVE_FAMILIES_BUDGET_S} s budget")
 
 
+def train_cell(arch, cut, batch, seq, steps, pipelined, dev) -> dict:
+    """One ``train`` run at full width (``cut`` applied), its checks, and
+    the qwen3 state for the save_attn_out steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **cut)
+    tcfg = TrainConfig(model=cfg.name, steps=steps, warmup_steps=2,
+                       pipelined_clipping=pipelined)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    out = train(cfg, tcfg, seq_len=seq, batch=batch, log_every=0,
+                device=dev)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in out["state"]["params"].parameters())
+    check(sum(counts.values()) == 0, f"{arch} training launched {counts}")
+    for i, m in enumerate(out["metrics"]):
+        extra = {}
+        if cfg.moe is not None:
+            extra = dict(moe_aux=f"{m['moe_aux']:.5f}",
+                         moe_z=f"{m['moe_z']:.4f}",
+                         moe_dropped=int(m["moe_dropped"]))
+        say("train", arch=arch, step=i, loss=f"{m['loss']:.5f}",
+            ce=f"{m['ce']:.5f}", gnorm=f"{m['gnorm']:.4f}",
+            lr=f"{m['lr']:.3e}",
+            ms=f"{out['step_seconds'][i] * 1e3:.2f}", **extra)
+    losses = out["losses"]
+    check(all(np.isfinite(losses)), f"{arch} losses {losses}")
+    ms = statistics.median(out["step_seconds"][TRAIN_TIMED_FROM:]) * 1e3
+    reduced = ",".join(f"{k}={getattr(full, k)}->{v}" for k, v in
+                       cut.items()) or None
+    say("train", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        reduced=reduced, params=n_params, batch=batch, seq=seq,
+        steps=steps, clipping="pipelined" if pipelined else "sync",
+        remat=tcfg.remat, first_loss=f"{losses[0]:.5f}",
+        last_loss=f"{losses[-1]:.5f}",
+        ms_per_step=f"{ms:.2f}", tokens_per_s=f"{batch * seq / ms * 1e3:.1f}",
+        peak_memory_gb=f"{peak / 1e9:.3f}")
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP,
+          f"{arch} loss did not fall: {losses}")
+    return {"cfg": cfg, "tcfg": tcfg, "out": out, "batch": batch,
+            "seq": seq}
+
+
+def save_attn_out_steps(cell, dev) -> None:
+    """One more step without, then one with ``save_attn_out``, from the
+    trained state: peak memory and ms beside each other."""
+    import dataclasses
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import make_train_step
+
+    cfg, tcfg, state = cell["cfg"], cell["tcfg"], cell["out"]["state"]
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, cell["seq"],
+                                      cell["batch"], seed=tcfg.seed),
+                           device=dev)
+    for i, save in enumerate((False, True)):
+        c = dataclasses.replace(cfg, save_attn_out=save)
+        b = data.batch(tcfg.steps + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, m = make_train_step(c, tcfg)(state, b)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        check(np.isfinite(loss), f"save_attn_out={save} loss {loss}")
+        say("train", arch=cfg.name, save_attn_out=save,
+            loss=f"{loss:.5f}", ms=f"{dt * 1e3:.2f}",
+            peak_memory_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f}")
+
+
+def train_repeat(arch, layers, dev) -> None:
+    """H2: two loss-and-gradient passes from one state and one batch give
+    the same loss and every gradient bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import loss_fn
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    tcfg = TrainConfig(model=cfg.name)
+    state = build_state(cfg, tcfg, device=dev)
+    batch, seq = TRAIN_REPEAT_SHAPE
+    b = SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch), device=dev) \
+        .batch(0)
+    named = dict(state["params"].named_parameters())
+    runs = []
+    for _ in range(2):
+        loss, _ = loss_fn(state["params"], cfg, b, remat=tcfg.remat)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
+        runs.append((loss.detach(), grads))
+    differ = [k for k, g0, g1 in zip(named, runs[0][1], runs[1][1])
+              if not torch.equal(g0, g1)]
+    same_loss = bool(torch.equal(runs[0][0], runs[1][0]))
+    say("train", check="repeat (H2)", arch=arch, layers=layers,
+        leaves=len(named), loss_bit_equal=same_loss,
+        grads_differing=",".join(differ) or 0)
+    check(same_loss and not differ,
+          f"{arch}: a second pass differs (loss {same_loss}, {differ})")
+
+
+def krylov_newton_cells(dev) -> None:
+    """One ``krylov_newton_step`` with PIPECG and one with CG on qwen3-1.7b
+    cut to KN_LAYERS layers in float32: ms an HVP, both residuals, the
+    directions within KN_DIRECTION_RTOL of each other."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.krylov_newton import (hvp_operator,
+                                                 krylov_newton_step,
+                                                 module_loss, _tree_to_vec)
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=KN_LAYERS,
+                              dtype="float32")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    b = SyntheticTokens(DataConfig(cfg.vocab_size, KN_SEQ, KN_BATCH),
+                        device=dev).batch(0)
+    f = module_loss(model, lambda m: loss_fn(m, cfg, b, remat="none")[0])
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    hvp = hvp_operator(f, params, KN_DAMPING)
+    v = torch.randn(_tree_to_vec(params).shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    hv = hvp(v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        hv = hvp(v)
+    torch.cuda.synchronize()
+    hvp_ms = (time.perf_counter() - t0) / 3 * 1e3
+    check(bool(torch.isfinite(hv).all()), "HVP not finite")
+    dirs, res = {}, {}
+    for pipelined in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = krylov_newton_step(f, params, cg_iters=KN_CG_ITERS,
+                                    damping=KN_DAMPING, pipelined=pipelined)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        dirs[pipelined] = torch.cat([(new[k] - params[k]).reshape(-1)
+                                     for k in params])
+        res[pipelined] = float(m["cg_res"])
+        del new
+        say("train", check="krylov_newton", pipelined=pipelined,
+            params=dirs[pipelined].numel(), loss=f"{float(m['loss']):.5f}",
+            gnorm=f"{float(m['gnorm']):.5f}", cg_res=f"{res[pipelined]:.6e}",
+            cg_iters=int(m["cg_iters"]), step_ms=f"{dt * 1e3:.2f}")
+        check(np.isfinite(res[pipelined])
+              and bool(torch.isfinite(dirs[pipelined]).all()),
+              f"Krylov-Newton pipelined={pipelined} not finite")
+    rel = float((dirs[True] - dirs[False]).norm() / dirs[False].norm())
+    say("train", check="krylov_newton directions", hvp_ms=f"{hvp_ms:.3f}",
+        rel_gap=f"{rel:.3e}", bar=KN_DIRECTION_RTOL)
+    check(rel <= KN_DIRECTION_RTOL,
+          f"PIPECG and CG Newton directions {rel} apart")
+
+
+def train_guard(dev) -> None:
+    """``attn_kernel=True``: a train step raises at the flash wrapper
+    (launching nothing), and ``train`` refuses the config before step 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_state, train
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2,
+                              attn_kernel=True)
+    tcfg = TrainConfig(model=cfg.name, steps=1)
+    state = build_state(cfg, tcfg, device=dev)
+    b = SyntheticTokens(DataConfig(cfg.vocab_size, 256, 1), device=dev) \
+        .batch(0)
+    before = ops.launch_counts()["flash_attention"]
+    raised = refused = ""
+    try:
+        make_train_step(cfg, tcfg)(state, b)
+    except RuntimeError as e:
+        raised = str(e)
+    try:
+        train(cfg, tcfg, seq_len=256, batch=1, log_every=0, device=dev)
+    except ValueError as e:
+        refused = str(e)
+    del state
+    say("train", check="attn_kernel=True", step_raises=bool(raised),
+        train_refuses=bool(refused))
+    check("no backward" in raised, f"the train step did not raise: {raised}")
+    check("no backward" in refused, f"train did not refuse: {refused}")
+    check(ops.launch_counts()["flash_attention"] == before,
+          "the refused step launched flash")
+
+
+def phase_train(records):
+    """Training on the card: qwen3-1.7b (28 layers), olmoe-1b-7b (4 of 16
+    layers) and recurrentgemma-2b through ``launch.train.train``, the
+    save_attn_out step pair, the H2 repeat, the Krylov-Newton pair and the
+    attn_kernel guard; no kernel launches in the phase; within
+    ``TRAIN_BUDGET_S``."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    name, line = card()
+    say("train", card=repr(name), smi=repr(line))
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for arch, cut, batch, seq, steps, pipelined in TRAIN_CELLS:
+        cell = train_cell(arch, cut, batch, seq, steps, pipelined, dev)
+        if arch == "qwen3-1.7b":
+            save_attn_out_steps(cell, dev)
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, layers in TRAIN_REPEAT:
+        train_repeat(arch, layers, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    krylov_newton_cells(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_guard(dev)
+    counts = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    say("train", flash_launches=counts["flash_attention"],
+        wkv_launches=counts["wkv_recurrent"], seconds=f"{seconds:.2f}",
+        budget_s=TRAIN_BUDGET_S)
+    check(counts["flash_attention"] == 0 and counts["wkv_recurrent"] == 0,
+          f"[train] launched {counts}")
+    check(seconds <= TRAIN_BUDGET_S,
+          f"[train] {seconds:.1f} s over its {TRAIN_BUDGET_S} s budget")
+
+
 def serve_mode_minima(n: int, count: int, modes, seed: int):
     """Each request's smallest excited mode: the host draws of
     ``serve.load.synthetic_requests`` replayed (mode count, mode indices,
@@ -3883,6 +4166,7 @@ def main() -> int:
     phase_wkv_entry(records)
     phase_serve(records)
     phase_serve_families(records)
+    phase_train(records)
     phase_solve_serve(records)
     phase_campaign(records)
     phase_model()

@@ -5,9 +5,11 @@ reference at run time: ``dia_from_numpy(A.offsets, np.asarray(A.bands))``
 rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``,
 ``bsr_from_numpy(np.asarray(A.indices), np.asarray(A.blocks))`` a
 reference ``BsrMatrix``, and ``lm_params_from_numpy(cfg, tree)`` the LM of
-a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``),
-and ``model_from_fields(name, dataclasses.asdict(obj))`` the port's
-``Hardware``, ``SolverPhaseModel`` or ``RunModel`` of a reference one.
+a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``; any
+tree shaped like it, gradients too), ``train_state_from_numpy`` a
+reference train state, and ``model_from_fields(name,
+dataclasses.asdict(obj))`` the port's ``Hardware``, ``SolverPhaseModel``
+or ``RunModel`` of a reference one.
 """
 from __future__ import annotations
 
@@ -109,6 +111,16 @@ def layers_in_order(cfg, tree) -> List[Any]:
     return layers + list(tree["rem"])
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor copy of a numpy array; a bfloat16 array (numpy's extension
+    dtype, as ``np.asarray`` of a JAX bf16 array gives it) keeps its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
     """The port's model over copies of a reference ``init_params`` tree
     whose leaves are numpy arrays (dtypes kept): attention, MoE (``moe``),
@@ -116,7 +128,7 @@ def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
     embeddings and heads of codebook configs."""
 
     def t(a):
-        return torch.from_numpy(np.array(a)).to(device)
+        return _tensor(a, device)
 
     def lin(p):
         return Linear(t(p["w"]), t(p["b"]) if "b" in p else None)
@@ -167,3 +179,26 @@ def lm_params_from_numpy(cfg, tree, device="cuda") -> LM:
         embed = t(tree["embed"]["tokens"])
         head = lin(tree["head"]) if "head" in tree else None
     return LM(cfg, embed, blocks, norm(tree["final_norm"]), head)
+
+
+def train_state_from_numpy(cfg, state, device="cuda") -> dict:
+    """The port's train state (``launch/train.py::build_state``'s layout)
+    over copies of a reference train state whose leaves are numpy arrays:
+    ``params`` (the LM, switched to ``requires_grad``), AdamW's ``m`` and
+    ``v`` by parameter name (dtypes kept, bf16 included), ``step`` (int32)
+    and ``prev_gnorm`` (float32)."""
+    params = lm_params_from_numpy(cfg, state["params"], device)
+    params.requires_grad_(True)
+
+    def by_name(tree):
+        return {k: p.detach() for k, p in
+                lm_params_from_numpy(cfg, tree, device).named_parameters()}
+
+    return {"params": params,
+            "opt": {"m": by_name(state["opt"]["m"]),
+                    "v": by_name(state["opt"]["v"])},
+            "step": torch.as_tensor(np.asarray(state["step"]),
+                                    dtype=torch.int32, device=device),
+            "prev_gnorm": torch.as_tensor(np.asarray(state["prev_gnorm"]),
+                                          dtype=torch.float32,
+                                          device=device)}

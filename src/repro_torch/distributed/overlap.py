@@ -24,11 +24,17 @@ issues it, and ``depth_order_ok`` checks ``halo(b) < launch(b) <
 issue(b) < wait(b) < halo(b+1)`` with exactly one reduction per block,
 the port's stand-in for the JAX package's HLO ``depth_ok``
 (launch/hlo_analysis.py).
+
+``DelayedValue`` / ``delayed_update`` / ``pipelined_scan`` are the
+reference's one-step-delayed reduction in a scan-shaped loop: the value
+consumed at step k is the reduction initiated at step k-1, carried
+through the loop state (pipelined clipping, ``optim/clipping.py``, is the
+same pattern in optimizer form).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -215,3 +221,55 @@ class SplitPhaseReduce:
         if self.record is not None:
             self.record("issue", iteration)
         return Pending(work, buf, t.device, iteration, self.record)
+
+
+class DelayedValue(NamedTuple):
+    """Carried state of a one-step-delayed reduction."""
+
+    value: torch.Tensor       # reduction result from the PREVIOUS step
+    valid: torch.Tensor       # False on the first step
+
+
+def delayed_init(like: torch.Tensor) -> DelayedValue:
+    return DelayedValue(value=torch.zeros_like(like),
+                        valid=torch.zeros((), dtype=torch.bool,
+                                          device=like.device))
+
+
+def delayed_update(prev: DelayedValue, new_reduction: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, DelayedValue]:
+    """Returns (value_to_consume, is_valid, next_carry).
+
+    ``new_reduction`` is this step's freshly initiated reduction; the
+    returned value is LAST step's: the split-phase contract."""
+    nxt = DelayedValue(value=new_reduction,
+                       valid=torch.ones((), dtype=torch.bool,
+                                        device=new_reduction.device))
+    return prev.value, prev.valid, nxt
+
+
+def pipelined_scan(body: Callable, reducer: Callable, carry_init: Any,
+                   xs: torch.Tensor, init_reduction: torch.Tensor):
+    """A scan over the leading axis of ``xs`` where
+    ``body(carry, x, delayed_reduction)`` consumes the reduction computed by
+    ``reducer`` one step earlier (the reference's ``lax.scan``, as a loop).
+
+    body    : (carry, x, (red_prev, valid)) -> (carry, y, red_input)
+    reducer : red_input -> tensor reduction (e.g. an all-reduced norm)
+
+    Returns (carry, ys stacked along a new leading axis, last carry of the
+    delayed reduction).
+    """
+    carry = carry_init
+    delayed = DelayedValue(value=init_reduction,
+                           valid=torch.zeros((), dtype=torch.bool,
+                                             device=init_reduction.device))
+    ys = []
+    for x in xs:
+        value, valid, _ = delayed_update(delayed, delayed.value)
+        carry, y, red_in = body(carry, x, (value, valid))
+        delayed = DelayedValue(value=reducer(red_in),
+                               valid=torch.ones((), dtype=torch.bool,
+                                                device=init_reduction.device))
+        ys.append(y)
+    return carry, torch.stack(ys), delayed

@@ -208,8 +208,33 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def no_graph(name: str, **tensors) -> None:
+    """Raise when autograd would record a kernel's inputs.
+
+    The kernels write their outputs through raw pointers, outside
+    autograd: under a graph their outputs would carry no gradient back to
+    the inputs, silently.  None has a backward, and neither has its Pallas
+    counterpart in the JAX package.  CPU tensors take the plain versions,
+    which are differentiable; ``torch.no_grad`` / ``torch.inference_mode``
+    lift the check.
+    """
+    if not torch.is_grad_enabled():
+        return
+    needs = [key for key, t in tensors.items()
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"{name}: {needs} require grad, but the CUDA kernel has no "
+            "backward (nor has the JAX package's Pallas kernel): call it "
+            "under torch.no_grad() or torch.inference_mode(), or keep the "
+            "kernel off a path that trains")
+
+
 def check_cuda(name: str, device: torch.device, **tensors) -> None:
-    """Raise unless every given tensor is contiguous on ``device``."""
+    """Raise unless every given tensor is contiguous on ``device`` and
+    none is recorded by autograd (:func:`no_graph`).  Every kernel wrapper
+    calls it with all of its tensor inputs before it launches."""
+    no_graph(name, **tensors)
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "

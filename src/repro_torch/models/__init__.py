@@ -14,6 +14,7 @@ from repro_torch.models.transformer import (  # noqa: F401
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
     prefill,
     unembed,
 )

@@ -6,8 +6,8 @@ small ``nn.Module`` s (``Linear``, ``RMSNorm``, ``MLP``) stored in
 names and cast a weight to the compute ``dtype`` (bf16) at each use, as
 the reference does.  Norm statistics and rotary angles run in fp32.
 
-Parameters are made with ``requires_grad=False``: the port serves and
-does not train yet (training is ROADMAP.md queue 1 item 8).
+Parameters are made with ``requires_grad=False``, so serving records no
+graph; ``launch/train.py::build_state`` switches them on for training.
 """
 from __future__ import annotations
 
@@ -138,3 +138,34 @@ def mlp(p: MLP, x: torch.Tensor, gated: bool, dtype) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = torch.nn.functional.gelu(up, approximate="tanh")
     return linear(p.down, h, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  impl: str = "gather") -> torch.Tensor:
+    """Mean CE over valid positions; logsumexp in fp32.  labels: integers.
+
+    impl='gather'  — the label's logit by ``torch.gather`` on the vocab axis.
+    impl='onehot'  — the label's logit by a one-hot contraction (the
+        reference's TP-friendly form: GSPMD partitions it along a sharded
+        vocab axis); the same value on one device.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    if impl == "onehot":
+        oh = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+        ll = torch.sum(lf * oh.to(lf.dtype), dim=-1)
+    elif impl == "gather":
+        ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        raise ValueError(f"cross_entropy: impl {impl!r}; expected 'gather' "
+                         "or 'onehot'")
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

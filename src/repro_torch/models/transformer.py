@@ -11,7 +11,9 @@ loops over it in Python (``convert.lm_params_from_numpy`` unstacks the
 reference's tree: scanned groups first, then the remainder layers).
 
 Modes:
-  train   — full forward (the loss comes with training)
+  train   — full forward; ``loss_fn`` puts the loss on it, and ``remat``
+            recomputes each layer in the backward pass
+            (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
   prefill — full forward, returns last-position logits + per-layer states
   decode  — one token with the per-layer states
 
@@ -31,15 +33,16 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RECURRENT, RWKV,
                                       ModelConfig)
 from repro_torch.models.attention import (Attention, attention_block,
                                           init_attention, init_attn_state)
 from repro_torch.models.layers import (MLP, Linear, RMSNorm, _normal,
-                                       _param, init_linear, init_mlp,
-                                       init_rmsnorm, linear, mlp, rms_norm,
-                                       sinusoidal_positions)
+                                       _param, cross_entropy, init_linear,
+                                       init_mlp, init_rmsnorm, linear, mlp,
+                                       rms_norm, sinusoidal_positions)
 from repro_torch.models.moe import MoE, init_moe, moe_ffn
 from repro_torch.models.recurrent import (RGLRU, RWKV as RWKVParams,
                                           RGLRUState, RWKVState, init_rglru,
@@ -50,6 +53,8 @@ from repro_torch.models.recurrent import (RGLRU, RWKV as RWKVParams,
 #: of (token, expert) assignments dropped at capacity; each summed over
 #: layers
 AUX_KEYS = ("moe_aux", "moe_z", "moe_dropped")
+MOE_AUX_COEF = 0.01
+MOE_Z_COEF = 1e-3
 
 
 class Hints:
@@ -237,17 +242,33 @@ def _ffn_part(p: Block, cfg: ModelConfig, h, dtype):
     return mlp(p.ffn, h, cfg.gated_mlp, dtype), _zero_aux()
 
 
+def attn_out(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
+             hints: Hints = Hints()):
+    """A train-mode attention layer's attention output (after ``wo``),
+    the tensor ``cfg.save_attn_out`` keeps through a remat."""
+    window = cfg.window if kind == ATTN_LOCAL else 0
+    h = rms_norm(p.norm1, x, cfg.norm_eps)
+    return attention_block(p.attn, cfg, h, positions,
+                           getattr(torch, cfg.dtype), window=window,
+                           hints=hints)[0]
+
+
 def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
-                mode="train", state=None, pos=None, hints: Hints = Hints()):
+                mode="train", state=None, pos=None, hints: Hints = Hints(),
+                a_out=None):
+    """One layer.  ``a_out``: an attention layer's :func:`attn_out`, when
+    the caller computed it (train mode)."""
     dtype = getattr(torch, cfg.dtype)
     eps = cfg.norm_eps
     h = rms_norm(p.norm1, x, eps)
 
     if kind in (ATTN, ATTN_LOCAL):
         window = cfg.window if kind == ATTN_LOCAL else 0
-        a_out, new_state = attention_block(
-            p.attn, cfg, h, positions, dtype, mode=mode, state=state,
-            pos=pos, window=window, hints=hints)
+        new_state = None
+        if a_out is None:
+            a_out, new_state = attention_block(
+                p.attn, cfg, h, positions, dtype, mode=mode, state=state,
+                pos=pos, window=window, hints=hints)
         if cfg.parallel_block:
             f_out, aux = _ffn_part(p, cfg, h, dtype)
             return hints.activation(x + a_out + f_out), new_state, aux
@@ -312,11 +333,40 @@ def unembed(params: LM, cfg: ModelConfig, x, hints: Hints = Hints()):
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _train_block(p: Block, cfg: ModelConfig, x, positions, remat: str,
+                 hints: Hints):
+    """A train-mode layer under the remat policy.
+
+    "none" saves every activation for the backward pass; "full" keeps only
+    the layer's input and recomputes the rest (``jax.checkpoint`` with
+    ``nothing_saveable``).  With ``cfg.save_attn_out`` an attention layer
+    runs as two checkpointed segments, x -> attention output and
+    (x, attention output) -> the layer's output, so the attention output
+    is kept and the backward pass recomputes the attention for its own
+    gradient only (the reference's ``save_only_these_names("attn_out")``).
+    """
+    if remat == "none":
+        return apply_block(p, cfg, p.kind, x, positions, hints=hints)
+    if remat != "full":
+        raise ValueError(f"remat {remat!r}; expected 'none' or 'full'")
+    if cfg.save_attn_out and p.kind in (ATTN, ATTN_LOCAL):
+        a = checkpoint(attn_out, p, cfg, p.kind, x, positions, hints=hints,
+                       use_reentrant=False)
+        return checkpoint(apply_block, p, cfg, p.kind, x, positions,
+                          hints=hints, a_out=a, use_reentrant=False)
+    return checkpoint(apply_block, p, cfg, p.kind, x, positions, hints=hints,
+                      use_reentrant=False)
+
+
 def forward(params: LM, cfg: ModelConfig, batch, *, mode="train",
-            hints: Hints = Hints()):
+            remat="full", hints: Hints = Hints()):
     """Full-sequence forward.  batch: tokens (B, S_tok[, ncb]), and
     'frontend' (B, F, d) when the config has one.  Returns (x_final,
-    states|None, aux)."""
+    states|None, aux).
+
+    ``remat`` ("full" or "none") applies to train mode under autograd
+    (:func:`_train_block`); prefill and a forward without a graph keep no
+    checkpoint."""
     dtype = getattr(torch, cfg.dtype)
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend is not None:
@@ -328,9 +378,13 @@ def forward(params: LM, cfg: ModelConfig, batch, *, mode="train",
     x = hints.activation(x)
     aux = _zero_aux()
     states = []
+    train = mode == "train" and torch.is_grad_enabled()
     for p in params.blocks:
-        x, st, aux_i = apply_block(p, cfg, p.kind, x, positions, mode=mode,
-                                   hints=hints)
+        if train:
+            x, st, aux_i = _train_block(p, cfg, x, positions, remat, hints)
+        else:
+            x, st, aux_i = apply_block(p, cfg, p.kind, x, positions,
+                                       mode=mode, hints=hints)
         states.append(st)
         aux = {k: aux[k] + aux_i[k] for k in AUX_KEYS}
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
@@ -339,9 +393,34 @@ def forward(params: LM, cfg: ModelConfig, batch, *, mode="train",
     return x, None, aux
 
 
+def loss_fn(params: LM, cfg: ModelConfig, batch, *, remat="full",
+            hints: Hints = Hints()):
+    """Training loss.  labels (B, S_tok[, ncb]); optional 'mask' (B, S_tok).
+
+    Returns (total, metrics): total = CE (the mean over codebooks) +
+    MOE_AUX_COEF * moe_aux + MOE_Z_COEF * moe_z; metrics carry ``ce`` and
+    the aux sums, ``moe_dropped`` (port only) among them, outside the loss.
+    """
+    x, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
+                        hints=hints)
+    F = cfg.frontend.num_positions if cfg.frontend is not None else 0
+    x_tok = x[:, F:, :]
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    logits = unembed(params, cfg, x_tok, hints)
+    if cfg.num_codebooks > 1:
+        ce = sum(cross_entropy(logits[i], labels[..., i], mask, cfg.ce_impl)
+                 for i in range(cfg.num_codebooks)) / cfg.num_codebooks
+    else:
+        ce = cross_entropy(logits, labels, mask, cfg.ce_impl)
+    total = ce + MOE_AUX_COEF * aux["moe_aux"] + MOE_Z_COEF * aux["moe_z"]
+    return total, {"ce": ce, **aux}
+
+
 def prefill(params: LM, cfg: ModelConfig, batch, *, hints: Hints = Hints()):
     """Inference prefill: returns (last-position logits, decode state)."""
-    x, states, _ = forward(params, cfg, batch, mode="prefill", hints=hints)
+    x, states, _ = forward(params, cfg, batch, mode="prefill", remat="none",
+                           hints=hints)
     logits = unembed(params, cfg, x[:, -1:, :], hints)
     return logits, states
 

@@ -1435,3 +1435,238 @@ def test_warm_serve_on_card_adds_no_autotune_miss(cuda):
     assert autotune.cache_stats()["misses"] == cold["misses"]
     clear_compile_cache()
     autotune.clear_cache()
+
+
+# -- training: no kernel output without a graph, the train step, restart --
+
+GUARDED = ("spmv_dia", "spmv_dia_ext", "pipecg_spmv_fused",
+           "pipecg_spmv_halo", "pipecg_fused", "fused_dots",
+           "pipebicgstab_fused", "pipebicgstab_halo", "ghost_chain_fused",
+           "ghost_chain_halo", "spmv_bsr", "pipecg_bsr_fused",
+           "flash_attention", "wkv_recurrent")
+
+
+def _kernel_calls(dev):
+    """One small call of every kernel wrapper: {name: (fn, args)}; the
+    first floating tensor of each ``args`` is the one made to require
+    grad.  float64 solver operands, float32 LM ones."""
+    from repro_torch.core.krylov import dia_to_bsr, tridiagonal_laplacian
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape, dt=torch.float64):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dt)
+
+    n, h, l = 512, 1, 2
+    A = tridiagonal_laplacian(n, device=dev)
+    off, bands = A.offsets, A.bands
+    diag = bands[off.index(0)]
+    ext = torch.nn.functional.pad(bands, (h, h))
+    ext_l = torch.nn.functional.pad(bands, (l * h, l * h))
+    invd, invd_ext = 1.0 / diag, 1.0 / ext[off.index(0)].clamp(min=1.0)
+    csum = dia_column_checksum(off, bands)
+    csum_ext = dia_column_checksum(off, ext, halo=h)
+    x, r, u, p = (rnd(1, n) for _ in range(4))
+    a, b = rnd(1).abs(), rnd(1).abs()
+    strips = [rnd(1, 2 * h) for _ in range(4)]
+    vec = [rnd(n) for _ in range(8)]
+    s3 = [rnd(()).abs() for _ in range(3)]
+    B = dia_to_bsr(A, bs=4)
+    bsr_vecs = [rnd(1, n) for _ in range(4)]
+    q, k, v = (rnd(2, 64, 64, dt=torch.float32) for _ in range(3))
+    wk = [rnd(2, 16, 16, dt=torch.float32) for _ in range(3)]
+    logw = -torch.rand(2, 16, 16, generator=g, device=dev)
+    return {
+        "spmv_dia": (ops.KERNELS["spmv_dia"], (off, bands, vec[0])),
+        "spmv_dia_ext": (ops.KERNELS["spmv_dia_ext"],
+                         (off, bands, rnd(n + 2 * h), h)),
+        "pipecg_spmv_fused": (ops.KERNELS["pipecg_spmv_fused"],
+                              (off, bands, invd, csum, x, r, u, p, a, b)),
+        "pipecg_spmv_halo": (ops.KERNELS["pipecg_spmv_halo"],
+                             (off, ext, invd_ext, csum_ext, x, r, u, p,
+                              *strips, a, b)),
+        "pipecg_fused": (ops.KERNELS["pipecg_fused"],
+                         tuple(rnd(1, n) for _ in range(10)) + (a, b)),
+        "fused_dots": (ops.KERNELS["fused_dots"], (rnd(3, n), vec[0])),
+        "pipebicgstab_fused": (ops.KERNELS["pipebicgstab_fused"],
+                               (off, bands, csum, *vec, *s3)),
+        "pipebicgstab_halo": (ops.KERNELS["pipebicgstab_halo"],
+                              (off, ext, csum_ext, *vec,
+                               *(rnd(2 * h) for _ in range(6)), *s3)),
+        "ghost_chain_fused": (ops.KERNELS["ghost_chain_fused"],
+                              (off, bands, vec[0], vec[1], 2.9, l)),
+        "ghost_chain_halo": (ops.KERNELS["ghost_chain_halo"],
+                             (off, ext_l, vec[0], vec[1],
+                              *(rnd(l * h) for _ in range(4)), 2.9, l)),
+        "spmv_bsr": (ops.KERNELS["spmv_bsr"],
+                     (B.indices, B.blocks, vec[0])),
+        "pipecg_bsr_fused": (ops.KERNELS["pipecg_bsr_fused"],
+                             (B.indices, B.blocks,
+                              (1.0 / B.diagonal()).contiguous(),
+                              B.column_checksum(), *bsr_vecs, a, b)),
+        "flash_attention": (ops.KERNELS["flash_attention"], (q, k, v, True)),
+        "wkv_recurrent": (ops.KERNELS["wkv_recurrent"],
+                          (*wk, logw, rnd(2, 16, dt=torch.float32))),
+    }
+
+
+def _with_grad(args):
+    """args with its first floating tensor replaced by a leaf that
+    requires grad."""
+    out, done = [], False
+    for t in args:
+        if not done and torch.is_tensor(t) and t.is_floating_point():
+            t = t.detach().clone().requires_grad_(True)
+            done = True
+        out.append(t)
+    assert done
+    return tuple(out)
+
+
+def test_kernel_wrappers_stay_differentiable_on_the_cpu():
+    """CPU tensors take the plain versions, which autograd records."""
+    calls = _kernel_calls(torch.device("cpu"))
+    assert set(calls) == set(GUARDED)
+    for name, (fn, args) in calls.items():
+        out = fn(*_with_grad(args))
+        outs = out if isinstance(out, tuple) else (out,)
+        assert any(o.requires_grad for o in outs), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GUARDED)
+def test_kernel_wrapper_raises_under_autograd_on_card(cuda, name):
+    """A CUDA kernel's output would carry no gradient: the wrapper raises
+    when autograd records an input, and launches under inference_mode
+    and no_grad."""
+    from repro_torch.kernels import ops
+    fn, args = _kernel_calls(cuda)[name]
+    before = ops.launch_counts()[name]
+    with torch.inference_mode():
+        fn(*args)
+    with torch.no_grad():
+        fn(*_with_grad(args))
+    assert ops.launch_counts()[name] == before + 2
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*_with_grad(args))
+    assert ops.launch_counts()[name] == before + 2
+
+
+def _moments_state(cfg, tcfg, device):
+    """``build_state`` with moments drawn at 1e-3 (v bounded away from
+    AdamW's eps, so the update is well conditioned), step 3 and a carried
+    norm of 2."""
+    from repro_torch.launch.train import build_state
+    state = build_state(cfg, tcfg, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    for key, m in state["opt"]["m"].items():
+        m.copy_(1e-3 * torch.randn(m.shape, generator=g))
+        state["opt"]["v"][key].copy_(
+            1e-6 * (0.5 + torch.rand(m.shape, generator=g)))
+    state["step"].fill_(3)
+    state["prev_gnorm"].fill_(2.0)
+    state["params"].to(device)
+    return {"params": state["params"],
+            "opt": {k: {n: t.to(device) for n, t in d.items()}
+                    for k, d in state["opt"].items()},
+            "step": state["step"].to(device),
+            "prev_gnorm": state["prev_gnorm"].to(device)}
+
+
+def _bar_ok(got, want, leaf_rtol, floor):
+    top = max(float(w.abs().max()) for w in want.values())
+    return all(float((got[k].cpu() - w).abs().max())
+               <= leaf_rtol * float(w.abs().max()) + floor * top
+               for k, w in want.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_train_step_on_card_matches_the_cpu(cuda, arch, pipelined):
+    """One smoke train step in float32 on the card against the same step
+    on the CPU, within tests/test_torch_train.py's bars (the loss 2e-5,
+    moments 1e-4 of the leaf's max + 1e-6 of the max over leaves,
+    parameters 1e-6 + 1e-7), with no flash or wkv launch."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    tcfg = TrainConfig(model=cfg.name, steps=10, warmup_steps=2,
+                       learning_rate=1e-3, pipelined_clipping=pipelined)
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, 32, 2, seed=4),
+                            device="cpu").batch(0)
+    out = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        state = _moments_state(cfg, tcfg, dev)
+        state, metrics = make_train_step(cfg, tcfg)(
+            state, {k: t.to(dev) for k, t in batch.items()})
+        out[str(dev)] = (state, metrics)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["wkv_recurrent"] == 0
+    (cs, cm), (gs, gm) = out["cpu"], out[str(cuda)]
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 2e-5
+    assert float(gm["gnorm"]) == pytest.approx(float(cm["gnorm"]), rel=1e-5)
+    assert float(gm["lr"]) == float(cm["lr"])
+    for key in ("m", "v"):
+        assert _bar_ok(gs["opt"][key], cs["opt"][key], 1e-4, 1e-6), key
+    gp = dict(gs["params"].named_parameters())
+    cp = {k: p.detach() for k, p in cs["params"].named_parameters()}
+    assert _bar_ok({k: p.detach() for k, p in gp.items()}, cp, 1e-6, 1e-7)
+
+
+@pytest.mark.cuda
+def test_restart_repeats_the_run_bit_for_bit_on_card(cuda, tmp_path):
+    """qwen3 smoke, 10 steps with a checkpoint at 6 on the card; a run
+    restored at step 6 repeats the last 4 losses and the final parameters
+    bit for bit (the gradient sums run in a fixed order, ROADMAP.md H2)."""
+    import shutil
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.train import train
+    cfg = smoke_config("qwen3-1.7b")
+    full, cut = tmp_path / "full", tmp_path / "cut"
+    kw = dict(seq_len=64, batch=4, log_every=0, device=cuda)
+    out = train(cfg, TrainConfig(model=cfg.name, steps=10,
+                                 checkpoint_dir=str(full),
+                                 checkpoint_every=6,
+                                 pipelined_clipping=True), **kw)
+    cut.mkdir()
+    shutil.copytree(full / "step_0000000006", cut / "step_0000000006")
+    (cut / "LATEST").write_text("6")
+    out2 = train(cfg, TrainConfig(model=cfg.name, steps=10,
+                                  checkpoint_dir=str(cut),
+                                  pipelined_clipping=True), **kw)
+    assert out2["steps"] == 4
+    assert out2["losses"] == out["losses"][6:]
+    for (k, a), (_, b) in zip(out["state"]["params"].named_parameters(),
+                              out2["state"]["params"].named_parameters()):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_train_step_with_flash_kernel_raises_on_card(cuda):
+    """``attn_kernel=True`` in a train step reaches the flash wrapper with
+    inputs autograd records: it raises, launching nothing (``train``
+    refuses such a config before step 0)."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_state
+    cfg = dataclasses.replace(smoke_config("qwen3-1.7b"), attn_kernel=True,
+                              head_dim=64)   # a head dim the kernel takes
+    tcfg = TrainConfig(model=cfg.name)
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 2),
+                            device=cuda).batch(0)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_train_step(cfg, tcfg)(build_state(cfg, tcfg, device=cuda),
+                                   batch)
+    assert ops.launch_counts()["flash_attention"] == before

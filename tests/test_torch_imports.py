@@ -4,9 +4,9 @@ A fresh interpreter imports every ``repro_torch`` module and must find
 neither ``jax`` nor ``repro`` in ``sys.modules``; an AST scan of the
 package, of the port's scripts at the root (``chip_smoke.py``,
 ``torch_pipecg_breakdown.py``, ``torch_sweep_time.py``,
-``torch_serve_breakdown.py``, ``torch_allreduce_latency.py``) and of its
-examples (``examples/quickstart_torch.py``,
-``examples/stochastic_analysis_torch.py``) finds no import of either.
+``torch_serve_breakdown.py``, ``torch_allreduce_latency.py``,
+``torch_train_breakdown.py``) and of its
+examples (``examples/*_torch.py``) finds no import of either.
 """
 import ast
 import json
@@ -23,9 +23,11 @@ PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "torch_pipecg_breakdown.py",
     ROOT / "torch_sweep_time.py", ROOT / "torch_serve_breakdown.py",
-    ROOT / "torch_allreduce_latency.py",
+    ROOT / "torch_allreduce_latency.py", ROOT / "torch_train_breakdown.py",
     ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "stochastic_analysis_torch.py"]
+    ROOT / "examples" / "stochastic_analysis_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -107,7 +109,15 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.experiments.fault_exec",
             "repro_torch.experiments.geometry_exec",
             "repro_torch.experiments.precision_exec",
-            "repro_torch.kernels.autotune"} <= set(names)
+            "repro_torch.kernels.autotune",
+            "repro_torch.optim",
+            "repro_torch.optim.adamw",
+            "repro_torch.optim.clipping",
+            "repro_torch.optim.schedules",
+            "repro_torch.optim.krylov_newton",
+            "repro_torch.data",
+            "repro_torch.data.synthetic",
+            "repro_torch.launch.train"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
