@@ -179,6 +179,26 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    1e-2: ms an HVP, both residuals, the directions within the CPU tests'
    1e-3); a train step with ``attn_kernel=True`` raising at the flash
    wrapper and ``train`` refusing it; within TRAIN_BUDGET_S;
+   then ``[shard]``: 4 ranks on a (data 2, model 2) mesh (gloo ranks on
+   this card, their gathers and sums through the card's IPC buffers;
+   NCCL when each rank has a card of its own), published widths, random
+   weights from seed 0: olmoe-1b-7b's prefill (16 layers, batch 4 x
+   2048) through ``make_prefill_step(cfg, mesh)`` with the expert route
+   at the capacity that drops nothing and the flash kernel, the counts
+   set to 0 just before it and read just after it on every rank (one
+   flash launch a layer a rank), its rows held to the one-device gather
+   route as ``[serve_families]`` holds olmoe (H18); qwen3-1.7b under
+   "fsdp" through ``train(mesh=)`` (3 steps, ``[train]``'s seeds, lr,
+   warm-up, remat and pipelined clipping): step 0's loss within 1e-4 and
+   its gradient norm within 1e-4 of one device's, step 1 within 1e-2,
+   steps 1-2 within 1e-2 in float32 compute at 4 layers (bf16 rounding of
+   each rank's partial gradients moves step 2 of the bf16 run by 1.3e-2),
+   step 0 repeated bit for bit at 4 layers (H2);
+   olmoe-1b-7b under "2d" with the expert route (4 of 16 layers on one
+   card, 16 on 4 cards; 4 steps): the loss falls by 0.1, drops by data
+   shard; for every run ms, tokens/s, peak GB and bytes gathered and
+   summed a rank, and the storage check (every rank holds its share of
+   the plan, on the card); no kernel in training; within SHARD_BUDGET_S;
    then ``[solve_serve]``: solver serving at ex23's n = 2,097,152 on the
    fused engine, ``run_serve_exec`` with the JAX package's serve workload
    (64 requests of 32-256 Laplacian modes, tol 1e-8, maxiter 600, k = 8
@@ -361,6 +381,37 @@ KN_BATCH, KN_SEQ = 1, 256
 KN_CG_ITERS, KN_DAMPING = 10, 1e-2
 KN_DIRECTION_RTOL = 1e-3    # tests/test_torch_train.py pins it on the CPU
 TRAIN_BUDGET_S = 120.0
+# sharding ([shard]): 4 ranks on a (data 2, model 2) mesh (gloo ranks on
+# one card, NCCL with a card each), published widths, random weights from
+# seed 0: olmoe-1b-7b prefill through the expert route at the capacity
+# that drops nothing (experts / top_k) against the one-device gather
+# route; qwen3-1.7b training under "fsdp" with [train]'s seeds, lr,
+# warm-up and remat against one device; olmoe-1b-7b training under "2d"
+# with the expert route at capacity 1.25 (4 of its 16 layers on one card,
+# all 16 when 4 cards hold it)
+SHARD_MESH = {"data": 2, "model": 2}
+SHARD_BATCH, SHARD_SEQ = 4, 2048
+SHARD_QWEN3_LAYERS, SHARD_QWEN3_STEPS = 28, 3
+SHARD_OLMOE_LAYERS = {1: 4, 4: 16}     # by the cards the ranks use
+SHARD_OLMOE_STEPS = 4
+SHARD_STEP0_TOL = 1e-4      # step 0's loss against one device
+SHARD_GNORM_RTOL = 1e-4     # step 0's gradient norm against one device
+# later steps: the gradient sums change order.  In bf16 compute each rank
+# also rounds its rows' partial weight gradients where one device rounds
+# the whole batch's, and two AdamW steps at the warm-up's peak carry that
+# to 1.26e-2 in qwen3's step-2 loss (an H100 80GB HBM3, 700 W; step 1
+# 1.6e-5 to 3.2e-5, the float32 pair at most 3.81e-6 apart).  A one-device
+# run that sums the 4 row blocks' gradients in rank order (the witness,
+# :func:`row_block_losses`) must give the ranks' bf16 losses within
+# SHARD_WITNESS_TOL; against the plain one-device run the float32 pair and
+# the bf16 step 1 are held to SHARD_LOSS_TOL, the bf16 step 2 to
+# SHARD_BF16_STEP2_TOL.  The float32 run and the step-0 repeat (H2) run at
+# SHARD_CUT_LAYERS for the budget, as [train]'s repeat does at 2 layers
+SHARD_LOSS_TOL = 1e-4
+SHARD_BF16_STEP2_TOL = 5e-2
+SHARD_WITNESS_TOL = 1e-3
+SHARD_CUT_LAYERS = 4
+SHARD_BUDGET_S = 120.0      # 75.78-98.93 s on an H100 80GB HBM3, 700 W
 # solver serving ([solve_serve]): the JAX package's serve workload (its
 # CampaignSpec defaults: 64 requests of 32-256 Laplacian modes, tol 1e-8,
 # maxiter 600, k = 8 slots, blocks of 8, rho 0.7, a 16,384-request
@@ -3536,6 +3587,418 @@ def phase_train(records):
           f"[train] {seconds:.1f} s over its {TRAIN_BUDGET_S} s budget")
 
 
+def shard_configs(cards: int) -> dict:
+    """The [shard] runs' configs by name."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    olmoe = get_config("olmoe-1b-7b")
+    no_drop = dataclasses.replace(olmoe.moe, capacity_factor=(
+        olmoe.moe.num_experts / olmoe.moe.top_k))
+    return {
+        "prefill": dataclasses.replace(olmoe, moe=no_drop, moe_impl="ep",
+                                       attn_kernel=True),
+        "qwen3": dataclasses.replace(get_config("qwen3-1.7b"),
+                                     sharding="fsdp",
+                                     num_layers=SHARD_QWEN3_LAYERS),
+        "qwen3_f32": dataclasses.replace(get_config("qwen3-1.7b"),
+                                         sharding="fsdp", dtype="float32",
+                                         num_layers=SHARD_CUT_LAYERS),
+        "olmoe": dataclasses.replace(
+            olmoe, moe_impl="ep",
+            num_layers=SHARD_OLMOE_LAYERS[4 if cards >= 4 else 1])}
+
+
+def shard_tcfg(cfg, steps: int, pipelined: bool):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(model=cfg.name, steps=steps, warmup_steps=2,
+                       pipelined_clipping=pipelined)
+
+
+def shard_run(dev, fn) -> dict:
+    """``fn()`` on this rank with the card synchronised around it: its
+    value, host seconds, peak GB, kernel launches and the bytes this rank
+    received in all-gathers and handed to all-reduces."""
+    import torch
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import ops
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    g0, r0 = comm.all_gather.bytes, comm.all_reduce.bytes
+    t0 = time.perf_counter()
+    value = fn()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return dict(value=value, seconds=time.perf_counter() - t0,
+                peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                         else 0.0),
+                launches=ops.launch_counts(),
+                gathered=comm.all_gather.bytes - g0,
+                reduced=comm.all_reduce.bytes - r0)
+
+
+def shard_storage(state_or_model) -> dict:
+    """This rank's stored bytes, its share of the plan (each whole
+    tensor's bytes over its spec's blocks), the one-device bytes, and
+    whether every block is on the card."""
+    from repro_torch.distributed import sharding
+    trees = []
+    if isinstance(state_or_model, dict):
+        model = state_or_model["params"]
+        trees = [state_or_model["opt"]["m"], state_or_model["opt"]["v"]]
+    else:
+        model = state_or_model
+    blocks = sharding.stored(model)
+    whole = 0
+    for k, t in blocks.items():
+        n = 1
+        for d in sharding.full_shape(model, k):
+            n *= d
+        whole += n * (t.element_size() + sum(tr[k].element_size()
+                                             for tr in trees))
+    return dict(held=sharding.tree_bytes(model) + sharding.tree_bytes(trees),
+                plan=sharding.share_bytes(model, *trees), one_device=whole,
+                on_card=all(t.is_cuda for t in blocks.values()))
+
+
+def shard_ranks(rank: int, world: int, mesh, job: dict) -> dict:
+    """[shard]'s rank body: the expert-route prefill, the fsdp qwen3 run
+    with its repeat of step 0 (cut), the float32 qwen3 run (cut), the 2d
+    olmoe run.  ``job``: the device,
+    the configs (:func:`shard_configs`), batch, seq and step counts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distributed import card_wire, sharding
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.launch.train import build_state, train
+
+    import dataclasses
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cfgs, B, S = job["cfgs"], job["batch"], job["seq"]
+    out = dict(coords=dict(mesh.coords), card=dev.index,
+               backend=dist.get_backend())
+
+    def free():
+        card_wire.release()              # every rank at the same point
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    cfg = cfgs["prefill"]
+    params = sharding.init_sharded_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = serve_batch(cfg, B, S, dev)
+    step = make_prefill_step(cfg, mesh)
+    step(params, batch)                                  # warm-up
+    run = shard_run(dev, lambda: step(params, batch)[0])
+    run["value"] = run["value"].float().cpu()
+    out["prefill"] = dict(run, **shard_storage(params))
+    del params, step, run
+    free()
+
+    cfg = cfgs["qwen3"]
+    tcfg = shard_tcfg(cfg, job["qwen3_steps"], True)
+    run = shard_run(dev, lambda: train(
+        cfg, tcfg, seq_len=S, batch=B, mesh=mesh,
+        log_every=0, device=dev))
+    res = run.pop("value")
+    out["qwen3"] = dict(run, losses=res["losses"],
+                        gnorms=[m["gnorm"] for m in res["metrics"]],
+                        step_seconds=res["step_seconds"],
+                        **shard_storage(res["state"]))
+    del res
+    free()
+    # H2: step 0 twice from the same state, every block bit for bit (the
+    # bf16 run at the float32 run's depth)
+    cfg = dataclasses.replace(cfg, num_layers=cfgs["qwen3_f32"].num_layers)
+    b0 = SyntheticTokens(DataConfig(cfg.vocab_size, S, B,
+                                    seed=tcfg.seed), device=dev).batch(0)
+    blocks = []
+    for _ in range(2):
+        state = build_state(cfg, tcfg, device=dev, mesh=mesh)
+        state, m = make_train_step(cfg, tcfg, mesh)(state, b0)
+        blocks.append([t.detach().cpu() for t in
+                       sharding.stored(state["params"]).values()]
+                      + [float(m["loss"])])
+        del state
+        free()
+    out["qwen3"]["repeat_equal"] = blocks[0][-1] == blocks[1][-1] and all(
+        torch.equal(a, b) for a, b in zip(blocks[0][:-1], blocks[1][:-1]))
+    del blocks
+    free()
+
+    cfg = cfgs["qwen3_f32"]
+    res = train(cfg, shard_tcfg(cfg, job["qwen3_steps"], True), seq_len=S,
+                batch=B, mesh=mesh, log_every=0, device=dev)
+    out["qwen3_f32"] = dict(losses=res["losses"])
+    del res
+    free()
+
+    cfg = cfgs["olmoe"]
+    tcfg = shard_tcfg(cfg, job["olmoe_steps"], False)
+    run = shard_run(dev, lambda: train(
+        cfg, tcfg, seq_len=S, batch=B, mesh=mesh,
+        log_every=0, device=dev))
+    res = run.pop("value")
+    out["olmoe"] = dict(run, losses=res["losses"],
+                        step_seconds=res["step_seconds"],
+                        dropped=[int(m["moe_dropped"]) for m in
+                                 res["metrics"]],
+                        **shard_storage(res["state"]))
+    return out
+
+
+def row_block_losses(cfg, tcfg, dev) -> list:
+    """The witness of the bf16 gap, on one device: qwen3's [shard] run
+    with each step's gradient summed, in rank order, from the backward
+    passes of the 4 one-row blocks of the batch that the 4 "fsdp" ranks
+    compute (each block's weight gradient rounded to bf16 on its own, as
+    on a rank), then the train step's update (``apply_gradients``).  The
+    losses of its ``tcfg.steps`` steps (the last one's forward only)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import apply_gradients
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import loss_fn
+    state = build_state(cfg, tcfg, device=dev)
+    named = sharding.stored(state["params"])
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
+                                      seed=tcfg.seed), device=dev)
+    parts = SHARD_MESH["data"] * SHARD_MESH["model"]
+    rows = SHARD_BATCH // parts
+    losses = []
+    for i in range(tcfg.steps):
+        batch = data.batch(i)
+        last = i == tcfg.steps - 1
+        total, grads = 0.0, None
+        for r in range(parts):
+            block = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+            with torch.set_grad_enabled(not last):
+                loss, _ = loss_fn(state["params"], cfg, block,
+                                  remat=tcfg.remat)
+            total += float(loss.detach()) / parts
+            if not last:
+                g = torch.autograd.grad(loss / parts, list(named.values()))
+                grads = list(g) if grads is None else [
+                    a.add_(b) for a, b in zip(grads, g)]
+            del loss
+        losses.append(total)
+        if not last:
+            state = apply_gradients(state, dict(zip(named, grads)), tcfg)[0]
+        del grads
+    return losses
+
+
+def shard_references(cfgs: dict, dev) -> dict:
+    """One device, before the ranks start: the olmoe prefill's float32
+    and bf16 dense-route logits (the gather route at no drop), qwen3's
+    losses and gradient norms under [shard]'s runs (bf16 compute, and
+    float32 at the cut depth), and the bf16 run's row-block witness
+    (:func:`row_block_losses`); each model freed after."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import forward, init_params, unembed
+    cfg = dataclasses.replace(cfgs["prefill"], moe_impl="gather",
+                              attn_kernel=False)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = serve_batch(cfg, SHARD_BATCH, SHARD_SEQ, dev)
+    exact = dense_f32_logits(params, cfg, batch)[0]
+    with torch.inference_mode():
+        x, _, _ = forward(params, cfg, batch)
+        bf16 = unembed(params, cfg, x[:, -1:])[:, 0].float()
+    del params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfgs["qwen3"]
+    out = dict(exact=exact, bf16=bf16)
+    for name in ("qwen3", "qwen3_f32"):
+        cfg = cfgs[name]
+        run = train(cfg, shard_tcfg(cfg, SHARD_QWEN3_STEPS, True),
+                    seq_len=SHARD_SEQ, batch=SHARD_BATCH, log_every=0,
+                    device=dev)
+        out[name] = run["losses"]
+        out[name + "_gnorms"] = [m["gnorm"] for m in run["metrics"]]
+        del run                      # its state: the ranks need the card
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = cfgs["qwen3"]
+    out["qwen3_row_blocks"] = row_block_losses(
+        cfg, shard_tcfg(cfg, SHARD_QWEN3_STEPS, True), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard(records):
+    """Sharding on the card: 4 ranks on a (2, 2) mesh (gloo on one card,
+    NCCL on 4), published widths: the olmoe-1b-7b expert-route prefill
+    against one device at the no-drop capacity, qwen3-1.7b "fsdp"
+    training against one device and its step-0 repeat (H2), olmoe-1b-7b
+    "2d" + expert-route training; the storage check on every run; the
+    sharded prefill's flash launches go on the kernels line; within
+    ``SHARD_BUDGET_S``."""
+    import torch
+    from repro_torch.distributed import ranks
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    world = 1
+    for n in SHARD_MESH.values():
+        world *= n
+    cards = torch.cuda.device_count()
+    backend = ranks.backend_for(world, DEVICE)
+    cfgs = shard_configs(cards)
+    name, line = card()
+    say("shard", card=repr(name), smi=repr(line), mesh=SHARD_MESH,
+        ranks=world, backend=backend, cards=min(cards, world))
+    refs = shard_references(cfgs, dev)
+    ref_s = time.perf_counter() - t0
+    out = ranks.run_mesh(shard_ranks, SHARD_MESH, dict(
+        device=DEVICE, cfgs=cfgs, batch=SHARD_BATCH, seq=SHARD_SEQ,
+        qwen3_steps=SHARD_QWEN3_STEPS, olmoe_steps=SHARD_OLMOE_STEPS),
+        device=DEVICE)
+    check(len(out) == 4, f"[shard] {len(out)} ranks, not 4")
+    check(all(o["backend"] == backend for o in out),
+          f"[shard] backends {[o['backend'] for o in out]}")
+    check(len({o["card"] for o in out}) == min(cards, world),
+          f"[shard] cards {[o['card'] for o in out]}")
+
+    # prefill: this rank's rows (the data shard's) against one device
+    rows = SHARD_BATCH // SHARD_MESH["data"]
+    got = torch.cat([next(o for o in out if o["coords"] == {"data": d,
+                                                             "model": 0})
+                     ["prefill"]["value"] for d in range(2)])[:, 0]
+    for o in out:
+        d = o["coords"]["data"]
+        check(torch.equal(o["prefill"]["value"][:, 0],
+                          got[d * rows:(d + 1) * rows]),
+              f"[shard] ranks of data shard {d} differ")
+    exact, bf16 = refs["exact"].cpu(), refs["bf16"].cpu()
+    err = bf16_bars(got, exact)[0]
+    floor = bf16_bars(bf16, exact)[0]
+    agree = bf16_bars(got, bf16)[1]
+    flash = [o["prefill"]["launches"]["flash_attention"] for o in out]
+    layers = cfgs["prefill"].num_layers
+    say("shard", run="prefill", arch="olmoe-1b-7b", moe_impl="ep",
+        layers=layers, batch=SHARD_BATCH, seq=SHARD_SEQ,
+        ms=f"{max(o['prefill']['seconds'] for o in out) * 1e3:.2f}",
+        peak_gb_per_rank=",".join(f"{o['prefill']['peak_gb']:.3f}"
+                                  for o in out),
+        flash_launches_per_rank=",".join(map(str, flash)),
+        gathered_gb_per_rank=f"{out[0]['prefill']['gathered'] / 1e9:.3f}",
+        excess_vs_f32_dense=f"{err:.4f}",
+        dense_bf16_excess_vs_f32_dense=f"{floor:.4f}",
+        argmax_agree=f"{agree:.2f}")
+    check(err <= LOGIT_TOL + max(floor, 0.0) and agree >= ARGMAX_AGREE,
+          f"[shard] prefill logits: excess {err} over the float32 dense "
+          f"route (the bf16 dense route's {floor}), argmax {agree}")
+    check(all(n == layers for n in flash) and all(
+        sum(o["prefill"]["launches"].values()) == layers for o in out),
+        f"[shard] prefill launches {[o['prefill']['launches'] for o in out]}")
+    records["flash_attention"]["launches"] += sum(flash)
+
+    for run, cfg in (("qwen3", cfgs["qwen3"]), ("olmoe", cfgs["olmoe"])):
+        losses = out[0][run]["losses"]
+        check(all(o[run]["losses"] == losses for o in out),
+              f"[shard] {run} ranks' losses differ")
+        check(all(sum(o[run]["launches"].values()) == 0 for o in out),
+              f"[shard] {run} training launched kernels")
+        steps = len(losses)
+        ms = statistics.median(out[0][run]["step_seconds"][1:]) * 1e3
+        tokens = SHARD_BATCH * SHARD_SEQ
+        first = out[0][run]["step_seconds"][0] * 1e3
+        per_step = {k: out[0][run][k] / steps / 1e9
+                    for k in ("gathered", "reduced")}
+        line = dict(run="train", arch=cfg.name, strategy=cfg.sharding,
+                    moe_impl=cfg.moe_impl if cfg.moe else None,
+                    layers=cfg.num_layers, batch=SHARD_BATCH, seq=SHARD_SEQ,
+                    steps=steps,
+                    losses=",".join(f"{v:.5f}" for v in losses),
+                    ms_per_step=f"{ms:.2f}", first_step_ms=f"{first:.2f}",
+                    tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+                    peak_gb_per_rank=",".join(f"{o[run]['peak_gb']:.3f}"
+                                              for o in out),
+                    gathered_gb_per_step=f"{per_step['gathered']:.3f}",
+                    reduced_gb_per_step=f"{per_step['reduced']:.3f}")
+        if run == "olmoe":
+            line["dropped_per_data_shard"] = ";".join(
+                f"data{d}:" + ",".join(map(str, next(
+                    o for o in out if o["coords"]["data"] == d)["olmoe"]
+                    ["dropped"])) for d in range(2))
+        say("shard", **line)
+        check(all(np.isfinite(losses)), f"[shard] {run} losses {losses}")
+    q, ref = out[0]["qwen3"]["losses"], refs["qwen3"]
+    gn, gref = out[0]["qwen3"]["gnorms"], refs["qwen3_gnorms"]
+    f, fref = out[0]["qwen3_f32"]["losses"], refs["qwen3_f32"]
+    wit = refs["qwen3_row_blocks"]
+    say("shard", check="qwen3 fsdp vs one device",
+        one_device=",".join(f"{v:.5f}" for v in ref),
+        gaps=",".join(f"{abs(a - b):.2e}" for a, b in zip(q, ref)),
+        row_block_witness=",".join(f"{v:.5f}" for v in wit),
+        witness_gaps=",".join(f"{abs(a - b):.2e}" for a, b in zip(q, wit)),
+        witness_vs_one_device=",".join(f"{abs(a - b):.2e}"
+                                       for a, b in zip(wit, ref)),
+        gnorms=",".join(f"{v:.6f}" for v in gn),
+        one_device_gnorms=",".join(f"{v:.6f}" for v in gref),
+        float32_layers=SHARD_CUT_LAYERS,
+        float32_losses=",".join(f"{v:.6f}" for v in f),
+        float32_one_device=",".join(f"{v:.6f}" for v in fref),
+        float32_gaps=",".join(f"{abs(a - b):.2e}" for a, b in zip(f, fref)),
+        repeat_bit_equal=all(o["qwen3"]["repeat_equal"] for o in out))
+    check(all(o["qwen3_f32"]["losses"] == f for o in out),
+          "[shard] qwen3 float32 ranks' losses differ")
+    check(abs(q[0] - ref[0]) <= SHARD_STEP0_TOL
+          and abs(f[0] - fref[0]) <= SHARD_STEP0_TOL,
+          f"[shard] qwen3 step 0 {q[0]}, {f[0]} vs one device {ref[0]}, "
+          f"{fref[0]}")
+    check(abs(gn[0] / gref[0] - 1.0) <= SHARD_GNORM_RTOL,
+          f"[shard] qwen3 step 0 gradient norm {gn[0]} vs {gref[0]}")
+    check(abs(q[1] - ref[1]) <= SHARD_LOSS_TOL
+          and abs(q[2] - ref[2]) <= SHARD_BF16_STEP2_TOL and all(
+              abs(a - b) <= SHARD_LOSS_TOL for a, b in zip(f[1:], fref[1:])),
+          f"[shard] qwen3 losses {q} (float32 {f}) vs one device {ref} "
+          f"({fref})")
+    check(len(wit) == len(q) and all(
+        abs(a - b) <= SHARD_WITNESS_TOL for a, b in zip(q, wit)),
+        f"[shard] qwen3 losses {q} vs the row-block witness {wit}")
+    check(all(o["qwen3"]["repeat_equal"] for o in out),
+          "[shard] qwen3 step 0 repeated is not bit for bit (H2)")
+    o_l = out[0]["olmoe"]["losses"]
+    check(o_l[-1] < o_l[0] - TRAIN_LOSS_DROP,
+          f"[shard] olmoe loss did not fall: {o_l}")
+
+    for run in ("prefill", "qwen3", "olmoe"):
+        held = [o[run]["held"] for o in out]
+        plan = [o[run]["plan"] for o in out]
+        say("shard", check="storage", run=run,
+            held_gb_per_rank=",".join(f"{h / 1e9:.3f}" for h in held),
+            plan_gb_per_rank=",".join(f"{p / 1e9:.3f}" for p in plan),
+            held_gb_all_ranks=f"{sum(held) / 1e9:.3f}",
+            one_device_gb=f"{out[0][run]['one_device'] / 1e9:.3f}",
+            on_card=all(o[run]["on_card"] for o in out))
+        check(held == plan and sum(held) == sum(plan),
+              f"[shard] {run} stores {held}, its plan {plan}")
+        check(all(o[run]["on_card"] for o in out),
+              f"[shard] {run} has tensors off the card")
+    seconds = time.perf_counter() - t0
+    say("shard", seconds=f"{seconds:.2f}",
+        one_device_seconds=f"{ref_s:.2f}", budget_s=SHARD_BUDGET_S,
+        flash_launches=sum(flash))
+    check(seconds <= SHARD_BUDGET_S,
+          f"[shard] {seconds:.1f} s over its {SHARD_BUDGET_S} s budget")
+
+
 def serve_mode_minima(n: int, count: int, modes, seed: int):
     """Each request's smallest excited mode: the host draws of
     ``serve.load.synthetic_requests`` replayed (mode count, mode indices,
@@ -4167,6 +4630,7 @@ def main() -> int:
     phase_serve(records)
     phase_serve_families(records)
     phase_train(records)
+    phase_shard(records)
     phase_solve_serve(records)
     phase_campaign(records)
     phase_model()

@@ -7,7 +7,9 @@ rebuilds a reference ``DiaMatrix`` here with the same ``fingerprint()``,
 reference ``BsrMatrix``, and ``lm_params_from_numpy(cfg, tree)`` the LM of
 a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``; any
 tree shaped like it, gradients too), ``train_state_from_numpy`` a
-reference train state, and ``model_from_fields(name,
+reference train state (``sharded_params_from_numpy`` /
+``sharded_train_state_from_numpy``: this rank's blocks of them on a
+mesh), and ``model_from_fields(name,
 dataclasses.asdict(obj))`` the port's ``Hardware``, ``SolverPhaseModel``
 or ``RunModel`` of a reference one.
 """
@@ -202,3 +204,19 @@ def train_state_from_numpy(cfg, state, device="cuda") -> dict:
             "prev_gnorm": torch.as_tensor(np.asarray(state["prev_gnorm"]),
                                           dtype=torch.float32,
                                           device=device)}
+
+
+def sharded_params_from_numpy(cfg, tree, mesh, device="cuda") -> LM:
+    """:func:`lm_params_from_numpy`'s model with every parameter stored as
+    this rank's block on ``mesh`` (split as ``cfg.sharding`` says)."""
+    from repro_torch.distributed import sharding
+    return sharding.shard_params(lm_params_from_numpy(cfg, tree, device),
+                                 cfg, mesh)
+
+
+def sharded_train_state_from_numpy(cfg, state, mesh, device="cuda") -> dict:
+    """:func:`train_state_from_numpy`'s state with the parameters and
+    AdamW's moments stored as this rank's blocks on ``mesh``."""
+    from repro_torch.distributed import sharding
+    return sharding.shard_state(train_state_from_numpy(cfg, state, device),
+                                cfg, mesh)

@@ -24,8 +24,9 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.autograd import Function
 
-from repro_torch.distributed import shm
+from repro_torch.distributed import card_wire, shm
 
 
 def rank_and_size(group=None) -> Tuple[int, int]:
@@ -80,9 +81,11 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
     returns a new tensor.
 
     ``all_reduce.calls`` counts the calls, so a test can read how many
-    blocking reductions a solve issued.
+    blocking reductions a solve issued, and ``all_reduce.bytes`` the bytes
+    of the tensors this rank handed in.
     """
     all_reduce.calls += 1
+    all_reduce.bytes += t.numel() * t.element_size()
     buf = to_wire(t, host_staged(t.device, group))
     wire = wire_for(group)
     if wire is not None and buf.device.type == "cpu" and wire.fits(buf):
@@ -95,6 +98,7 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
 
 
 all_reduce.calls = 0
+all_reduce.bytes = 0
 
 
 def all_gather_cols(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -212,3 +216,164 @@ def wire_buffer(shape, like: torch.Tensor, staged: bool) -> torch.Tensor:
     if staged:
         return torch.empty(shape, dtype=like.dtype, pin_memory=True)
     return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Collectives along the axes of a mesh (launch/mesh.py), for sharded models
+# ---------------------------------------------------------------------------
+#
+# A sharded model's ranks hold blocks of its parameters and rows of its
+# batch.  The gradient a rank's backward pass produces is its contribution:
+# the derivative of the loss through its own batch rows.  Ranks that hold
+# the same rows (a ``model`` line under the "2d" strategy) compute the same
+# contribution, so contributions are summed over the batch axes and over no
+# other axis.  Every function below skips its communication when the axes
+# hold one block.
+
+def all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order
+    (through the card's IPC buffers where ``card_wire`` carries it).
+
+    ``all_gather.bytes`` counts the bytes this rank received.
+    """
+    all_gather.bytes += (size - 1) * x.numel() * x.element_size()
+    moved = x.movedim(dim, 0)
+    wire = card_wire.for_tensor(x, group)
+    if wire is not None:
+        out = wire.all_gather(moved, group).flatten(0, 1)
+        return out.movedim(0, dim).contiguous()
+    staged = host_staged(x.device, group)
+    buf = to_wire(moved, staged)
+    parts = [torch.empty_like(buf) for _ in range(size)]
+    flush()
+    dist.all_gather(parts, buf, group=group)
+    out = torch.cat(parts).movedim(0, dim)
+    return from_wire(out.contiguous(), x.device)
+
+
+all_gather.bytes = 0
+
+
+def own_block(t: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` split over ``axes``."""
+    n = mesh.count(axes)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n} blocks over {axes}")
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * size, size)
+
+
+def _sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    if mesh.count(axes) == 1:
+        return t
+    group = mesh.group(axes)
+    wire = card_wire.for_tensor(t, group)
+    if wire is None:
+        return all_reduce(t, group)
+    all_reduce.bytes += t.numel() * t.element_size()
+    return wire.all_reduce(t, group)
+
+
+class _Gather(Function):
+    """Forward: the whole tensor from this rank's block (an all-gather per
+    split dimension).  Backward: the block of the summed contributions,
+    the incoming gradient sliced along the dimensions split over axes that
+    are not batch axes (every rank of a batch group holds the same
+    coordinates there), summed over the batch axes, then sliced along the
+    rest.  The sum is an all-reduce of the once-sliced gradient followed by
+    a slice (a first form of a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, dims, batch_axes):
+        ctx.mesh, ctx.dims, ctx.batch_axes = mesh, dims, batch_axes
+        out = block
+        for dim, axes in dims:
+            n = mesh.count(axes)
+            if n > 1:
+                out = all_gather(out, dim, mesh.group(axes), n)
+        return out if out is not block else block.view_as(block)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, bt = ctx.mesh, set(ctx.batch_axes)
+        for dim, axes in ctx.dims:
+            if not bt & set(mesh.axes(axes)):
+                g = own_block(g, dim, mesh, axes)
+        g = _sum(g.contiguous(), mesh, ctx.batch_axes)
+        for dim, axes in ctx.dims:
+            if bt & set(mesh.axes(axes)):
+                g = own_block(g, dim, mesh, axes)
+        return g.contiguous(), None, None, None
+
+
+def gather_blocks(block: torch.Tensor, mesh, dims, batch_axes
+                  ) -> torch.Tensor:
+    """The tensor whose block along each ``(dim, axes)`` of ``dims`` this
+    rank holds, differentiable (:class:`_Gather`); with no ``dims`` the
+    block itself, its gradient summed over ``batch_axes``."""
+    return _Gather.apply(block, mesh, tuple(dims), tuple(batch_axes))
+
+
+class _SumOver(Function):
+    """Forward: the sum over ``axes``.  Backward: the incoming gradient
+    as it is (each rank's use of the sum is its own contribution)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _sum(t, mesh, axes) if mesh.count(axes) > 1 \
+            else t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyOver(Function):
+    """Forward: the tensor as it is.  Backward: the gradient summed over
+    ``axes`` (ranks that each use the tensor for a part of the work)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum of ``t`` over ``axes``; the backward passes the gradient on."""
+    return _SumOver.apply(t, mesh, tuple(axes))
+
+
+def copy_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` itself; the backward sums the gradient over ``axes``."""
+    return _CopyOver.apply(t, mesh, tuple(axes))
+
+
+class _BatchMean(Function):
+    @staticmethod
+    def forward(ctx, value, weight, mesh, axes):
+        w = torch.as_tensor(weight, dtype=torch.float32,
+                            device=value.device)
+        both = _sum(torch.stack([value.float() * w, w]), mesh, axes)
+        total = torch.clamp(both[1], min=1.0)
+        ctx.scale = w / total
+        return (both[0] / total).to(value.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.float() * ctx.scale).to(g.dtype), None, None, None
+
+
+def batch_mean(value: torch.Tensor, weight, mesh, axes) -> torch.Tensor:
+    """The mean over the batch blocks along ``axes`` of a 0-d ``value``
+    weighted by ``weight`` (a count: tokens, or unmasked positions; the
+    total is clamped to 1, as ``cross_entropy``'s own count).  The
+    backward gives this rank's ``value`` the gradient scaled by its share
+    ``weight / total``: the derivative of the mean through it alone."""
+    return _BatchMean.apply(value, weight, mesh, tuple(axes))

@@ -12,7 +12,9 @@ Backend: NCCL when every rank has its own card, gloo when ranks share a
 card (NCCL refuses two ranks on one device) or run on the CPU.  The
 choice follows the device count, never a retry after an error.  Gloo
 ranks also map one shared-memory wire (distributed/shm.py), which
-carries the whole group's sums and strips.
+carries the whole group's sums and strips, and, when they share the
+machine's one card, the card's IPC buffers (distributed/card_wire.py),
+which carry the sharded models' gathers and sums.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch.distributed import shm
+from repro_torch.distributed import card_wire, shm
 
 #: seconds a rank waits on a peer before its collective fails
 TIMEOUT_S = 300
@@ -61,11 +63,14 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
     wire = os.path.join(tmp, "wire")
     if os.path.exists(wire):
         shm.attach(wire, rank, world)
+    if card_wire.usable(backend, device):
+        card_wire.attach(torch.device("cuda", torch.cuda.current_device()))
     try:
         out = fn(rank, world, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
+        card_wire.detach()
         shm.detach()
         dist.destroy_process_group()
 
@@ -129,6 +134,25 @@ def run(fn: Callable, world: int, *args, device="cuda") -> List[Any]:
     rank raises here.
     """
     return start(fn, world, *args, device=device).result()
+
+
+def _on_mesh(rank: int, world: int, fn: Callable, shape: Dict[str, int],
+             *args) -> Any:
+    from repro_torch.launch.mesh import Mesh
+    return fn(rank, world, Mesh.live(shape), *args)
+
+
+def run_mesh(fn: Callable, shape: Dict[str, int], *args, device="cuda"
+             ) -> List[Any]:
+    """Run ``fn(rank, world, mesh, *args)`` on as many spawned ranks as
+    ``shape`` (axis name -> size, e.g. ``{"data": 2, "model": 2}``) holds,
+    ``mesh`` the ``launch.mesh.Mesh`` of that shape built inside each
+    rank (a body may build more meshes of the same ranks itself, with
+    ``make_host_mesh``).  As :func:`run` otherwise."""
+    world = 1
+    for size in shape.values():
+        world *= size
+    return run(_on_mesh, world, fn, dict(shape), *args, device=device)
 
 
 def _numpy(v):

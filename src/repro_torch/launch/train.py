@@ -1,9 +1,12 @@
 """End-to-end training: the entry point and its loop.
 
 The port of the JAX package's ``launch/train.py``: any registry
-architecture (full or smoke-reduced) on one device with the synthetic
-data pipeline, AdamW, (pipelined) clipping and asynchronous checkpoints
-with restart.  On the card:
+architecture (full or smoke-reduced) with the synthetic data pipeline,
+AdamW, (pipelined) clipping and asynchronous checkpoints with restart,
+on one device or, with a ``mesh`` (``launch/mesh.py``), on the ranks of
+a sharded model (``distributed/sharding.py``: every rank reads the same
+global batches and computes on its rows).  Checkpoints hold whole
+tensors, so a run restores on any mesh or on one device.  On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --steps 50 --checkpoint-dir /tmp/ckpt
@@ -26,6 +29,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, TrainConfig, parse_overrides
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.distributed import sharding
 from repro_torch.launch.serve import _sync
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params
@@ -34,14 +38,19 @@ from repro_torch.optim import adamw
 
 def build_state(cfg: ModelConfig, tcfg: TrainConfig,
                 generator: Optional[torch.Generator] = None,
-                device="cuda") -> dict:
+                device="cuda", mesh=None) -> dict:
     """Parameters from ``generator`` (seed ``tcfg.seed`` if None), switched
-    to ``requires_grad``, zero AdamW moments, step 0, prev_gnorm 0."""
+    to ``requires_grad``, zero AdamW moments, step 0, prev_gnorm 0.  With
+    a ``mesh``: the same parameters stored as this rank's blocks
+    (``cfg.sharding``), the moments in their blocks' shapes."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(tcfg.seed)
-    params = init_params(cfg, generator, device)
+    if mesh is None:
+        params = init_params(cfg, generator, device)
+    else:
+        params = sharding.init_sharded_params(cfg, mesh, generator, device)
     params.requires_grad_(True)
-    named = dict(params.named_parameters())
+    named = sharding.stored(params)
     return {"params": params,
             "opt": adamw.init(named, tcfg.optimizer_state_dtype),
             "step": torch.zeros((), dtype=torch.int32, device=device),
@@ -50,31 +59,42 @@ def build_state(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def checkpoint_tree(state: dict) -> dict:
-    """The state as the nested dict of tensors a checkpoint stores."""
-    return {"params": {k: p.detach() for k, p in
-                       state["params"].named_parameters()},
-            "opt": state["opt"], "step": state["step"],
+    """The state as the nested dict of whole tensors a checkpoint stores
+    (a sharded state's blocks gathered: a collective on every rank)."""
+    model = state["params"]
+    params = {k: p.detach() for k, p in sharding.stored(model).items()}
+    opt = state["opt"]
+    if sharding.is_sharded(model):
+        params = sharding.whole(model, params)
+        opt = {k: sharding.whole(model, t) for k, t in opt.items()}
+    return {"params": params, "opt": opt, "step": state["step"],
             "prev_gnorm": state["prev_gnorm"]}
 
 
 @torch.no_grad()
 def load_tree(state: dict, tree: dict) -> dict:
     """``state`` with a restored :func:`checkpoint_tree` copied in (the
-    parameters in place)."""
-    for k, p in state["params"].named_parameters():
-        p.copy_(tree["params"][k])
-    return {"params": state["params"], "opt": tree["opt"],
+    parameters in place; a sharded state takes its blocks)."""
+    model = state["params"]
+    params, opt = tree["params"], tree["opt"]
+    if sharding.is_sharded(model):
+        params = sharding.blocks_of(model, params)
+        opt = {k: sharding.blocks_of(model, t) for k, t in opt.items()}
+    for k, p in sharding.stored(model).items():
+        p.copy_(params[k])
+    return {"params": model, "opt": opt,
             "step": tree["step"], "prev_gnorm": tree["prev_gnorm"]}
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 256,
-          batch: int = 8, log_every: int = 10, progress=print,
+          batch: int = 8, mesh=None, log_every: int = 10, progress=print,
           device="cuda") -> dict:
     """Train ``tcfg.steps`` steps from the latest checkpoint under
     ``tcfg.checkpoint_dir`` (or from scratch).  Returns the losses, each
     step's metrics (floats), the steps run, the seconds and each step's
     host seconds (to its metrics on the host), the final loss and the
-    state."""
+    state.  With a ``mesh`` every rank of it calls ``train`` alike; the
+    first rank writes the checkpoints."""
     if cfg.attn_kernel:
         raise ValueError(
             f"{cfg.name}: attn_kernel=True puts the flash kernel on the "
@@ -87,7 +107,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 256,
                             else 0),
         d_model=cfg.d_model), device=device)
 
-    state = build_state(cfg, tcfg, device=device)
+    state = build_state(cfg, tcfg, device=device, mesh=mesh)
+    writer = mesh is None or mesh.rank == 0
     step0 = 0
     mgr: Optional[CheckpointManager] = None
     if tcfg.checkpoint_dir:
@@ -98,7 +119,13 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 256,
             step0 = int(manifest["step"])
             progress(f"[train] restored checkpoint at step {step0}")
 
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, mesh)
+
+    def save(step, loss):
+        tree = checkpoint_tree(state)       # a collective under a mesh
+        if writer:
+            mgr.save(step, tree, {"loss": loss})
+
     losses, step_s, history = [], [], []
     _sync(device)
     t0 = time.perf_counter()
@@ -114,11 +141,12 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 256,
                      f"lr {history[-1]['lr']:.2e}")
         if mgr and tcfg.checkpoint_every and \
                 (i + 1) % tcfg.checkpoint_every == 0:
-            mgr.save(i + 1, checkpoint_tree(state), {"loss": losses[-1]})
+            save(i + 1, losses[-1])
     if mgr:
-        mgr.save(tcfg.steps, checkpoint_tree(state),
-                 {"loss": losses[-1] if losses else float("nan")})
+        save(tcfg.steps, losses[-1] if losses else float("nan"))
         mgr.wait()
+        if mesh is not None and mesh.size > 1:
+            torch.distributed.barrier()     # the files exist for every rank
     dt = time.perf_counter() - t0
     return {"losses": losses, "metrics": history,
             "steps": tcfg.steps - step0, "seconds": dt,

@@ -58,9 +58,15 @@ MOE_Z_COEF = 1e-3
 
 
 class Hints:
-    """Sharding hints; the default is a no-op (one device)."""
+    """Sharding hints; the default is a no-op (one device).
+
+    Port only: ``batch_axes``, :meth:`batch_mean`, :meth:`all_rows` and
+    :meth:`own_rows`, which a sharded model's ranks need where the
+    reference's GSPMD program sees the whole batch
+    (``distributed/sharding.py::MeshHints``)."""
 
     mesh = None
+    batch_axes = ()
 
     def activation(self, x):  # (B, S, d) residual stream
         return x
@@ -72,6 +78,19 @@ class Hints:
         return x
 
     def kv_heads(self, x):  # (B, S, KV, D)
+        return x
+
+    def batch_mean(self, value, weight):
+        """The mean over the whole batch of a 0-d mean over this rank's
+        rows, which hold ``weight`` of the batch's count."""
+        return value
+
+    def all_rows(self, x):
+        """Every rank's rows of ``x`` (dim 0), in batch order."""
+        return x
+
+    def own_rows(self, x):
+        """This rank's rows of a whole-batch ``x``."""
         return x
 
 
@@ -159,19 +178,24 @@ def _init_block(cfg: ModelConfig, kind: str, generator, device) -> Block:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda") -> LM:
+                device="cuda", place=None) -> LM:
     """Random parameters, drawn from ``generator`` (seed 0 if None) on
     ``device`` with the reference's initializers: embeddings N(0, 0.02),
     projections and experts N(0, 1/d_in), the recurrent blocks' own
-    (``init_rglru``, ``init_rwkv``), norms 1, biases 0."""
+    (``init_rglru``, ``init_rwkv``), norms 1, biases 0.  ``place(name,
+    block)``, when given, is called on each layer right after its draws
+    (``distributed/sharding.py::init_sharded_params`` keeps its blocks)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = getattr(torch, cfg.param_dtype)
     d, V, ncb = cfg.d_model, cfg.vocab_size, cfg.num_codebooks
     embeds = [_normal((V, d), 0.02, dt, generator, device)
               for _ in range(ncb)]
-    blocks = [_init_block(cfg, kind, generator, device)
-              for kind in cfg.layer_kinds()]
+    blocks = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        blocks.append(_init_block(cfg, kind, generator, device))
+        if place is not None:
+            place(f"blocks.{i}", blocks[-1])
     heads = None
     if not cfg.tie_embeddings:
         heads = [init_linear(d, V, dt, generator=generator, device=device)
@@ -230,12 +254,22 @@ def _zero_aux():
     return {k: 0 for k in AUX_KEYS}
 
 
-def _ffn_part(p: Block, cfg: ModelConfig, h, dtype):
-    # the reference's expert-parallel route needs a mesh; the port's
-    # Hints.mesh is None, so moe_ffn is the one route, as the reference's
-    # without a mesh
+def _ffn_part(p: Block, cfg: ModelConfig, h, dtype, hints: Hints = Hints()):
+    # with a mesh, moe_impl="ep" takes the expert-parallel route; the
+    # gather route dispatches the whole batch on every rank and keeps its
+    # own rows, which is what the reference's GSPMD program computes
     if cfg.moe is not None:
-        out, aux = moe_ffn(p.moe, cfg, h, dtype)
+        if cfg.moe_impl == "ep" and hints.mesh is not None:
+            from repro_torch.models.moe_ep import moe_ffn_ep
+            out, aux = moe_ffn_ep(p.moe, cfg, h, dtype, hints.mesh,
+                                  hints.batch_axes)
+        else:
+            out, aux = moe_ffn(p.moe, cfg, hints.all_rows(h), dtype)
+            out = hints.own_rows(out)
+            # every rank of the batch computed the same terms: the mean
+            # of the copies, so that the gradient counts them once
+            aux = dict(aux, moe_aux=hints.batch_mean(aux["moe_aux"], 1.0),
+                       moe_z=hints.batch_mean(aux["moe_z"], 1.0))
         if cfg.moe.dense_residual:
             out = out + mlp(p.ffn, h, cfg.gated_mlp, dtype)
         return out, aux
@@ -270,11 +304,11 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
                 p.attn, cfg, h, positions, dtype, mode=mode, state=state,
                 pos=pos, window=window, hints=hints)
         if cfg.parallel_block:
-            f_out, aux = _ffn_part(p, cfg, h, dtype)
+            f_out, aux = _ffn_part(p, cfg, h, dtype, hints)
             return hints.activation(x + a_out + f_out), new_state, aux
         x = x + a_out
         h2 = rms_norm(p.norm2, x, eps)
-        f_out, aux = _ffn_part(p, cfg, h2, dtype)
+        f_out, aux = _ffn_part(p, cfg, h2, dtype, hints)
         return hints.activation(x + f_out), new_state, aux
 
     if kind == RECURRENT:
@@ -282,7 +316,7 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
                                        state=state)
         x = x + r_out
         h2 = rms_norm(p.norm2, x, eps)
-        f_out, aux = _ffn_part(p, cfg, h2, dtype)
+        f_out, aux = _ffn_part(p, cfg, h2, dtype, hints)
         return hints.activation(x + f_out), new_state, aux
 
     if kind == RWKV:
@@ -413,6 +447,9 @@ def loss_fn(params: LM, cfg: ModelConfig, batch, *, remat="full",
                  for i in range(cfg.num_codebooks)) / cfg.num_codebooks
     else:
         ce = cross_entropy(logits, labels, mask, cfg.ce_impl)
+    count = (mask.float().sum() if mask is not None
+             else float(labels.shape[0] * labels.shape[1]))
+    ce = hints.batch_mean(ce, count)
     total = ce + MOE_AUX_COEF * aux["moe_aux"] + MOE_Z_COEF * aux["moe_z"]
     return total, {"ce": ce, **aux}
 

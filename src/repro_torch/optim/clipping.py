@@ -38,23 +38,27 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for leaf in _leaves(tree)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float):
+def clip_by_global_norm(grads: Tree, max_norm: float, norm=None):
     """Synchronous clipping: the norm gates every update (classical
-    CG-style data dependency).  Returns (clipped_grads, norm)."""
-    norm = global_norm(grads)
+    CG-style data dependency).  Returns (clipped_grads, norm).  ``norm``:
+    the tree's global norm when the caller computed it (the blocks of a
+    sharded gradient, ``distributed/sharding.py::global_norm``)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return _scale(grads, scale), norm
 
 
 def clip_by_delayed_norm(grads: Tree, prev_norm: torch.Tensor,
-                         max_norm: float):
+                         max_norm: float, norm=None):
     """Pipelined clipping: clip with the PREVIOUS step's norm; return this
     step's norm for the next step (split-phase collective).
 
     Returns (clipped_grads, this_norm).  ``prev_norm <= 0`` (first step)
-    clips with ``max_norm`` itself, i.e. not at all.
+    clips with ``max_norm`` itself, i.e. not at all.  ``norm`` as for
+    :func:`clip_by_global_norm`.
     """
-    norm = global_norm(grads)  # reduction initiated now, consumed next step
+    if norm is None:  # reduction initiated now, consumed next step
+        norm = global_norm(grads)
     prev = torch.as_tensor(prev_norm, dtype=torch.float32).to(norm.device)
     safe_prev = torch.where(prev > 0, prev, torch.full_like(prev, max_norm))
     scale = torch.clamp(max_norm / torch.clamp(safe_prev, min=1e-9), max=1.0)

@@ -35,7 +35,12 @@ in prefill.  The
 serve batcher on the fused sweep (k = 8): retired columns equal solo
 serves bit for bit, a NaN-poisoned column and garbage in free columns
 leave the live columns' bits alone, and a mid-flight admission perturbs
-no in-flight column.
+no in-flight column.  Sharded models on 4 gloo ranks of the card
+(tests/torch_sharded_ranks.py, one spawn, smoke size, float32): the
+sharded loss and gradients equal one device's, the expert route equals
+the gather route at the capacity that drops nothing, every rank stores
+its share of the plan on the card, and a sharded prefill launches the
+flash kernel once per attention layer on every rank.
 """
 import pytest
 import torch
@@ -1670,3 +1675,140 @@ def test_train_step_with_flash_kernel_raises_on_card(cuda):
         make_train_step(cfg, tcfg)(build_state(cfg, tcfg, device=cuda),
                                    batch)
     assert ops.launch_counts()["flash_attention"] == before
+
+
+# -- sharded models on 4 ranks of the card --------------------------------
+
+SHARD_WORLD = 4
+
+
+def _shard_batch(vocab, B=4, S=64, seed=3):
+    import numpy as np
+    g = np.random.default_rng(seed)
+    return {"tokens": g.integers(0, vocab, (B, S)).astype(np.int32),
+            "labels": g.integers(0, vocab, (B, S)).astype(np.int32)}
+
+
+@pytest.fixture(scope="module")
+def sharded_on_card():
+    """One spawn of 4 ranks on the card (gloo unless each has a card) for
+    every sharded case, and the one-device results beside them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    import numpy as np
+    import torch_sharded_ranks as tsr
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params, loss_fn
+    dev = torch.device("cuda")
+    kw = dict(capacity="no_drop")
+    flash = dict(overrides={"head_dim": 64, "attn_kernel": True,
+                            "moe_impl": "ep"}, **kw)
+    cfgs = {"qwen3": dict(arch="qwen3-1.7b", **kw),
+            "olmoe": dict(arch="olmoe-1b-7b", overrides={"moe_impl": "ep"},
+                          **kw),
+            "flash": dict(arch="olmoe-1b-7b", **flash)}
+    vocab = tsr.config("qwen3-1.7b").vocab_size
+    g = np.random.default_rng(7)
+    m = tsr.config("olmoe-1b-7b").moe
+    d = tsr.config("olmoe-1b-7b").d_model
+    moe = {"router": g.standard_normal((d, m.num_experts)) * 0.5,
+           "up": g.standard_normal((m.num_experts, d, m.d_ff)) * 0.1,
+           "gate": g.standard_normal((m.num_experts, d, m.d_ff)) * 0.1,
+           "down": g.standard_normal((m.num_experts, m.d_ff, d)) * 0.1}
+    moe = {k: v.astype(np.float32) for k, v in moe.items()}
+    x = g.standard_normal((4, 64, d)).astype(np.float32)
+    jobs = [dict(kind="grads", model=2, cfg=cfgs["qwen3"],
+                 batch=_shard_batch(vocab)),
+            dict(kind="grads", model=2,
+                 cfg=dict(cfgs["qwen3"], overrides={"sharding": "fsdp"}),
+                 batch=_shard_batch(vocab)),
+            dict(kind="moe_ep", model=2, moe=moe, x=x,
+                 cfg=dict(arch="olmoe-1b-7b", **kw)),
+            dict(kind="storage", model=2, cfg=cfgs["olmoe"]),
+            dict(kind="storage", model=1,
+                 cfg=dict(cfgs["qwen3"], overrides={"sharding": "fsdp"})),
+            dict(kind="prefill", model=2, cfg=cfgs["flash"],
+                 batch={"tokens": _shard_batch(vocab)["tokens"]})]
+    out = ranks.run(tsr.sharded_jobs, SHARD_WORLD, jobs, "cuda",
+                    device="cuda")
+    one = {}
+    cfg = tsr.config(**cfgs["qwen3"])
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         _shard_batch(vocab).items()}
+    loss, _ = loss_fn(model, cfg, b)
+    one["loss"] = float(loss.detach())
+    one["grads"] = {k: v.cpu().numpy() for k, v in zip(
+        named, torch.autograd.grad(loss, list(named.values())))}
+    cfg = tsr.config(**dict(cfgs["flash"], overrides=dict(
+        flash["overrides"], moe_impl="gather")))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    logits, _ = make_prefill_step(cfg)(model, {"tokens": b["tokens"]})
+    one["logits"] = logits.float().cpu().numpy()
+    return dict(jobs=jobs, out=out, one=one)
+
+
+def _shard_recs(run, i):
+    return [run["out"][r][i] for r in range(SHARD_WORLD)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 1])
+def test_sharded_loss_and_grads_equal_one_device_on_card(sharded_on_card, i):
+    """qwen3 smoke, "2d" and "fsdp" on (2, 2): the sharded loss
+    within 1e-5 of one device's, each gradient block within 1e-4 of its
+    leaf's max |g| (the sums run in another order)."""
+    import numpy as np
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import split_dims
+    from repro_torch.launch.mesh import Mesh
+    run = sharded_on_card
+    one = run["one"]
+    for rec in _shard_recs(run, i):
+        assert abs(rec["loss"] - one["loss"]) <= 1e-5
+        shape, c = rec["shape"], rec["coords"]
+        mesh = Mesh(shape, c["data"] * shape["model"] + c["model"])
+        for k, g in one["grads"].items():
+            t = torch.from_numpy(g)
+            for dim, axes in split_dims(rec["specs"][k]):
+                t = comm.own_block(t, dim, mesh, axes)
+            bar = 1e-4 * float(np.abs(g).max()) + 1e-7
+            assert float(np.abs(rec["grads"][k] - t.numpy()).max()) <= bar
+
+
+@pytest.mark.cuda
+def test_expert_route_equals_gather_route_at_no_drop_on_card(
+        sharded_on_card):
+    import numpy as np
+    for rec in _shard_recs(sharded_on_card, 2):
+        assert rec["aux"]["moe_dropped"] == 0
+        np.testing.assert_allclose(rec["out"], rec["gather_out"], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [3, 4])
+def test_sharded_storage_is_each_ranks_share_on_card(sharded_on_card, i):
+    for rec in _shard_recs(sharded_on_card, i):
+        assert rec["held"] == rec["plan"]
+
+
+@pytest.mark.cuda
+def test_sharded_prefill_launches_one_flash_per_layer_per_rank(
+        sharded_on_card):
+    """olmoe smoke (head dim 64, the expert route) on (2, 2): every rank
+    launches one flash kernel per attention layer, and its rows of the
+    logits are one device's (gather route) within 1e-3."""
+    import numpy as np
+    import torch_sharded_ranks as tsr
+    layers = tsr.config("olmoe-1b-7b").num_layers
+    want = sharded_on_card["one"]["logits"]
+    for rec in _shard_recs(sharded_on_card, 5):
+        assert rec["launches"]["flash_attention"] == layers
+        assert sum(rec["launches"].values()) == layers
+        d, n = rec["coords"]["data"], rec["rows"]
+        assert float(np.abs(rec["logits"] - want[d * n:(d + 1) * n]).max()) \
+            <= 1e-3

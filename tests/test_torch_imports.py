@@ -117,7 +117,11 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.optim.krylov_newton",
             "repro_torch.data",
             "repro_torch.data.synthetic",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train",
+            "repro_torch.launch.mesh",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.card_wire",
+            "repro_torch.models.moe_ep"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
