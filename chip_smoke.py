@@ -199,6 +199,21 @@ kernels from src/repro_torch/kernels/csrc/ and then, one line per step,
    shard; for every run ms, tokens/s, peak GB and bytes gathered and
    summed a rank, and the storage check (every rank holds its share of
    the plan, on the card); no kernel in training; within SHARD_BUDGET_S;
+   then ``[shard_serve]``: 4 gloo ranks of this card on a (data 1, model
+   4) mesh serve under "2d" with the heads split (``make_prefill_step``,
+   ``sharding.decode_state``, ``make_decode_step`` with the mesh), fp32
+   weights from seed 0, bf16 compute: qwen3-1.7b (28 layers, the flash
+   kernel on each rank's 4 query heads, batch 4, prompt 8192, 16 decode
+   steps, the KV cache's sequence in blocks of 2052 a rank) and
+   recurrentgemma-2b (26 layers; H = 10 does not split over 4, so q's
+   rows do; its local attention's ring of 2048 slots and the RG-LRU
+   states in blocks a rank; prompt 4096), each step's logits held,
+   teacher-forced, to the one-device path fed the same tokens (the H18
+   bar, argmax 0.5), a float32 pair at a cut depth within 1e-4, each
+   rank's cache against its STATE_RULES block of the one-device cache,
+   its bytes against the plan; prefill ms, decode p50/p99 ms a token,
+   peak GB a rank, collectives and bytes a decode step, flash launches;
+   within SHARD_SERVE_BUDGET_S;
    then ``[solve_serve]``: solver serving at ex23's n = 2,097,152 on the
    fused engine, ``run_serve_exec`` with the JAX package's serve workload
    (64 requests of 32-256 Laplacian modes, tol 1e-8, maxiter 600, k = 8
@@ -412,6 +427,37 @@ SHARD_BF16_STEP2_TOL = 5e-2
 SHARD_WITNESS_TOL = 1e-3
 SHARD_CUT_LAYERS = 4
 SHARD_BUDGET_S = 120.0      # 75.78-98.93 s on an H100 80GB HBM3, 700 W
+# sharded serving ([shard_serve]): 4 gloo ranks of one card on a (data 1,
+# model 4) mesh, "2d" with the heads split, published widths, fp32
+# weights from seed 0, bf16 compute, batch 4: (arch, overrides, prompt,
+# decode steps, the float32 pair's prompt and layers).  qwen3-1.7b: 4
+# query heads, 2 KV heads and 37,984 vocabulary columns a rank, the flash
+# kernel in prefill; recurrentgemma-2b: H = 10 does not split over 4, so
+# q's rows do (the dense route), its ring of 2048 slots in blocks of 512.
+# Logits are held step by step, teacher-forced, to the one-device path
+# fed the same tokens within the H18 bar (LOGIT_TOL, ARGMAX_AGREE); the
+# float32 pair's within SHARD_SERVE_F32_TOL; each rank's KV cache and
+# recurrent states to its STATE_RULES block of the one-device state:
+# the float32 pair's within SHARD_SERVE_CACHE_TOL, the bf16 run's (the
+# first and last attention layers, every recurrent one) within the H18
+# bar, and layer 0's, whose inputs are one device's bit for bit, within
+# SHARD_SERVE_FIRST_ULPS bf16 ulps of one device's (a rank's matmul over
+# its columns may round a value 1 ulp away; the rounding carries on
+# through the residual stream, so deeper layers get the H18 bar).  The
+# H18 reference is the dense route in float32, so no check leans on #12,
+# which is held to its plain version on each rank's own layer-0 heads.
+# Argmax: the mean over the steps' rows >= ARGMAX_AGREE, and at each step
+# among the rows whose argmax one device keeps between bf16 and float32
+# (a row one device flips is a tie at bf16's precision)
+SHARD_SERVE_MESH = {"data": 1, "model": 4}
+SHARD_SERVE_BATCH = 4
+SHARD_SERVE_CELLS = (("qwen3-1.7b", {"attn_kernel": True}, 8192, 16, 2048, 2),
+                     ("recurrentgemma-2b", {}, 4096, 16, 4096, 3))
+SHARD_SERVE_F32_STEPS = 4
+SHARD_SERVE_F32_TOL = 1e-4
+SHARD_SERVE_CACHE_TOL = 1e-3
+SHARD_SERVE_FIRST_ULPS = 4.0
+SHARD_SERVE_BUDGET_S = 120.0
 # solver serving ([solve_serve]): the JAX package's serve workload (its
 # CampaignSpec defaults: 64 requests of 32-256 Laplacian modes, tol 1e-8,
 # maxiter 600, k = 8 slots, blocks of 8, rho 0.7, a 16,384-request
@@ -3065,6 +3111,17 @@ def bf16_bars(got, want) -> tuple:
     return excess, agree
 
 
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of the vector it lies in:
+    2^(e - 7) for e the exponent of the largest |want| along the last
+    dimension (a head's D, a state's width), so that rope's and a norm's
+    cancellations are measured on the vector's scale."""
+    import torch
+    mag = want.float().abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
 def family_wkv(cfg, params, prompt) -> dict:
     """#13 ``wkv_recurrent`` against the model's chunked form on rwkv6-7b's
     own layer-0 r, k, v and logw over the prompt (float32, zero state);
@@ -3999,6 +4056,471 @@ def phase_shard(records):
           f"[shard] {seconds:.1f} s over its {SHARD_BUDGET_S} s budget")
 
 
+def shard_serve_cfg(arch: str, cut: dict, **more):
+    """[shard_serve]'s config: published widths, "2d", heads split."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), sharding="2d",
+                               shard_attn_heads=True, **{**cut, **more})
+
+
+def cache_len_of(prompt: int, steps: int) -> int:
+    """Prompt and steps, rounded up to split over the model ranks."""
+    m = SHARD_SERVE_MESH["model"]
+    return -(-(prompt + steps) // m) * m
+
+
+def serve_teacher(cfg, params, prompt, steps: int, cache_len: int,
+                  fed=None, by_row: bool = False) -> dict:
+    """One device: prefill ``prompt``, then ``steps`` decode steps, each
+    fed the last step's greedy token (or, given ``fed`` (B, steps), its
+    column).  The logits of the prefill and of each step (float, host),
+    the tokens fed, the last decode state in ``sharding.decode_state``'s
+    layout (a local layer's ring), prefill ms and each step's ms.
+    ``by_row``: prefill a row at a time (the dense float32 route's S^2
+    scores of the whole batch would not fit beside the rest)."""
+    import torch
+    from repro_torch.configs.base import ATTN_LOCAL
+    from repro_torch.launch.serve import greedy, prefill_to_decode_state
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.attention import AttnState, decode_cache
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if by_row:
+        parts = [prefill(params, {"tokens": prompt[b:b + 1]})
+                 for b in range(prompt.shape[0])]
+        lg = torch.cat([lg for lg, _ in parts])
+        st = dict(parts[0][1], layers=[
+            type(ls[0])(*map(torch.cat, zip(*ls)))
+            for ls in zip(*(st["layers"] for _, st in parts))])
+        del parts
+    else:
+        lg, st = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    st = prefill_to_decode_state(cfg, st, cache_len)
+    logits, toks, step_ms = [lg[:, 0].float().cpu()], [], []
+    step = make_decode_step(cfg)
+    for i in range(steps):
+        tok = greedy(lg) if fed is None else fed[:, i].to(prompt.device)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        st, lg = step(params, st, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, 0].float().cpu())
+    layers = []
+    for kind, ls in zip(cfg.layer_kinds(), st["layers"]):
+        if kind == ATTN_LOCAL and isinstance(ls, AttnState):
+            ls = AttnState(*(decode_cache(t[:, :st["pos"]], st["pos"],
+                                          cache_len, cfg.window)
+                             for t in ls))
+        layers.append(ls)
+    return dict(logits=logits, tokens=torch.stack(toks, 1),
+                layers=layers, prefill_ms=prefill_ms, step_ms=step_ms)
+
+
+def shard_serve_reference(arch, cut, prompt_len, steps, f32_prompt,
+                          f32_layers, dev, path) -> dict:
+    """One device, before the ranks: the bf16 run at full depth (greedy:
+    its tokens are the ones every run is fed) and the same weights in
+    float32 compute on the dense route fed them (the H18 bar's reference,
+    which no kernel computes), then the float32
+    pair's one-device half at ``f32_layers``.  The tokens and the states
+    the ranks are held to go to ``path``; each model is freed after.
+    Returns the logits and timings by run."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import AttnState
+    B = SHARD_SERVE_BATCH
+    out, saved = {}, {}
+
+    def keep(name, run, layers):
+        saved[name] = dict(tokens=run["tokens"].cpu(), layers={
+            i: tuple(t.cpu() for t in run["layers"][i]) for i in layers})
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def states(run, every_attention):
+        attn = [i for i, ls in enumerate(run["layers"])
+                if isinstance(ls, AttnState)]
+        return (set(attn if every_attention else (attn[0], attn[-1]))
+                | {i for i, ls in enumerate(run["layers"])
+                   if not isinstance(ls, AttnState)})
+
+    t0 = time.perf_counter()
+    cfg = shard_serve_cfg(arch, cut)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompt = serve_batch(cfg, B, prompt_len, dev)["tokens"]
+    cache_len = cache_len_of(prompt_len, steps)
+    run = serve_teacher(cfg, params, prompt, steps, cache_len)
+    kept = states(run, False)
+    keep("bf16", run, kept)
+    out["bf16"] = dict(logits=run["logits"], prefill_ms=run["prefill_ms"],
+                       step_ms=run["step_ms"], cfg=cfg, prompt=prompt_len,
+                       steps=steps)
+    del run
+    free()
+    t1 = time.perf_counter()
+    # the dense route in float32: no kernel in the reference (the H18 bar)
+    exact = serve_teacher(dataclasses.replace(cfg, dtype="float32",
+                                              attn_kernel=False),
+                          params, prompt, steps, cache_len,
+                          fed=saved["bf16"]["tokens"], by_row=True)
+    out["bf16"]["exact"] = exact["logits"]
+    # the bf16 states are held to these float32 ones (H18), within the
+    # bar plus one device's own bf16 excess over them
+    saved["bf16"]["exact"] = {i: tuple(t.cpu() for t in exact["layers"][i])
+                              for i in kept}
+    out["bf16"]["state_floor"] = max(
+        float(((w.float() - e).abs() - LOGIT_TOL * e.abs()).max())
+        for i in kept for w, e in zip(saved["bf16"]["layers"][i],
+                                      saved["bf16"]["exact"][i]))
+    del exact, params, prompt
+    free()
+    t2 = time.perf_counter()
+
+    cfg = shard_serve_cfg(arch, cut, dtype="float32", attn_kernel=False,
+                          num_layers=f32_layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompt = serve_batch(cfg, B, f32_prompt, dev)["tokens"]
+    run = serve_teacher(cfg, params, prompt, SHARD_SERVE_F32_STEPS,
+                        cache_len_of(f32_prompt, SHARD_SERVE_F32_STEPS))
+    keep("f32", run, states(run, True))
+    out["f32"] = dict(logits=run["logits"], prefill_ms=run["prefill_ms"],
+                      step_ms=run["step_ms"], cfg=cfg, prompt=f32_prompt,
+                      steps=SHARD_SERVE_F32_STEPS)
+    del run, params, prompt
+    free()
+    torch.save(saved, path)
+    out["seconds"] = dict(bf16=t1 - t0, exact=t2 - t1,
+                          f32=time.perf_counter() - t2)
+    return out
+
+
+def shard_serve_ranks(rank: int, world: int, mesh, job: dict) -> dict:
+    """[shard_serve]'s rank body: for each cell the bf16 run (prefill,
+    ``decode_state``, the teacher's tokens fed a step at a time, each
+    step timed and its collectives counted) and the float32 pair, each
+    rank's state blocks held to the saved one-device state's; #12 on the
+    q/k/v its first launch got, against its plain version."""
+    import gc
+    import torch
+    from repro_torch.distributed import card_wire, comm, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import (bf16_error, flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_decode_state
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
+    B = SHARD_SERVE_BATCH
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counters():
+        return (comm.all_gather.calls + comm.all_reduce.calls,
+                comm.all_gather.bytes + comm.all_reduce.bytes)
+
+    def run(cfg, S, n, ref):
+        t_init = time.perf_counter()
+        params = sharding.init_sharded_params(
+            cfg, mesh, torch.Generator(device=dev).manual_seed(0), dev)
+        sync()
+        init_s = time.perf_counter() - t_init
+        batch = serve_batch(cfg, B, S, dev)
+        tokens = ref["tokens"].to(dev)
+        cache_len = cache_len_of(S, n)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        flash, firsts = ops.flash_mha, []
+
+        def keep_first(q, k, v, *a, **kw):   # layer 0's (B*H/m, S, D)
+            if not firsts:
+                firsts.extend(t.contiguous().clone() for t in (q, k, v))
+            return flash(q, k, v, *a, **kw)
+
+        ops.flash_mha = keep_first
+        try:
+            t0 = time.perf_counter()
+            lg, st = make_prefill_step(cfg, mesh)(params, batch)
+            sync()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.flash_mha = flash
+        launches = ops.launch_counts()
+        t0 = time.perf_counter()
+        st = sharding.decode_state(cfg, st, mesh, B, cache_len)
+        sync()
+        exchange_ms = (time.perf_counter() - t0) * 1e3
+        logits, step_ms, calls, moved = [lg[:, 0].float().cpu()], [], [], []
+        step = make_decode_step(cfg, mesh)
+        ops.reset_launch_counts()
+        for i in range(n):
+            c0 = counters()
+            t0 = time.perf_counter()
+            st, lg = step(params, st, tokens[:, i])
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            c1 = counters()
+            calls.append(c1[0] - c0[0])
+            moved.append(c1[1] - c0[1])
+            logits.append(lg[:, 0].float().cpu())
+        decode_launches = ops.launch_counts()
+        # #12 on this rank's own heads of layer 0 against its plain
+        # version in float32 (a few heads at a time: the S^2 scores)
+        flash_check = None
+        if firsts:
+            q, k, v = firsts
+            got = flash_attention(q, k, v, True)
+            want = torch.cat([flash_attention_plain(
+                *(t[h:h + 4].float() for t in (q, k, v)), True)
+                for h in range(0, q.shape[0], 4)])
+            sync()
+            flash_check = dict(shape=tuple(q.shape),
+                               bar=bf16_error(got, want, v),
+                               max_abs_err=float((got.float() - want)
+                                                 .abs().max()))
+            del q, k, v, got, want, firsts[:]
+        # this rank's blocks against the one-device state's
+        # (max |block - one device's|, excess over the bar against the
+        # float32 run's where there is one, else against one device's,
+        # and the gap in bf16 ulps of one device's values)
+        gaps = {}
+        for i, want in ref["layers"].items():
+            got = st["layers"][i]
+            want = sharding.model_blocks(type(got)(*want), mesh)
+            exact = sharding.model_blocks(type(got)(*ref["exact"][i]), mesh) \
+                if "exact" in ref else want
+            for f, g, w, e in zip(got._fields, got, want, exact):
+                g, w, e = g.float().cpu(), w.float(), e.float()
+                gaps[f"{i}.{f}"] = (float((g - w).abs().max()), float(
+                    ((g - e).abs() - LOGIT_TOL * e.abs()).max()),
+                    bf16_ulps(g, w))
+        whole = init_decode_state(cfg, B, cache_len,
+                                  device=torch.device("meta"))["layers"]
+        plan = 0
+        for ws in whole:
+            for t, d in zip(ws, sharding.state_model_dims(ws)):
+                plan += t.numel() * t.element_size() // (
+                    mesh.shape["model"] if d is not None else 1)
+        res = dict(logits=logits, prefill_ms=prefill_ms, init_s=init_s,
+                   run_s=time.perf_counter() - t_init,
+                   exchange_ms=exchange_ms, step_ms=step_ms, calls=calls,
+                   moved=moved, launches=launches,
+                   decode_launches=decode_launches, gaps=gaps,
+                   flash_check=flash_check,
+                   held=sharding.tree_bytes(st["layers"]), plan=plan,
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                            if cuda else 0.0),
+                   on_card=all(t.device == dev for ls in st["layers"]
+                               for t in ls))
+        del params, st, lg
+        card_wire.release()              # every rank at the same point
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return res
+
+    out = dict(coords=dict(mesh.coords), card=dev.index)
+    for cell in job["cells"]:
+        ref = torch.load(cell["path"])
+        out[cell["arch"]] = {
+            name: run(cell[name]["cfg"], cell[name]["prompt"],
+                      cell[name]["steps"], ref[name])
+            for name in ("f32", "bf16")}
+        del ref
+    return out
+
+
+def phase_shard_serve(records):
+    """Sharded serving on the card: 4 gloo ranks on a (data 1, model 4)
+    mesh, tensor-parallel heads, FFN and vocabulary, the KV cache's
+    sequence and the recurrent states' width split; qwen3-1.7b and
+    recurrentgemma-2b at published widths against one device, teacher-
+    forced; the tensor-parallel prefill's flash launches go on the
+    kernels line; within ``SHARD_SERVE_BUDGET_S``."""
+    import tempfile
+    import torch
+    from repro_torch.distributed import ranks
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    world = SHARD_SERVE_MESH["data"] * SHARD_SERVE_MESH["model"]
+    name, line = card()
+    say("shard_serve", card=repr(name), smi=repr(line),
+        mesh=SHARD_SERVE_MESH, ranks=world,
+        backend=ranks.backend_for(world, DEVICE))
+    with tempfile.TemporaryDirectory(prefix="shard_serve_") as tmp:
+        cells, refs = [], {}
+        for arch, cut, S, n, S32, layers32 in SHARD_SERVE_CELLS:
+            path = str(Path(tmp) / f"{arch}.pt")
+            refs[arch] = shard_serve_reference(arch, cut, S, n, S32,
+                                               layers32, dev, path)
+            cells.append(dict(arch=arch, path=path, **{
+                k: {f: refs[arch][k][f] for f in ("cfg", "prompt", "steps")}
+                for k in ("bf16", "f32")}))
+        ref_s = time.perf_counter() - t0
+        out = ranks.run_mesh(shard_serve_ranks, SHARD_SERVE_MESH, dict(
+            device=DEVICE, cells=cells), device=DEVICE)
+    check(len(out) == world, f"[shard_serve] {len(out)} ranks")
+    flash, failed = 0, []
+    for arch, *_ in SHARD_SERVE_CELLS:
+        for kind in ("f32", "bf16"):
+            ref = refs[arch][kind]
+            cfg = ref["cfg"]
+            recs = [o[arch][kind] for o in out]
+            first = recs[0]["logits"]
+            if not all(len(r["logits"]) == len(ref["logits"]) and all(
+                    torch.equal(a, b) for a, b in zip(r["logits"], first))
+                    for r in recs):
+                failed.append(f"{arch} {kind}: the ranks' logits differ")
+            if not all(bool(torch.isfinite(g).all()) for g in first):
+                failed.append(f"{arch} {kind}: logits not finite")
+            line = {}
+            if kind == "bf16":
+                # H18: the ranks' excess over the float32 run, within
+                # the bar plus one device's bf16 excess, step by step
+                exact = ref["exact"]
+                margin = [bf16_bars(g, e)[0] - LOGIT_TOL
+                          - max(bf16_bars(w, e)[0], 0.0)
+                          for g, w, e in zip(first, ref["logits"], exact)]
+                # argmax, a row at a time: the ranks against one device,
+                # and one device's bf16 against float32 (the witness: a
+                # row it flips is a tie at bf16's precision)
+                top = [(g.argmax(-1), w.argmax(-1), e.argmax(-1))
+                       for g, w, e in zip(first, ref["logits"], exact)]
+                agree = [float((g == w).float().mean()) for g, w, _ in top]
+                kept = [float((w == e).float().mean()) for _, w, e in top]
+                posed = [float((g == w)[w == e].float().mean())
+                         if bool((w == e).any()) else None
+                         for g, w, e in top]
+                line.update(
+                    excess_vs_f32=",".join(
+                        f"{bf16_bars(g, e)[0]:.4f}"
+                        for g, e in zip(first, exact)),
+                    one_device_excess_vs_f32=",".join(
+                        f"{bf16_bars(w, e)[0]:.4f}"
+                        for w, e in zip(ref["logits"], exact)),
+                    worst_margin=f"{max(margin):.4f}",
+                    argmax_agree=",".join(f"{a:.2f}" for a in agree),
+                    argmax_vs_f32=",".join(
+                        f"{float((g == e).float().mean()):.2f}"
+                        for g, _, e in top),
+                    one_device_argmax_vs_f32=",".join(
+                        f"{a:.2f}" for a in kept),
+                    argmax_agree_kept_rows=",".join(
+                        "-" if a is None else f"{a:.2f}" for a in posed))
+                if max(margin) > 0.0:
+                    failed.append(f"{arch}: bf16 logits {max(margin)} over "
+                                  "the H18 bar")
+                if statistics.mean(agree) < ARGMAX_AGREE or any(
+                        a is not None and a < ARGMAX_AGREE for a in posed):
+                    failed.append(f"{arch}: argmax agreement {agree}, on "
+                                  f"the rows one device keeps {posed}")
+            else:
+                gaps = [float((g - w).abs().max())
+                        for g, w in zip(first, ref["logits"])]
+                line["logits_gaps"] = ",".join(f"{v:.2e}" for v in gaps)
+                if max(gaps) > SHARD_SERVE_F32_TOL:
+                    failed.append(f"{arch} float32 logits {gaps}")
+            gap = max(r["gaps"][k][0] for r in recs for k in r["gaps"])
+            excess = max(r["gaps"][k][1] for r in recs for k in r["gaps"])
+            if kind == "f32" and gap > SHARD_SERVE_CACHE_TOL:
+                failed.append(f"{arch} float32 state blocks {gap}")
+            if kind == "bf16":
+                floor = ref["state_floor"]
+                ulps = {k: max(r["gaps"][k][2] for r in recs)
+                        for k in recs[0]["gaps"]}
+                first_ulps = max(v for k, v in ulps.items()
+                                 if k.startswith("0."))
+                line.update(state_one_device_excess=f"{floor:.4f}",
+                            state_ulps=",".join(f"{k}:{v:.2f}"
+                                                for k, v in ulps.items()))
+                if excess > LOGIT_TOL + max(floor, 0.0):
+                    failed.append(f"{arch} bf16 state blocks {excess} over "
+                                  f"the H18 bar (one device's {floor})")
+                if first_ulps > SHARD_SERVE_FIRST_ULPS:
+                    failed.append(f"{arch} bf16 layer-0 state {first_ulps} "
+                                  "bf16 ulps from one device's")
+                checks = [r["flash_check"] for r in recs]
+                if cfg.attn_kernel:
+                    bars = [c["bar"] if c else (float("inf"),) * 2
+                            for c in checks]
+                    line.update(flash_shape="x".join(
+                        map(str, checks[0]["shape"])) if checks[0] else None,
+                        flash_bar=",".join(f"{e:.3f}/{r:.3f}"
+                                           for e, r in bars),
+                        flash_max_abs_err=",".join(
+                            f"{c['max_abs_err']:.3e}" for c in checks if c))
+                    if not all(e <= 1.0 and r <= 1.0 for e, r in bars):
+                        failed.append(f"{arch} flash_attention on the ranks' "
+                                      f"layer-0 heads: {bars} of the bf16 "
+                                      "bar")
+            if not all(r["held"] == r["plan"] and r["on_card"]
+                       for r in recs):
+                failed.append(f"{arch} {kind} holds "
+                              f"{[r['held'] for r in recs]}, its plan "
+                              f"{[r['plan'] for r in recs]}")
+            n_flash = [r["launches"]["flash_attention"] for r in recs]
+            want_flash = cfg.num_layers if cfg.attn_kernel else 0
+            if not all(k == want_flash and sum(r["launches"].values()) == k
+                       and sum(r["decode_launches"].values()) == 0
+                       for k, r in zip(n_flash, recs)):
+                failed.append(f"{arch} {kind} launches "
+                              f"{[r['launches'] for r in recs]} "
+                              f"{[r['decode_launches'] for r in recs]}")
+            if kind == "bf16":
+                flash += sum(n_flash)
+            steps_ms = recs[0]["step_ms"][1:]
+            say("shard_serve", arch=arch, kind=kind, layers=cfg.num_layers,
+                batch=SHARD_SERVE_BATCH, prompt=ref["prompt"],
+                decode_steps=ref["steps"],
+                prefill_ms=f"{max(r['prefill_ms'] for r in recs):.2f}",
+                one_device_prefill_ms=f"{ref['prefill_ms']:.2f}",
+                exchange_ms=f"{max(r['exchange_ms'] for r in recs):.2f}",
+                decode_p50_ms=f"{statistics.median(steps_ms):.3f}",
+                decode_p99_ms=f"{np.percentile(steps_ms, 99):.3f}",
+                one_device_decode_p50_ms=(
+                    f"{statistics.median(ref['step_ms'][1:]):.3f}"),
+                peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}"
+                                          for r in recs),
+                cache_gb_per_rank=f"{recs[0]['held'] / 1e9:.4f}",
+                plan_gb_per_rank=f"{recs[0]['plan'] / 1e9:.4f}",
+                collectives_per_step=statistics.median(recs[0]["calls"]),
+                bytes_per_step=statistics.median(recs[0]["moved"]),
+                flash_launches_per_rank=",".join(map(str, n_flash)),
+                state_max_abs_gap=f"{gap:.3e}",
+                state_excess_over_bar=f"{excess:.4f}",
+                init_s=f"{max(r['init_s'] for r in recs):.2f}",
+                run_s=f"{max(r['run_s'] for r in recs):.2f}", **line)
+        say("shard_serve", arch=arch, one_device_seconds=",".join(
+            f"{k}:{v:.2f}" for k, v in refs[arch]["seconds"].items()))
+    records["flash_attention"]["launches"] += flash
+    seconds = time.perf_counter() - t0
+    say("shard_serve", seconds=f"{seconds:.2f}",
+        one_device_seconds=f"{ref_s:.2f}", budget_s=SHARD_SERVE_BUDGET_S,
+        flash_launches=flash)
+    check(not failed, "[shard_serve] " + "; ".join(failed))
+    check(seconds <= SHARD_SERVE_BUDGET_S,
+          f"[shard_serve] {seconds:.1f} s over its {SHARD_SERVE_BUDGET_S} s "
+          "budget")
+
+
 def serve_mode_minima(n: int, count: int, modes, seed: int):
     """Each request's smallest excited mode: the host draws of
     ``serve.load.synthetic_requests`` replayed (mode count, mode indices,
@@ -4631,6 +5153,7 @@ def main() -> int:
     phase_serve_families(records)
     phase_train(records)
     phase_shard(records)
+    phase_shard_serve(records)
     phase_solve_serve(records)
     phase_campaign(records)
     phase_model()

@@ -9,7 +9,9 @@ a reference ``init_params`` tree (``jax.tree.map(np.asarray, params)``; any
 tree shaped like it, gradients too), ``train_state_from_numpy`` a
 reference train state (``sharded_params_from_numpy`` /
 ``sharded_train_state_from_numpy``: this rank's blocks of them on a
-mesh), and ``model_from_fields(name,
+mesh), ``decode_state_from_numpy`` a reference decode state
+(``sharded_decode_state_from_numpy``: this rank's blocks), and
+``model_from_fields(name,
 dataclasses.asdict(obj))`` the port's ``Hardware``, ``SolverPhaseModel``
 or ``RunModel`` of a reference one.
 """
@@ -23,7 +25,7 @@ import torch
 from repro_torch.core.krylov.operator import BsrMatrix
 from repro_torch.core.krylov.operators import DiaMatrix
 from repro_torch.core.krylov.options import PrecisionPolicy
-from repro_torch.configs.base import RECURRENT, RWKV
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, RECURRENT, RWKV
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Linear, RMSNorm
 from repro_torch.models.moe import MoE
@@ -220,3 +222,32 @@ def sharded_train_state_from_numpy(cfg, state, mesh, device="cuda") -> dict:
     from repro_torch.distributed import sharding
     return sharding.shard_state(train_state_from_numpy(cfg, state, device),
                                 cfg, mesh)
+
+
+def decode_state_from_numpy(cfg, state, device="cuda") -> dict:
+    """The port's decode state (``{"layers": [...], "pos": int}``) over
+    copies of a reference decode state (``init_decode_state`` or
+    ``prefill``'s, ``{"scan", "rem", "pos"}``) whose leaves are numpy
+    arrays: an ``AttnState``, ``RGLRUState`` or ``RWKVState`` a layer."""
+    from repro_torch.models.attention import AttnState
+    from repro_torch.models.recurrent import RGLRUState, RWKVState
+    kinds = {ATTN: AttnState, ATTN_LOCAL: AttnState, RECURRENT: RGLRUState,
+             RWKV: RWKVState}
+    layers = [kinds[kind](*(_tensor(a, device) for a in st))
+              for kind, st in zip(cfg.layer_kinds(),
+                                  layers_in_order(cfg, state))]
+    return {"layers": layers, "pos": int(np.asarray(state["pos"]))}
+
+
+def sharded_decode_state_from_numpy(cfg, state, mesh, device="cuda") -> dict:
+    """:func:`decode_state_from_numpy`'s state as this rank's blocks on
+    ``mesh`` (STATE_RULES: rows of the "2d" batch split, the model
+    dimension over ``model``; the mesh needs coordinates, not groups)."""
+    from repro_torch.distributed import comm, sharding
+    whole = decode_state_from_numpy(cfg, state, device)
+    B = whole["layers"][0][0].shape[0]
+    axes = sharding.fit_batch_axes(mesh, B)
+    layers = [sharding.model_blocks(type(st)(*(
+        comm.own_block(t, 0, mesh, axes) for t in st)), mesh)
+        for st in whole["layers"]]
+    return {"layers": layers, "pos": whole["pos"]}

@@ -13,7 +13,9 @@ its own buffer, and reads the others' buffers with device copies.
 
 Protocol, per collective on a group: write this rank's tensor into its
 buffer ``k % 2`` (k counts the group's collectives), synchronise the
-stream, a gloo barrier of the group, then read every rank's buffer
+stream, a barrier of the group (through the shared-memory wire of
+:mod:`distributed.shm` where it carries the group, else gloo's), then
+read every rank's buffer
 ``k % 2`` in group-rank order (a gather concatenates, a sum adds in that
 order, so every rank gets the same bits).  Two buffers a rank: the
 reads of collective k are enqueued before this rank's next barrier
@@ -38,6 +40,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 import torch.multiprocessing  # noqa: F401  (its reductions on the pickler)
+
+from repro_torch.distributed import shm
 
 #: buffers are whole multiples of this many bytes
 MIN_BYTES = 1 << 20
@@ -95,9 +99,23 @@ class _GroupBuffers:
         self.calls += 1
         self.mine[k][:nbytes].copy_(t.reshape(-1).view(torch.uint8))
         self._sync()
-        dist.barrier(group=self.group)
+        self._barrier()
         return [p[k][:nbytes].view(t.dtype).view(t.shape)
                 for p in self.peers]
+
+    def _barrier(self) -> None:
+        """Every rank of the group has written its buffer: a sum of one
+        value through the shared-memory wire where it carries the group
+        (the whole group of spawned ranks: tens of microseconds where a
+        gloo barrier over sockets takes about a millisecond), else a
+        gloo barrier."""
+        wire = shm.current()
+        if wire is not None and (self.group is None
+                                 or self.group is dist.group.WORLD):
+            one = torch.zeros(1)
+            wire.result(wire.post(one), one)
+        else:
+            dist.barrier(group=self.group)
 
 
 class CardWire:

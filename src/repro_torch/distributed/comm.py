@@ -234,8 +234,10 @@ def all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in group-rank order
     (through the card's IPC buffers where ``card_wire`` carries it).
 
-    ``all_gather.bytes`` counts the bytes this rank received.
+    ``all_gather.bytes`` counts the bytes this rank received,
+    ``all_gather.calls`` the calls.
     """
+    all_gather.calls += 1
     all_gather.bytes += (size - 1) * x.numel() * x.element_size()
     moved = x.movedim(dim, 0)
     wire = card_wire.for_tensor(x, group)
@@ -252,6 +254,7 @@ def all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
 
 
 all_gather.bytes = 0
+all_gather.calls = 0
 
 
 def own_block(t: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
@@ -273,6 +276,7 @@ def _sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     wire = card_wire.for_tensor(t, group)
     if wire is None:
         return all_reduce(t, group)
+    all_reduce.calls += 1
     all_reduce.bytes += t.numel() * t.element_size()
     return wire.all_reduce(t, group)
 
@@ -343,6 +347,31 @@ class _CopyOver(Function):
     @staticmethod
     def backward(ctx, g):
         return _sum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _OwnPart(Function):
+    """Forward: this rank's block along ``dim`` of a tensor that every
+    rank of ``axes`` holds whole.  Backward: every rank's block gradient
+    gathered (each rank used its own block of the same tensor)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return own_block(t, dim, mesh, axes).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.count(ctx.axes)
+        if n > 1:
+            g = all_gather(g.contiguous(), ctx.dim, ctx.mesh.group(ctx.axes),
+                           n)
+        return g, None, None, None
+
+
+def own_part(t: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``t`` (whole on every rank of ``axes``) along
+    ``dim``; the backward gathers the blocks' gradients."""
+    return _OwnPart.apply(t, dim, mesh, tuple(axes))
 
 
 def sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:

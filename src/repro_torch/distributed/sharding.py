@@ -31,9 +31,11 @@ Placement (what GSPMD does for the reference, done by hand):
     ``comm.batch_mean``.
   - :func:`shard_state` gives AdamW's moments their parameter's blocks;
     AdamW is elementwise, so it runs on the blocks in place.
-Tensor-parallel attention and logits (the reference's ``MeshHints.heads``
-/ ``kv_heads`` / ``logits``) come with the model-axis state layouts,
-ROADMAP.md queue 1 item 8.
+  - Under "2d" the ranks of a ``model`` line split heads, the FFN's and
+    the RG-LRU's width and the vocabulary (:class:`MeshHints`); a decode
+    state is
+    stored as STATE_RULES' blocks (:func:`init_decode_state`,
+    :func:`decode_state`).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from repro_torch.distributed import comm
-from repro_torch.models.transformer import Hints
+from repro_torch.models.layers import Hints
 
 
 class P(tuple):
@@ -499,25 +501,44 @@ def shard_batch(batch: Mapping[str, torch.Tensor], mesh, axes) -> dict:
     return {k: comm.own_block(v, 0, mesh, axes) for k, v in batch.items()}
 
 
+MODEL = ("model",)
+
+
 class MeshHints(Hints):
     """The hints of a model sharded on ``mesh``: its ``mesh`` routes the
     MoE (``moe_impl="ep"`` takes ``models.moe_ep``), :meth:`bind` sets the
     batch split of a step, and the activations are this rank's rows.
-    ``logits``, ``heads`` and ``kv_heads`` are the base class's and leave
-    their input as it is: vocab-, head- and sequence-parallel compute come
-    with the model-axis layouts (ROADMAP.md queue 1 item 8)."""
+
+    Under "2d" the ranks of a ``model`` line split the compute (``tp``
+    ranks, the reference's ``MeshHints.heads`` / ``kv_heads`` / ``logits``
+    and the FFN's specs): query heads when H divides (KV heads too when KV
+    divides, else k and v whole), else the rows of q (sequence-parallel
+    attention); the FFN's and the RG-LRU's hidden width; the vocabulary
+    of the embedding and the logits.  Each rank reads
+    its block of a weight split over ``model`` (:meth:`block`: nothing
+    gathered over ``model``), ``copy_in`` / ``sum_out`` enter and leave
+    a split region (``comm.copy_over`` / ``comm.sum_over``), and
+    :meth:`logits` gathers the vocabulary.  Under "fsdp" nothing is
+    split but the batch.  A decode state is stored as STATE_RULES' blocks
+    under either strategy: its model dimension (the KV cache's sequence,
+    the recurrent states' width) over ``model``."""
 
     def __init__(self, mesh, strategy: str = "2d"):
         self.mesh = mesh
         self.strategy = strategy
         self.batch_axes: tuple = ()
         self.rows: Optional[int] = None
+        m = mesh.shape.get("model", 1)
+        self.state_split = m
+        self.model_index = mesh.index(MODEL) if m > 1 else 0
+        self.tp = m if strategy == "2d" else 1
 
-    def bind(self, batch_size: int) -> tuple:
+    def bind(self, batch_size: int, strategy: Optional[str] = None) -> tuple:
         """Split a global batch of ``batch_size`` rows
-        (:func:`fit_batch_axes`); returns the batch axes."""
+        (:func:`fit_batch_axes` under ``strategy``, default the
+        model's); returns the batch axes."""
         self.batch_axes = fit_batch_axes(self.mesh, batch_size,
-                                         self.strategy)
+                                         strategy or self.strategy)
         self.rows = batch_size // self.mesh.count(self.batch_axes)
         return self.batch_axes
 
@@ -528,6 +549,73 @@ class MeshHints(Hints):
                              f"rank holds {self.rows} ({self.batch_axes})")
         return x
 
+    def heads(self, H: int, S: int) -> Optional[str]:
+        """How the ranks of a model line split attention over (B, S, H, D):
+        "heads" when H divides, else "seq" (q's rows) when S divides,
+        else None (every rank computes all of it)."""
+        if self.tp == 1:
+            return None
+        if H % self.tp == 0:
+            return "heads"
+        return "seq" if S % self.tp == 0 else None
+
+    def kv_heads(self, KV: int) -> bool:
+        """True when k and v split by head as q does (KV divides)."""
+        return self.tp > 1 and KV % self.tp == 0
+
+    def block(self, owner, attr: str, dim: int):
+        """``owner.attr`` with ``dim`` as this rank's block over ``model``:
+        gathered over the other axes only where the spec puts ``dim`` on
+        ``model``; else the whole tensor (its gradient summed over
+        ``model``) cut."""
+        if self.tp == 1:
+            return getattr(owner, attr)
+        pl = placed(owner, attr)
+        if pl is not None and dict(split_dims(pl.spec)).get(dim) == MODEL:
+            return pl.gather(stored_tensor(owner, attr), keep=MODEL)
+        return comm.own_block(self.copy_in(getattr(owner, attr)), dim,
+                              self.mesh, MODEL)
+
+    def copy_in(self, t):
+        return comm.copy_over(t, self.mesh, MODEL) if self.tp > 1 else t
+
+    def sum_out(self, t):
+        return comm.sum_over(t, self.mesh, MODEL) if self.tp > 1 else t
+
+    def logits(self, x):
+        """The whole last dimension from this rank's block of it (the
+        vocabulary's columns); the backward keeps the block's gradient."""
+        if self.tp == 1:
+            return x
+        return comm.gather_blocks(x.contiguous(), self.mesh,
+                                  ((x.dim() - 1, MODEL),), ())
+
+    def own_cols(self, x):
+        return comm.own_part(x, x.dim() - 1, self.mesh, MODEL) \
+            if self.tp > 1 else x
+
+    def whole_seq(self, x):
+        """Dim 1 gathered from every rank's block of it."""
+        return comm.gather_blocks(x.contiguous(), self.mesh, ((1, MODEL),),
+                                  ())
+
+    def model_gather(self, x, dim: int):
+        """Every model rank's ``x`` along ``dim`` (no gradient)."""
+        if self.state_split == 1:
+            return x
+        return comm.all_gather(x.contiguous(), dim, self.mesh.group(MODEL),
+                               self.state_split)
+
+    def whole_state(self, st):
+        """A recurrent layer's state with its model dimension gathered."""
+        return type(st)(*(
+            t if d is None else self.model_gather(t, d)
+            for t, d in zip(st, state_model_dims(st))))
+
+    def state_block(self, st):
+        """A recurrent layer's whole state as this rank's blocks."""
+        return model_blocks(st, self.mesh)
+
     def batch_mean(self, value, weight):
         return comm.batch_mean(value, weight, self.mesh, self.batch_axes)
 
@@ -537,6 +625,93 @@ class MeshHints(Hints):
 
     def own_rows(self, x):
         return comm.own_block(x, 0, self.mesh, self.batch_axes)
+
+
+# ---------------------------------------------------------------------------
+# Decode states as this rank's blocks (STATE_RULES)
+# ---------------------------------------------------------------------------
+
+def state_model_dims(st) -> tuple:
+    """The dimension STATE_RULES puts on ``model`` for each field of a
+    layer's state (None: not split)."""
+    out = []
+    for f in st._fields:
+        rule = _match(STATE_RULES, "/" + f)
+        spec = tuple(rule(None)) if rule is not None else ()
+        out.append(spec.index("model") if "model" in spec else None)
+    return tuple(out)
+
+
+def model_blocks(st, mesh):
+    """This rank's blocks over ``model`` of a layer's state whose rows are
+    already this rank's (fresh contiguous tensors)."""
+    def cut(t, d):
+        if d is None or mesh.shape.get("model", 1) == 1:
+            return t
+        return comm.own_block(t, d, mesh, MODEL).clone(
+            memory_format=torch.contiguous_format)
+    return type(st)(*(cut(t, d) for t, d in zip(st, state_model_dims(st))))
+
+
+def init_decode_state(cfg, mesh, batch: int, cache_len: int, device="cuda"):
+    """``init_decode_state``'s zero state as this rank's blocks
+    (STATE_RULES: the rows of the "2d" batch split, the model dimension
+    over ``model``); only the blocks are allocated."""
+    from repro_torch.models.transformer import init_decode_state as whole
+    rows = batch // mesh.count(fit_batch_axes(mesh, batch))
+    m = mesh.shape.get("model", 1)
+    layers = []
+    for st in whole(cfg, rows, cache_len, device=torch.device("meta"))[
+            "layers"]:
+        parts = []
+        for t, d in zip(st, state_model_dims(st)):
+            shape = list(t.shape)
+            if d is not None:
+                if shape[d] % m:
+                    raise ValueError(f"{tuple(t.shape)}: dim {d} does not "
+                                     f"split over model={m}")
+                shape[d] //= m
+            parts.append(torch.zeros(shape, dtype=t.dtype, device=device))
+        layers.append(type(st)(*parts))
+    return {"layers": layers, "pos": 0}
+
+
+def decode_state(cfg, state, mesh, batch: int, cache_len: int):
+    """This rank's blocks of the decode state that goes on from a sharded
+    prefill's ``state`` (of a global batch of ``batch`` rows), with KV
+    caches of ``cache_len`` positions (``attention.decode_cache``: a ring
+    of ``window`` slots for a local layer when the cache reaches it).
+    Where the prefill split k and v by head, the heads are gathered over
+    ``model`` before each rank keeps its block of the sequence; where it
+    split the batch over ``model`` ("fsdp"), the rows are gathered to
+    STATE_RULES' rows."""
+    from repro_torch.configs.base import ATTN_LOCAL
+    from repro_torch.models.attention import AttnState, decode_cache
+    act = fit_batch_axes(mesh, batch, cfg.sharding)
+    extra = tuple(a for a in act if a not in fit_batch_axes(mesh, batch))
+    pos = state["pos"]
+
+    def rows(t):
+        if mesh.count(extra) == 1:
+            return t
+        return comm.all_gather(t.contiguous(), 0, mesh.group(extra),
+                               mesh.count(extra))
+
+    layers = []
+    for kind, st in zip(cfg.layer_kinds(), state["layers"]):
+        st = type(st)(*(rows(t) for t in st))
+        if isinstance(st, AttnState):
+            window = cfg.window if kind == ATTN_LOCAL else 0
+
+            def whole(t):
+                if t.shape[2] < cfg.num_kv_heads:      # split by KV head
+                    t = comm.all_gather(t.contiguous(), 2,
+                                        mesh.group(MODEL),
+                                        mesh.shape["model"])
+                return decode_cache(t, pos, cache_len, window)
+            st = AttnState(k=whole(st.k), v=whole(st.v))
+        layers.append(model_blocks(st, mesh))
+    return {"layers": layers, "pos": pos}
 
 
 def share_bytes(model: nn.Module, *trees) -> int:

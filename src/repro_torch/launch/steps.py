@@ -9,8 +9,6 @@ on this rank's rows of it.
 
 Abstract trees are meta-device tensors (no storage: the full-scale configs
 are never allocated), paired with their specs by :func:`shard_tree`.
-Decode under a mesh and the dry run need the model-axis state layouts
-and come with ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -19,7 +17,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.distributed import sharding
+from repro_torch.distributed import comm, sharding
 from repro_torch.models.transformer import (decode_step, init_decode_state,
                                             init_params, loss_fn, prefill)
 from repro_torch.optim import adamw, clipping, schedules
@@ -116,16 +114,17 @@ def shard_tree(abstract_tree, spec_tree, mesh=None):
 # Steps
 # ---------------------------------------------------------------------------
 
-def _hints_for(model, cfg: ModelConfig, mesh, batch):
-    """MeshHints bound to ``batch``'s rows, the model's gathers told the
-    batch axes, and this rank's rows of the batch."""
+def _hints_for(model, cfg: ModelConfig, mesh, batch, strategy=None):
+    """MeshHints bound to ``batch``'s rows (split as ``strategy`` says,
+    default ``cfg.sharding``), the model's gathers told the batch axes,
+    and this rank's rows of the batch."""
     if model.shard_plan.strategy != cfg.sharding:
         raise ValueError(
             f"the parameters are placed for {model.shard_plan.strategy!r} "
             f"and the step splits the batch for {cfg.sharding!r}: place "
             "them with the config the step is made from")
     hints = sharding.MeshHints(mesh, cfg.sharding)
-    axes = hints.bind(batch["tokens"].shape[0])
+    axes = hints.bind(batch["tokens"].shape[0], strategy)
     model.shard_plan.batch_axes = axes
     return hints, sharding.shard_batch(batch, mesh, axes)
 
@@ -204,7 +203,10 @@ def apply_gradients(state, grads: Dict[str, torch.Tensor], tcfg: TrainConfig,
 
 def make_prefill_step(cfg: ModelConfig, mesh=None):
     """``prefill_step(params, batch) -> (logits, state)``; with a ``mesh``
-    the logits and state are this rank's rows of the batch's."""
+    the logits and state are this rank's rows of the batch's (the KV
+    caches this rank's KV heads where the heads split over ``model``):
+    ``sharding.decode_state`` turns the state into the decode state's
+    blocks."""
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -217,15 +219,35 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode under a mesh needs the model-axis state layouts "
-            "(STATE_RULES) and tensor-parallel heads: ROADMAP.md queue 1 "
-            "item 8")
+    """``serve_step(params, state, token) -> (state, logits)``.
+
+    With a ``mesh``: ``state`` is this rank's blocks of the decode state
+    (STATE_RULES: ``sharding.init_decode_state``, or
+    ``sharding.decode_state`` after a sharded prefill), ``token`` the
+    global batch's (B[, ncb]).  The step computes on STATE_RULES' rows
+    (the "2d" batch split, under either strategy: "fsdp" splits no
+    compute, so a model line decodes its data shard's rows together) and
+    returns this rank's rows of the logits, as ``make_prefill_step``
+    does."""
 
     @torch.inference_mode()
     def serve_step(params, state, token):
-        return decode_step(params, cfg, state, token)
+        if mesh is None:
+            return decode_step(params, cfg, state, token)
+        B = token.shape[0]
+        hints, batch = _hints_for(params, cfg, mesh, {"tokens": token}, "2d")
+        state, logits = decode_step(params, cfg, state, batch["tokens"],
+                                    hints=hints)
+        extra = tuple(a for a in sharding.fit_batch_axes(mesh, B,
+                                                         cfg.sharding)
+                      if a not in hints.batch_axes)
+
+        def own(t):
+            return comm.own_block(t, 0, mesh, extra) if extra else t
+
+        if isinstance(logits, tuple):
+            return state, tuple(own(t) for t in logits)
+        return state, own(logits)
 
     return serve_step
 

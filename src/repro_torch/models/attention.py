@@ -22,8 +22,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.models.layers import (Linear, RMSNorm, init_linear,
-                                       init_rmsnorm, linear, rms_norm, rope)
+from repro_torch.models.layers import (Hints, Linear, RMSNorm, init_linear,
+                                       init_rmsnorm, linear, linear_part,
+                                       rms_norm, rope)
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 8192   # above this, use the chunked (flash) path
@@ -64,13 +65,22 @@ def _qkv(p: Attention, cfg, x, positions, dtype):
     q = linear(p.wq, x, dtype).reshape(B, S, H, D)
     k = linear(p.wk, x, dtype).reshape(B, S, KV, D)
     v = linear(p.wv, x, dtype).reshape(B, S, KV, D)
-    if cfg.qk_norm:
-        q = rms_norm(p.qnorm, q, cfg.norm_eps)
-        k = rms_norm(p.knorm, k, cfg.norm_eps)
-    if cfg.use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+    q, k = _norm_rope(p, cfg, q, k, positions, positions)
     return q, k, v
+
+
+def _norm_rope(p: Attention, cfg, q, k, qpos, kpos, read=None):
+    """q and k after the per-head norms and rope.  ``read`` maps a norm's
+    scale as this rank reads it (``hints.copy_in`` where the heads are
+    split, so that its gradient is summed over the model line)."""
+    if cfg.qk_norm:
+        read = read or (lambda t: t)
+        q = rms_norm(p.qnorm, q, cfg.norm_eps, read(p.qnorm.scale))
+        k = rms_norm(p.knorm, k, cfg.norm_eps, read(p.knorm.scale))
+    if cfg.use_rope:
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, kpos, cfg.rope_theta)
+    return q, k
 
 
 def _mask(qpos, kpos, window):
@@ -207,49 +217,69 @@ def init_attn_state(cfg, batch, cache_len, dtype, device="cuda") -> AttnState:
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def attention_block(p: Attention, cfg, x, positions, dtype, *, mode="train",
-                    state: Optional[AttnState] = None, pos=None, window=0,
-                    hints=None):
-    """Run one attention layer.
+def decode_cache(t, pos: int, cache_len: int, window: int = 0):
+    """A decode cache (B, S_c, KV, D) holding a prefill's k or v (B, pos,
+    KV, D): a local layer whose ``window`` the cache reaches gets a ring
+    of ``window`` slots (``init_decode_state``'s layout: position p in
+    slot p % window, the last ``window`` positions kept), any other layer
+    ``cache_len`` slots, zero past ``pos``."""
+    B, S, KV, D = t.shape
+    ring = bool(window) and cache_len >= window
+    size = window if ring else cache_len
+    out = t.new_zeros((B, size, KV, D))
+    keep = torch.arange(max(0, S - size), S, device=t.device)
+    out[:, keep % size if ring else keep] = t[:, keep]
+    return out
 
-    mode:
-      train   -> full self attention over x; returns (out, None)
-      prefill -> same, but also returns the cache (k, v)
-      decode  -> x is (B, 1, d); writes k, v into the cache at ``pos`` (a
-                 Python int) IN PLACE, where the reference returns an
-                 updated copy: a full-size cache is not copied per token
-    """
-    B = x.shape[0]
+
+def _split_heads(p: Attention, cfg, x, positions, dtype, split, hints):
+    """q, k, v as this rank of a model line computes them under a split
+    of the heads ("heads") or of q's rows ("seq"), the positions of q's
+    rows, and the prefill's cache: this rank's KV heads where they split,
+    else all of them.  ``x`` enters through ``hints.copy_in``: every
+    rank's part of its gradient is summed."""
+    B, S, _ = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if mode in ("train", "prefill"):
-        q, k, v = _qkv(p, cfg, x, positions, dtype)
-        if cfg.shard_attn_heads and hints is not None:
-            q, k, v = hints.heads(q), hints.kv_heads(k), hints.kv_heads(v)
-        out = attend(q, k, v, positions, positions, window=window,
-                     softcap=cfg.attn_logit_softcap,
-                     dense_max=cfg.dense_attn_max_seq,
-                     sdtype=getattr(torch, cfg.scores_dtype),
-                     use_kernel=cfg.attn_kernel)
-        if cfg.shard_attn_heads and hints is not None:
-            out = hints.heads(out)
-        new_state = AttnState(k=k, v=v) if mode == "prefill" else None
-        out = linear(p.wo, out.reshape(B, -1, H * D), dtype)
-        return out, new_state
+    x = hints.copy_in(x)
+    qpos, sel = positions, None
+    if split == "seq":
+        # every head on q's own rows, k and v whole: each rank uses the
+        # whole weights for a part of the rows
+        q = linear_part(p.wq, x, dtype, hints, "shared").reshape(B, S, H, D)
+        n = S // hints.tp
+        lo = hints.model_index * n
+        q, qpos = q[:, lo:lo + n], positions[lo:lo + n]
+        kv_split = "shared"
+    else:
+        Hl = H // hints.tp
+        q = linear_part(p.wq, x, dtype, hints, "cols").reshape(B, S, Hl, D)
+        kv_split = "cols" if hints.kv_heads(KV) else "shared"
+        if kv_split == "shared":
+            # k and v whole; this rank's q heads read these KV heads
+            G, h0 = H // KV, hints.model_index * Hl
+            if Hl % G and G % Hl:
+                raise ValueError(f"{Hl} heads a rank do not group over "
+                                 f"{KV} KV heads")
+            sel = torch.arange(h0 // G, h0 // G + max(1, Hl // G),
+                               device=x.device)
+    k, v = (linear_part(w, x, dtype, hints, kv_split).reshape(B, S, -1, D)
+            for w in (p.wk, p.wv))
+    q, k = _norm_rope(p, cfg, q, k, qpos, positions, hints.copy_in)
+    cache = AttnState(k=k, v=v)
+    if sel is not None:
+        k, v = k[:, :, sel], v[:, :, sel]
+    return q, k, v, qpos, cache
 
-    if state is None or pos is None:
-        raise ValueError("decode needs the layer's state and pos")
-    q, k, v = _qkv(p, cfg, x, positions, dtype)  # S == 1
-    S_cache = state.k.shape[1]
-    rolling = bool(window) and S_cache == window  # ring buffer (local attn)
-    slot = pos % S_cache if rolling else pos
-    state.k[:, slot] = k[:, 0]
-    state.v[:, slot] = v[:, 0]
-    kpos = torch.arange(S_cache, device=x.device)
-    G = H // KV
-    qg = q.reshape(B, KV, G, 1, D)
-    # bf16 operands widened: the scores accumulate and stay in fp32, the
-    # reference's preferred_element_type=float32
-    s = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), state.k.float())
+
+def _decode_scores(q, k, cfg, kpos, pos: int, window: int, rolling: bool):
+    """The decode query q (B, 1, H, D) against cache keys k (B, S, KV, D)
+    at global positions ``kpos``: fp32 scores (B, KV, G, 1, S), the
+    reference's preferred_element_type=float32, softcapped, NEG_INF where
+    a slot holds no position the query sees, and that validity mask."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, 1, D)
+    s = torch.einsum("bkgqd,bskd->bkgqs", qg.float(), k.float())
     s = s * (1.0 / math.sqrt(D))
     if cfg.attn_logit_softcap:
         s = torch.tanh(s / cfg.attn_logit_softcap) * cfg.attn_logit_softcap
@@ -258,8 +288,111 @@ def attention_block(p: Attention, cfg, x, positions, dtype, *, mode="train",
     valid = kpos <= pos
     if window and not rolling:
         valid = valid & (kpos > pos - window)
-    s = torch.where(valid[None, None, None, None], s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, state.v).reshape(B, 1, H * D)
-    out = linear(p.wo, out, dtype)
+    valid = valid[None, None, None, None]
+    return torch.where(valid, s, NEG_INF), valid
+
+
+def _decode_combine(s, valid, v, dtype, hints):
+    """Decode attention over a cache whose sequence this rank holds a
+    block of (STATE_RULES), from this block's scores ``s`` and values
+    ``v``: its max, sum and weighted values in fp32, one gather of them
+    over ``model``, and the softmax over the whole cache combined from
+    them in rank order.  (B, 1, H * D)."""
+    B, KV, G = s.shape[:3]
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    part = torch.cat([m, e.sum(-1, keepdim=True), torch.einsum(
+        "bkgqs,bskd->bkgqd", e, v.float())], dim=-1)
+    parts = hints.model_gather(part[None], 0)     # (splits, B, KV, G, 1, .)
+    top = parts[..., :1].amax(dim=0)
+    scale = torch.exp(parts[..., :1] - top)
+    total = (parts[..., 1:] * scale).sum(dim=0)
+    out = total[..., 1:] / total[..., :1]
+    return out.to(dtype).permute(0, 3, 1, 2, 4).reshape(B, 1, -1)
+
+
+def attention_block(p: Attention, cfg, x, positions, dtype, *, mode="train",
+                    state: Optional[AttnState] = None, pos=None, window=0,
+                    hints=None):
+    """Run one attention layer.
+
+    mode:
+      train   -> full self attention over x; returns (out, None)
+      prefill -> same, but also returns the cache (k, v): this rank's KV
+                 heads where they are split
+      decode  -> x is (B, 1, d); writes k, v into the cache at ``pos`` (a
+                 Python int) IN PLACE, where the reference returns an
+                 updated copy: a full-size cache is not copied per token.
+                 Where the cache's sequence is split over ``model``, the
+                 rank that owns the slot writes it.
+
+    With ``cfg.shard_attn_heads`` and tensor-parallel ``hints`` (the
+    reference's ``hints.heads`` / ``kv_heads``), train and prefill split
+    the heads, or q's rows when H does not divide; ``wo`` takes this
+    rank's rows and one sum over the model line joins them.  Decode
+    computes q, k and v from the weights' column blocks (gathered as
+    activations) and its ``wo`` rows the same way.
+    """
+    hints = hints if hints is not None else Hints()
+    B = x.shape[0]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if mode in ("train", "prefill"):
+        split = (hints.heads(H, x.shape[1]) if cfg.shard_attn_heads
+                 else None)
+        kw = dict(window=window, softcap=cfg.attn_logit_softcap,
+                  dense_max=cfg.dense_attn_max_seq,
+                  sdtype=getattr(torch, cfg.scores_dtype),
+                  use_kernel=cfg.attn_kernel)
+        new_state = None
+        if split is None:
+            q, k, v = _qkv(p, cfg, x, positions, dtype)
+            out = attend(q, k, v, positions, positions, **kw)
+            out = linear(p.wo, out.reshape(B, -1, H * D), dtype)
+        else:
+            q, k, v, qpos, kept = _split_heads(p, cfg, x, positions, dtype,
+                                               split, hints)
+            out = attend(q, k, v, qpos, positions, **kw)
+            out = out.reshape(B, q.shape[1], -1)
+            if split == "seq":
+                out = hints.whole_seq(linear_part(p.wo, out, dtype, hints,
+                                                  "shared"))
+            else:
+                out = linear_part(p.wo, out, dtype, hints, "rows")
+        if mode == "prefill":
+            new_state = AttnState(k=k, v=v) if split is None else kept
+        return out, new_state
+
+    if state is None or pos is None:
+        raise ValueError("decode needs the layer's state and pos")
+    if hints.tp > 1:
+        # this rank's columns of q, k and v, gathered as activations in
+        # one collective
+        cols = [linear_part(w, x, dtype, hints, "cols")
+                for w in (p.wq, p.wk, p.wv)]
+        every = hints.model_gather(torch.cat(cols, -1)[None], 0)
+        q, k, v = (t.movedim(0, -2).reshape(B, 1, n, D) for t, n in zip(
+            every.split([c.shape[-1] for c in cols], -1), (H, KV, KV)))
+        q, k = _norm_rope(p, cfg, q, k, positions, positions)
+    else:
+        q, k, v = _qkv(p, cfg, x, positions, dtype)  # S == 1
+    S_l = state.k.shape[1]
+    S_cache = S_l * hints.state_split
+    rolling = bool(window) and S_cache == window  # ring buffer (local attn)
+    if not rolling and pos >= S_cache:
+        raise ValueError(f"decode at position {pos} past a cache of "
+                         f"{S_cache}")
+    lo = hints.model_index * S_l        # this rank's block of the slots
+    slot = (pos % S_cache if rolling else pos) - lo
+    if 0 <= slot < S_l:
+        state.k[:, slot] = k[:, 0]
+        state.v[:, slot] = v[:, 0]
+    kpos = lo + torch.arange(S_l, device=x.device)
+    s, valid = _decode_scores(q, state.k, cfg, kpos, pos, window, rolling)
+    if hints.state_split > 1:
+        out = _decode_combine(s, valid, state.v, dtype, hints)
+    else:
+        w = torch.softmax(s, dim=-1).to(dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w, state.v).reshape(
+            B, 1, H * D)
+    out = linear_part(p.wo, hints.own_cols(out), dtype, hints, "rows")
     return out, state

@@ -8,6 +8,10 @@ experts (their blocks are gathered over the other axes, never over
 dispatch communication, and one all-reduce over ``model`` merges the
 expert rows.
 
+Under "fsdp" the batch is split over ``model`` too: :func:`moe_ffn_ep`
+gathers a data shard's rows over ``model`` at entry and keeps this
+rank's at exit.
+
 As in the reference, capacity is enforced PER DATA SHARD (``C_local =
 capacity(m, T_local)``, the standard EP approximation) and ``moe_aux`` /
 ``moe_z`` are averaged over the batch axes: with a capacity that drops
@@ -34,34 +38,34 @@ MODEL = ("model",)
 
 def local_experts(p: MoE, name: str, mesh, E_l: int):
     """This rank's ``E_l`` experts of ``p.<name>`` (E, ., .), whole along
-    their other dimensions."""
+    their other dimensions: gathered over the other axes where the
+    experts are split over ``model`` alone (the "2d" rules), else cut from
+    the whole tensor (the "fsdp" rules split another dimension)."""
     pl = placed(p, name)
-    if pl is None:
-        full = getattr(p, name)
-        lo = mesh.index(MODEL) * E_l
-        return full[lo:lo + E_l]
-    if pl.spec[0] not in (MODEL[0], MODEL):
-        raise NotImplementedError(
-            f"moe_ffn_ep: {pl.name} is split as {pl.spec}; the expert "
-            "route needs its experts split over 'model' alone (the \"2d\" "
-            "rules)")
-    return pl.gather(stored_tensor(p, name), keep=MODEL)
+    if pl is not None and pl.spec[0] in (MODEL[0], MODEL):
+        return pl.gather(stored_tensor(p, name), keep=MODEL)
+    lo = mesh.index(MODEL) * E_l
+    return getattr(p, name)[lo:lo + E_l]
 
 
 def moe_ffn_ep(p: MoE, cfg, x: torch.Tensor, dtype, mesh,
                batch_axes=("data",)):
-    """x (B_local, S, d), this rank's rows (replicated over ``model``) ->
-    (B_local, S, d) and the aux dict: ``moe_aux`` and ``moe_z`` (means
-    over ``batch_axes``) and ``moe_dropped``, the assignments of this
-    data shard dropped at capacity."""
-    if "model" in batch_axes:
-        raise NotImplementedError(
-            "moe_ffn_ep with the batch split over 'model' (\"fsdp\"): the "
-            "expert route keeps a data shard's rows on every rank of its "
-            "model line (ROADMAP.md queue 1 item 8)")
+    """x (B_local, S, d), this rank's rows -> (B_local, S, d) and the aux
+    dict: ``moe_aux`` and ``moe_z`` (means over the data shards) and
+    ``moe_dropped``, the assignments of this data shard dropped at
+    capacity.
+
+    With the batch split over ``model`` too ("fsdp": ``model`` among
+    ``batch_axes``), each rank routes its own rows, the routes and rows
+    of its data shard are gathered over ``model`` at entry, and each rank
+    keeps its own rows of the merged output at exit: the reference's
+    ``shard_map`` reshards them so.  The data shard's ``moe_aux`` /
+    ``moe_z`` then take its routing statistics as the mean of the model
+    ranks' (equal row counts)."""
+    over_model = "model" in batch_axes and mesh.count(MODEL) > 1
+    data_axes = tuple(a for a in batch_axes if a != "model")
     m = cfg.moe
     B_l, S, d = x.shape
-    T = B_l * S
     E, K = m.num_experts, m.top_k
     n_model = mesh.count(MODEL)
     if E % n_model:
@@ -69,9 +73,10 @@ def moe_ffn_ep(p: MoE, cfg, x: torch.Tensor, dtype, mesh,
     E_l = E // n_model
     lo = mesh.index(MODEL) * E_l
     dev = x.device
-    xf = x.reshape(T, d)
+    xf = x.reshape(B_l * S, d)
 
-    # router (fp32), identical on every model rank (x replicated there)
+    # router (fp32) on this rank's rows: under "2d" a model line's ranks
+    # hold the same rows and compute the same routes
     logits = xf.float() @ p.router.w.float()
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.topk(probs, K, dim=-1)
@@ -79,16 +84,28 @@ def moe_ffn_ep(p: MoE, cfg, x: torch.Tensor, dtype, mesh,
 
     me = probs.mean(dim=0)
     ce = F.one_hot(gate_idx, E).float().sum(1).mean(dim=0)
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if over_model:
+        me, ce, z = (comm.sum_over(t, mesh, MODEL) / n_model
+                     for t in (me, ce, z))
     aux_loss = comm.batch_mean(E * torch.sum(me * ce) / K, 1.0, mesh,
-                               batch_axes)
-    z_loss = comm.batch_mean(
-        torch.mean(torch.square(torch.logsumexp(logits, dim=-1))), 1.0,
-        mesh, batch_axes)
+                               data_axes)
+    z_loss = comm.batch_mean(z, 1.0, mesh, data_axes)
+
+    flat_e = gate_idx.reshape(-1)
+    flat_w = gate_w.reshape(-1).to(dtype)
+    if over_model:
+        # the data shard's routes and rows; the backward sums the model
+        # ranks' parts and keeps this rank's rows
+        flat_e = comm.all_gather(flat_e, 0, mesh.group(MODEL), n_model)
+        flat_w, xm = (comm.gather_blocks(t, mesh, ((0, MODEL),), MODEL)
+                      for t in (flat_w, xf))
+    else:
+        flat_w = comm.copy_over(flat_w, mesh, MODEL)
+        xm = comm.copy_over(xf, mesh, MODEL)
+    T = xm.shape[0]
 
     # --- dispatch restricted to MY experts (zero communication) -----------
-    flat_e = gate_idx.reshape(-1)
-    flat_w = comm.copy_over(gate_w.reshape(-1).to(dtype), mesh, MODEL)
-    xm = comm.copy_over(xf, mesh, MODEL)
     local_e = flat_e - lo
     mine = (local_e >= 0) & (local_e < E_l)
     local_e = torch.where(mine, local_e, E_l)            # E_l = drop bucket
@@ -128,6 +145,8 @@ def moe_ffn_ep(p: MoE, cfg, x: torch.Tensor, dtype, mesh,
         out = out + rows[slot_tk[:, k]]
     # merge expert contributions across the model axis (the ONLY collective)
     out = comm.sum_over(out, mesh, MODEL)
+    if over_model:
+        out = comm.own_part(out, 0, mesh, MODEL)
     dropped = comm.sum_over(torch.count_nonzero((sorted_e < E_l) & ~keep),
                             mesh, MODEL)
     return out.reshape(B_l, S, d), {"moe_aux": aux_loss, "moe_z": z_loss,

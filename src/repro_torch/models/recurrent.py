@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import (Linear, _normal, _param, init_linear,
-                                       linear)
+                                       linear, linear_part)
 
 RWKV_CHUNK = 64
 RGLRU_C = 8.0
@@ -118,21 +118,43 @@ def _rglru_scan(u, a, h0):
 
 
 def rglru_block(p: RGLRU, cfg, x, dtype, *, mode="train",
-                state: Optional[RGLRUState] = None):
+                state: Optional[RGLRUState] = None, hints=None):
     """Griffin recurrent block: (in-proj -> conv -> RG-LRU) * gelu-gate ->
-    out.  Returns (out, RGLRUState | None)."""
+    out.  Returns (out, RGLRUState | None).
+
+    With tensor-parallel ``hints`` each rank of a model line runs its
+    block of the width (STATE_RULES' split of ``h`` and ``conv``): its
+    columns of ``in_x`` / ``in_gate`` / ``conv_w`` / Lambda, the gates'
+    rows against its width (summed over the line, then its columns kept)
+    and ``out``'s rows (summed).  A decode state is then this rank's
+    blocks in and out; a prefill's is gathered whole."""
     B, S, _ = x.shape
-    w = cfg.lru_width or cfg.d_model
-    gate = F.gelu(linear(p.in_gate, x, dtype), approximate="tanh")
-    u = linear(p.in_x, x, dtype)
+    tp = hints is not None and hints.tp > 1
+    if tp:
+        x = hints.copy_in(x)
+
+    def cols(lin):
+        return linear_part(lin, x, dtype, hints, "cols") if tp \
+            else linear(lin, x, dtype)
+
+    def gate_of(lin, t):
+        if not tp:
+            return linear(lin, t, dtype)
+        return hints.own_cols(linear_part(lin, t, dtype, hints, "rows"))
+
+    gate = F.gelu(cols(p.in_gate), approximate="tanh")
+    u = cols(p.in_x)
+    w = u.shape[-1]
 
     tail = state.conv if state is not None else None
-    u, new_tail = _causal_conv1d(u, p.conv_w.to(dtype), tail)
+    conv_w = hints.block(p, "conv_w", 1) if tp else p.conv_w
+    u, new_tail = _causal_conv1d(u, conv_w.to(dtype), tail)
 
     uf = u.float()
-    r = torch.sigmoid(linear(p.gate_a, u, dtype).float())
-    i = torch.sigmoid(linear(p.gate_i, u, dtype).float())
-    log_a = -RGLRU_C * F.softplus(p.lam.float()) * r  # <= 0
+    r = torch.sigmoid(gate_of(p.gate_a, u).float())
+    i = torch.sigmoid(gate_of(p.gate_i, u).float())
+    lam = hints.block(p, "lam", 0) if tp else p.lam
+    log_a = -RGLRU_C * F.softplus(lam.float()) * r  # <= 0
     a = torch.exp(log_a)
 
     h0 = (state.h if state is not None
@@ -146,7 +168,13 @@ def rglru_block(p: RGLRU, cfg, x, dtype, *, mode="train",
         hh, h_last = _rglru_scan(i * uf, a, h0)
 
     y = hh.to(dtype) * gate
-    out = linear(p.out, y, dtype)
+    if not tp:
+        out = linear(p.out, y, dtype)
+    else:
+        out = linear_part(p.out, y, dtype, hints, "rows")
+        if mode == "prefill":
+            h_last, new_tail = (hints.model_gather(t, t.dim() - 1)
+                                for t in (h_last, new_tail))
     new_state = RGLRUState(h=h_last, conv=new_tail) if mode != "train" \
         else None
     return out, new_state

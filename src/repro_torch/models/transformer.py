@@ -39,10 +39,11 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RECURRENT, RWKV,
                                       ModelConfig)
 from repro_torch.models.attention import (Attention, attention_block,
                                           init_attention, init_attn_state)
-from repro_torch.models.layers import (MLP, Linear, RMSNorm, _normal,
-                                       _param, cross_entropy, init_linear,
-                                       init_mlp, init_rmsnorm, linear, mlp,
-                                       rms_norm, sinusoidal_positions)
+from repro_torch.models.layers import (MLP, Hints, Linear, RMSNorm,
+                                       _normal, _param, cross_entropy,
+                                       init_linear, init_mlp, init_rmsnorm,
+                                       linear_part, mlp, rms_norm,
+                                       sinusoidal_positions)
 from repro_torch.models.moe import MoE, init_moe, moe_ffn
 from repro_torch.models.recurrent import (RGLRU, RWKV as RWKVParams,
                                           RGLRUState, RWKVState, init_rglru,
@@ -55,43 +56,6 @@ from repro_torch.models.recurrent import (RGLRU, RWKV as RWKVParams,
 AUX_KEYS = ("moe_aux", "moe_z", "moe_dropped")
 MOE_AUX_COEF = 0.01
 MOE_Z_COEF = 1e-3
-
-
-class Hints:
-    """Sharding hints; the default is a no-op (one device).
-
-    Port only: ``batch_axes``, :meth:`batch_mean`, :meth:`all_rows` and
-    :meth:`own_rows`, which a sharded model's ranks need where the
-    reference's GSPMD program sees the whole batch
-    (``distributed/sharding.py::MeshHints``)."""
-
-    mesh = None
-    batch_axes = ()
-
-    def activation(self, x):  # (B, S, d) residual stream
-        return x
-
-    def logits(self, x):
-        return x
-
-    def heads(self, x):  # (B, S, H, D) attention internals
-        return x
-
-    def kv_heads(self, x):  # (B, S, KV, D)
-        return x
-
-    def batch_mean(self, value, weight):
-        """The mean over the whole batch of a 0-d mean over this rank's
-        rows, which hold ``weight`` of the batch's count."""
-        return value
-
-    def all_rows(self, x):
-        """Every rank's rows of ``x`` (dim 0), in batch order."""
-        return x
-
-    def own_rows(self, x):
-        """This rank's rows of a whole-batch ``x``."""
-        return x
 
 
 class Block(nn.Module):
@@ -271,9 +235,9 @@ def _ffn_part(p: Block, cfg: ModelConfig, h, dtype, hints: Hints = Hints()):
             aux = dict(aux, moe_aux=hints.batch_mean(aux["moe_aux"], 1.0),
                        moe_z=hints.batch_mean(aux["moe_z"], 1.0))
         if cfg.moe.dense_residual:
-            out = out + mlp(p.ffn, h, cfg.gated_mlp, dtype)
+            out = out + mlp(p.ffn, h, cfg.gated_mlp, dtype, hints)
         return out, aux
-    return mlp(p.ffn, h, cfg.gated_mlp, dtype), _zero_aux()
+    return mlp(p.ffn, h, cfg.gated_mlp, dtype, hints), _zero_aux()
 
 
 def attn_out(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
@@ -312,14 +276,26 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
         return hints.activation(x + f_out), new_state, aux
 
     if kind == RECURRENT:
-        r_out, new_state = rglru_block(p.rec, cfg, h, dtype, mode=mode,
-                                       state=state)
+        if hints.tp > 1:        # the width split: the state's own blocks
+            r_out, new_state = rglru_block(p.rec, cfg, h, dtype, mode=mode,
+                                           state=state, hints=hints)
+        else:
+            # a decode state stored as blocks, whole at use and this
+            # rank's blocks after (a prefill's state stays whole:
+            # ``sharding.decode_state`` places it)
+            r_out, new_state = rglru_block(
+                p.rec, cfg, h, dtype, mode=mode,
+                state=None if state is None else hints.whole_state(state))
+            if mode == "decode":
+                new_state = hints.state_block(new_state)
         x = x + r_out
         h2 = rms_norm(p.norm2, x, eps)
         f_out, aux = _ffn_part(p, cfg, h2, dtype, hints)
         return hints.activation(x + f_out), new_state, aux
 
     if kind == RWKV:
+        if state is not None:
+            state = hints.whole_state(state)
         tm_out, tm_state = rwkv_time_mix(p.tm, cfg, h, dtype, mode=mode,
                                          state=state)
         x = x + tm_out
@@ -331,6 +307,8 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
         if mode != "train":
             new_state = RWKVState(s=tm_state.s, tm_last=tm_state.tm_last,
                                   cm_last=new_cm_last)
+            if mode == "decode":
+                new_state = hints.state_block(new_state)
         return hints.activation(x + cm_out), new_state, _zero_aux()
 
     raise ValueError(kind)
@@ -340,27 +318,53 @@ def apply_block(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: LM, cfg: ModelConfig, tokens):
+def embed_tokens(params: LM, cfg: ModelConfig, tokens,
+                 hints: Hints = Hints()):
     # gather the rows, then cast: the same bits as the reference's cast of
-    # the whole table followed by the gather; codebooks summed in order
+    # the whole table followed by the gather; codebooks summed in order.
+    # Split over the vocabulary (tensor-parallel hints), each rank looks up
+    # the tokens of its rows of the table and one sum over the model line
+    # joins them (one row and zeros: exact)
     dtype = getattr(torch, cfg.dtype)
+
+    def rows(owner, attr, tok):
+        if hints.tp == 1:
+            return getattr(owner, attr)[tok].to(dtype)
+        table = hints.block(owner, attr, 0)
+        n = table.shape[0]
+        local = tok - hints.model_index * n
+        mine = (local >= 0) & (local < n)
+        got = table[torch.where(mine, local, 0)]
+        return hints.sum_out(torch.where(mine[..., None], got, 0.0)
+                             ).to(dtype)
+
     if cfg.num_codebooks > 1:
-        return sum(params.embed[i][tokens[..., i]].to(dtype)
+        return sum(rows(params.embed, str(i), tokens[..., i])
                    for i in range(cfg.num_codebooks))
-    return params.embed[tokens].to(dtype)
+    return rows(params, "embed", tokens)
 
 
 def unembed(params: LM, cfg: ModelConfig, x, hints: Hints = Hints()):
-    """Logits (B, S, V); a tuple of them, one per codebook."""
+    """Logits (B, S, V); a tuple of them, one per codebook.  With
+    tensor-parallel ``hints`` each rank computes its block of the
+    vocabulary and :meth:`Hints.logits` gathers it."""
     dtype = getattr(torch, cfg.dtype)
+    x = hints.copy_in(x)
+
+    def tied(owner, attr):
+        return hints.logits(x @ hints.block(owner, attr, 0).to(dtype).T)
+
+    def head(h):
+        return hints.logits(linear_part(h, x, dtype, hints, "cols"))
+
     if cfg.num_codebooks > 1:
         if cfg.tie_embeddings:
-            return tuple(hints.logits(x @ e.to(dtype).T)
-                         for e in params.embed)
-        return tuple(hints.logits(linear(h, x, dtype)) for h in params.head)
+            return tuple(tied(params.embed, str(i))
+                         for i in range(cfg.num_codebooks))
+        return tuple(head(h) for h in params.head)
     if cfg.tie_embeddings:
-        return hints.logits(x @ params.embed.to(dtype).T)
-    return hints.logits(linear(params.head, x, dtype))
+        return tied(params, "embed")
+    return head(params.head)
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +406,7 @@ def forward(params: LM, cfg: ModelConfig, batch, *, mode="train",
     (:func:`_train_block`); prefill and a forward without a graph keep no
     checkpoint."""
     dtype = getattr(torch, cfg.dtype)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    x = embed_tokens(params, cfg, batch["tokens"], hints)
     if cfg.frontend is not None:
         x = torch.cat([batch["frontend"].to(dtype), x], dim=1)
     B, S, d = x.shape
@@ -469,7 +473,7 @@ def decode_step(params: LM, cfg: ModelConfig, state, token, *,
     Returns (new_state, logits (B, 1, V), a tuple of them with codebooks)."""
     pos = state["pos"]
     tok = token[:, None] if cfg.num_codebooks == 1 else token[:, None, :]
-    x = embed_tokens(params, cfg, tok)
+    x = embed_tokens(params, cfg, tok, hints)
     B, _, d = x.shape
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     if cfg.num_heads and not cfg.use_rope:

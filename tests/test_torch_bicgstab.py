@@ -19,6 +19,7 @@ the pipelined histories are compared over 20 iterations (15 on the 2-D
 Laplacian, which converges slower; 12 with a residual replacement at the
 10th, whose ``b - A x`` cancels) and the classical ones over 40.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import importlib
 
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ JAX (ROADMAP.md queue 3, H1): the plain versions are held against
 ``engine="naive"``, residual histories to rtol 1e-10 above a 1e-10
 relative floor over at most 80 iterations (H6), ``iters`` exactly.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -27,6 +27,7 @@ the JAX package on the same inputs.
   lookup per device plan built (``pipecg_spmv_fused.device_plan``), none
   per launch; a second identical-shape serve request is pure hits.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import json
 import re

@@ -42,6 +42,7 @@ Held:
   by vector and face equal to the message model (the reference's
   ``ppermute_expected``).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import numpy as np

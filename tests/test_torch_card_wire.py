@@ -11,6 +11,7 @@ on both lines of a (2, 2) mesh, with pieces of 1 KiB (messages of up to
 8 pieces) and of 64 MiB (every message one piece, one of them growing
 the buffers).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import pytest
 
 import torch_sharded_ranks as tsr

@@ -13,6 +13,7 @@ two-level finish (common.cuh's shuffle trees).  The chains must equal the
 plain versions bit for bit, the Gram to 1e-12 of its terms' magnitudes
 (another summation order).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

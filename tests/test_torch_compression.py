@@ -13,6 +13,7 @@ quantization a leaf (counted with a TorchFunctionMode over
 ``torch.round`` and ``torch.amax`` where the reference counts jaxpr
 primitives).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -42,6 +42,7 @@ the gather route at the capacity that drops nothing, every rank stores
 its share of the plan on the card, and a sharded prefill launches the
 flash kernel once per attention layer on every rank.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import pytest
 import torch
 
@@ -1812,3 +1813,37 @@ def test_sharded_prefill_launches_one_flash_per_layer_per_rank(
         d, n = rec["coords"]["data"], rec["rows"]
         assert float(np.abs(rec["logits"] - want[d * n:(d + 1) * n]).max()) \
             <= 1e-3
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_prefill_launches_flash_on_half_the_heads():
+    """qwen3 smoke (head dim 64, H 4, KV 2) with its heads split over 2
+    ranks of the card ("2d", mesh (1, 2)): each rank launches the flash
+    kernel once per attention layer, on its H/2 heads of every row, and
+    its logits are one device's within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    import numpy as np
+    import torch_sharded_ranks as tsr
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    kw = dict(arch="qwen3-1.7b", overrides={
+        "head_dim": 64, "attn_kernel": True, "shard_attn_heads": True})
+    cfg = tsr.config(**kw)
+    tokens = _shard_batch(cfg.vocab_size)["tokens"]
+    out = ranks.run(tsr.sharded_jobs, 2, [dict(
+        kind="prefill", model=2, cfg=kw, batch={"tokens": tokens})], "cuda",
+        device="cuda")
+    dev = torch.device("cuda")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    want, _ = make_prefill_step(cfg)(
+        model, {"tokens": torch.from_numpy(tokens).to(dev)})
+    want = want.float().cpu().numpy()
+    B, S = tokens.shape
+    for (rec,) in out:
+        assert rec["launches"]["flash_attention"] == cfg.num_layers
+        assert sum(rec["launches"].values()) == cfg.num_layers
+        assert rec["flash_shapes"] == [(B * cfg.num_heads // 2, S, 64)] \
+            * cfg.num_layers
+        assert float(np.abs(rec["logits"] - want).max()) <= 1e-3

@@ -20,6 +20,7 @@ factors, which amplify the two LAPACKs' rounding as the basis conditions
 like kappa^l: its histories agree to rtol 1e-5 above 1e-3 of the first
 residual (the Gram-LS floor sits near 1e-6) and ``x`` to 1e-6.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

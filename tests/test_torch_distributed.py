@@ -42,6 +42,7 @@ small operators converge within 15-45 iterations, so their histories are
 held to rtol 1e-10 above 1e-4 of the first residual (H6), where the
 rounding-order tail past it is measured at 1e-10 to 3e-8.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

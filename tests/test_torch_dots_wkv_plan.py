@@ -9,6 +9,7 @@ butterfly and the lanes that store each column; the dots kernel's
 columns a CTA and thread, and its one-launch finish.  Each replay is held
 against the plain torch version on the same numpy inputs.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import re
 
 import numpy as np

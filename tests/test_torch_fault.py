@@ -26,6 +26,7 @@ wall time); a clean bf16 segment loop, whose checksum must not trip
 barrier).  test_elastic.py's assertions hold, and each case's recovery events
 and iteration counts equal the JAX run's, x to 1e-8 relative.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import jax.numpy as jnp

@@ -25,6 +25,7 @@ Inputs are numpy arrays made from a seed and carried to both packages
   its largest entry), with their blocking all-reduces counted: PGMRES
   finishes line 18 with ONE all-reduce, so an iteration holds two.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

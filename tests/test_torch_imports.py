@@ -8,6 +8,7 @@ package, of the port's scripts at the root (``chip_smoke.py``,
 ``torch_train_breakdown.py``) and of its
 examples (``examples/*_torch.py``) finds no import of either.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import ast
 import json
 import os
@@ -154,3 +155,23 @@ def test_kernel_sources_are_in_the_package():
         "common.cuh", "spmv_dia.cu", "pipecg_spmv_fused.cu",
         "pipecg_fused.cu", "fused_dots.cu", "pipebicgstab_fused.cu",
         "ghost_chain.cu", "spmv_bsr.cu", "flash_attn.cu", "wkv.cu"}
+
+
+def test_every_port_test_caps_torch_threads_first():
+    """H23: under pytest-xdist each worker's torch must not open a thread
+    per core.  Every tests/test_torch_*.py imports tests/torch_cores.py
+    before anything else, and this process runs at its share."""
+    import torch
+    import torch_cores
+    tests = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(tests) >= 30
+    for path in tests:
+        imports = [n for n in ast.parse(path.read_text()).body
+                   if isinstance(n, (ast.Import, ast.ImportFrom))
+                   and getattr(n, "module", None) != "__future__"]
+        first = imports[0]
+        assert isinstance(first, ast.Import) and \
+            first.names[0].name == "torch_cores", path.name
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch_cores.THREADS == max(1, (os.cpu_count() or 1) // workers)
+    assert torch.get_num_threads() <= torch_cores.THREADS

@@ -13,6 +13,7 @@ terms' magnitudes; its rank slices equal the one-device chain bit for
 bit.  tests/test_torch_cuda.py holds the CUDA kernels against
 the plain versions on the card.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ compute, XLA and torch round at other places (after each einsum, in the
 rope concat), so the port is held to the JAX package's own bf16 bars
 (tests/test_models_smoke.py: |diff| <= 0.15, argmax agreement >= 0.5).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ doubling scan in place of ``associative_scan``, its chunk loop in place of
 the ``wkv_recurrent`` kernel from a zero state, and its last state to a
 step-by-step recurrence.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ steps' logits agree to 2e-5 and the tokens are the same; in bfloat16 the
 port is held to the JAX package's bf16 bars (|diff| <= 0.15, argmax
 agreement >= 0.5; tests/test_models_smoke.py).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import jax

@@ -15,6 +15,7 @@ ulp.  Here an emulation of its rounding points in plain torch shows, against
 the reference oracle, that the bar admits that rounding and rejects a
 dropped kv tile or a causal mask off by one.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import math
 
 import jax.numpy as jnp

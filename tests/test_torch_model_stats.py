@@ -12,6 +12,7 @@ through a ``torch.Generator``, the bootstrap, ``makespan_trace_large``)
 are not the JAX package's numpy draws, so they are held statistically,
 as the reference's own tests hold them.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import os
 import subprocess

@@ -5,6 +5,7 @@ the reference's bands with ``convert.dia_from_numpy``.  The band fold is
 the same in both, so matvec, diagonal, to_dense and the column checksum
 must agree exactly, and fingerprints byte for byte.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import warnings
 
 import jax.numpy as jnp

@@ -4,6 +4,7 @@ Closed forms must agree exactly, quadrature to 1e-10.  Sampling is
 ``quantile(uniform)``: the quantiles are compared on the same uniforms,
 and the sampled makespans, whose random streams differ, statistically.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ Tolerances:
   equivalence) hold within the port bit for bit, on fixed seeds
   (hypothesis is absent here).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import math
 

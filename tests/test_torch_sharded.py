@@ -14,9 +14,10 @@ step issues one a parameter each way.
 (a) The sharded loss, its metrics and every rank's gradient blocks of the
     qwen3, recurrentgemma and olmoe smoke configs (olmoe with
     ``moe_impl`` "gather" and "ep", at the capacity that drops nothing),
-    each config under "2d" and "fsdp" ("ep" under "2d" only: the expert
-    route keeps a data shard's rows on its model line) on one or more of
-    the three meshes (``GRADS``), held to the JAX package's unsharded
+    each config under "2d" and "fsdp" on one or more of the three meshes
+    (``GRADS``; ``GRADS_SPLIT``: heads and KV heads split over ``model``,
+    q's rows split, the expert route under "fsdp"), held to the JAX
+    package's unsharded
     ``loss_fn`` / ``jax.value_and_grad`` within
     tests/test_torch_train.py's ``LOSS_TOL`` / ``LEAF_RTOL``.  The (1, 4)
     mesh under "2d" puts four ranks on one batch block: a gradient summed
@@ -44,7 +45,20 @@ step issues one a parameter each way.
     prefill; the bytes every rank stores against its share of the plan.
 (f) Placement and the step read one strategy, ``cfg.sharding``: a step
     refuses parameters placed for another.
+(g) Decode under a mesh (``DECODE``): a sharded prefill,
+    ``sharding.decode_state`` and 3 sharded decode steps of qwen3,
+    recurrentgemma, olmoe ("fsdp" + "ep"), rwkv6 and musicgen on the
+    three meshes, heads split and not: every step's logits and each
+    rank's STATE_RULES blocks of the last state against the JAX
+    package's unsharded ``prefill`` / ``decode_step`` within
+    tests/test_torch_lm.py's float32 bar (2e-5); a ring from
+    ``sharding.init_decode_state`` whose ``pos`` wraps past the window.
+(h) What each rank computes under "2d" (the shapes attention, the
+    weight blocks and the logits gather see; no parameter gathered in a
+    decode step on (1, 4)), and ``moe_ffn_ep`` with the batch split over
+    both axes ("fsdp") against ``_ep_local`` under ``jax.vmap``.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -59,11 +73,15 @@ import torch
 import torch_sharded_ranks as tsr
 from repro.configs import registry as jreg
 from repro.configs.base import TrainConfig as JTrainConfig
+from repro.launch.serve import prefill_to_decode_state as j_prefill_to_decode
 from repro.models import moe_ep as jmoe_ep
 from repro.models import transformer as jtf
-from repro_torch.configs.base import TrainConfig
+from repro_torch import convert
+from repro_torch.configs.base import ATTN_LOCAL, TrainConfig
 from repro_torch.distributed import comm, ranks
-from repro_torch.distributed.sharding import split_dims
+from repro_torch.distributed.sharding import (fit_batch_axes, model_blocks,
+                                              split_dims)
+from repro_torch.models.attention import decode_cache
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.train import train
@@ -75,6 +93,9 @@ WORLD = 4
 MESHES = ((2, 2), (1, 4), (4, 1))
 #: (arch, moe_impl, strategy, mesh): every config, strategy and mesh at
 #: least once; "2d" on (1, 4) puts all four ranks on one batch block
+HEADS = (("shard_attn_heads", True),)
+#: H = 6 does not divide over model = 4: q's rows split (sequence-parallel)
+SEQ = HEADS + (("num_heads", 6),)
 GRADS = (("qwen3-1.7b", "gather", "2d", (2, 2)),
          ("qwen3-1.7b", "gather", "2d", (1, 4)),
          ("qwen3-1.7b", "gather", "fsdp", (2, 2)),
@@ -85,6 +106,21 @@ GRADS = (("qwen3-1.7b", "gather", "2d", (2, 2)),
          ("olmoe-1b-7b", "gather", "fsdp", (1, 4)),
          ("olmoe-1b-7b", "ep", "2d", (2, 2)),
          ("olmoe-1b-7b", "ep", "2d", (1, 4)))
+#: the same with config overrides: heads (and KV heads on (2, 2)) split
+#: over model, q's rows split, the expert route under "fsdp"
+GRADS_SPLIT = (("qwen3-1.7b", "gather", "2d", (2, 2), HEADS),
+               ("qwen3-1.7b", "gather", "2d", (1, 4), HEADS),
+               ("recurrentgemma-2b", "gather", "2d", (1, 4), SEQ),
+               ("olmoe-1b-7b", "ep", "fsdp", (2, 2), ()))
+GRADS_ALL = tuple(g + ((),) for g in GRADS) + GRADS_SPLIT
+
+
+def _grads_id(i):
+    arch, impl, strategy, _, ov = GRADS_ALL[i]
+    tag = "".join(f"-{k}" for k, _ in ov if k != "shard_attn_heads")
+    heads = "-heads" if dict(ov).get("shard_attn_heads") else ""
+    return f"{arch}-{impl}-{strategy}-mesh{i}" + heads + tag.replace(
+        "-num_heads", "-seq")
 #: (arch, moe_impl, strategy, mesh, pipelined clipping, moment dtype)
 STEPS = (("qwen3-1.7b", "gather", "2d", (2, 2), False, "float32"),
          ("qwen3-1.7b", "gather", "fsdp", (1, 4), True, "bfloat16"),
@@ -96,6 +132,35 @@ CKPT_STEPS, CKPT_TOL = 4, 1e-4   # one step a run; losses vs one device
 CKPT_WARMUP = 10
 PREFILL = (("olmoe-1b-7b", "ep", "2d", (2, 2)),
            ("qwen3-1.7b", "gather", "fsdp", (4, 1)))
+#: (arch, moe_impl, strategy, mesh, overrides): a sharded prefill of
+#: DEC_PROMPT tokens, ``sharding.decode_state``, DEC_STEPS decode steps;
+#: every config, mesh and strategy, heads split and not
+DECODE = (("qwen3-1.7b", "gather", "2d", (2, 2), ()),
+          ("qwen3-1.7b", "gather", "2d", (2, 2), HEADS),
+          ("qwen3-1.7b", "gather", "2d", (1, 4), HEADS),
+          ("qwen3-1.7b", "gather", "2d", (4, 1), HEADS),
+          ("qwen3-1.7b", "gather", "fsdp", (2, 2), HEADS),
+          ("recurrentgemma-2b", "gather", "2d", (1, 4), HEADS),
+          ("recurrentgemma-2b", "gather", "2d", (1, 4), SEQ),
+          ("recurrentgemma-2b", "gather", "2d", (2, 2), ()),
+          ("olmoe-1b-7b", "ep", "fsdp", (2, 2), HEADS),
+          ("olmoe-1b-7b", "ep", "fsdp", (1, 4), ()),
+          ("olmoe-1b-7b", "ep", "fsdp", (4, 1), ()),
+          ("olmoe-1b-7b", "ep", "2d", (1, 4), HEADS),
+          ("rwkv6-7b", "gather", "2d", (1, 4), ()),
+          ("rwkv6-7b", "gather", "2d", (2, 2), HEADS),
+          ("rwkv6-7b", "gather", "fsdp", (4, 1), ()),
+          ("musicgen-medium", "gather", "2d", (1, 4), HEADS))
+DEC_PROMPT, DEC_STEPS = S, 3
+#: decode from ``sharding.init_decode_state``: the ring of the smoke
+#: window (8 slots, 2 a rank) wraps past it
+ROLLING = ("recurrentgemma-2b", "gather", "2d", (1, 4), HEADS)
+ROLL_STEPS, ROLL_CACHE = 12, 16
+#: tests/test_torch_lm.py's float32 bar of decode against the reference
+DEC_TOL = 2e-5
+#: moe_ffn_ep with the batch split over data and model ("fsdp")
+EP_FSDP_MESHES = ((2, 2), (1, 4))
+SPLITS = ((2, 2), (1, 4))
 
 
 def _f32():
@@ -104,15 +169,22 @@ def _f32():
     return jax.enable_x64(False)
 
 
-def _cfg_kw(arch, impl, strategy="2d"):
+def _cfg_kw(arch, impl, strategy="2d", ov=()):
     """A smoke config's arguments; ``strategy`` is its ``sharding``, which
-    both places the weights and splits the batch."""
-    return dict(arch=arch, overrides={"moe_impl": impl, "sharding": strategy},
+    both places the weights and splits the batch; ``ov``: more fields."""
+    return dict(arch=arch, overrides={"moe_impl": impl, "sharding": strategy,
+                                      **dict(ov)},
                 capacity="no_drop")
 
 
-def _jcfg(arch):
-    cfg = dataclasses.replace(jreg.smoke_config(arch), dtype="float32")
+def _shape_ov(ov):
+    """The overrides that change the model itself (not its sharding)."""
+    return tuple((k, v) for k, v in ov if k == "num_heads")
+
+
+def _jcfg(arch, ov=()):
+    cfg = dataclasses.replace(jreg.smoke_config(arch), dtype="float32",
+                              **dict(_shape_ov(ov)))
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
@@ -131,10 +203,11 @@ def _batch(seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _params(arch):
+def _params(arch, ov=()):
+    jc = _jcfg(arch, ov)
     with _f32():
         return _np(jax.jit(lambda: jtf.init_params(
-            _jcfg(arch), jax.random.PRNGKey(0)))())
+            jc, jax.random.PRNGKey(0)))())
 
 
 class _EPHints(jtf.Hints):
@@ -171,10 +244,10 @@ def _vmapped_ep(p, cfg, x, dtype, mesh):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(arch, impl, data=1, model=1):
+def _reference(arch, impl, data=1, model=1, ov=()):
     """Loss, metrics and gradients of the JAX ``loss_fn`` (jitted):
     unsharded, or with the vmapped EP body on ``data`` x ``model``."""
-    jc = _jcfg(arch)
+    jc = _jcfg(arch, ov)
     b = {k: jnp.asarray(v) for k, v in _batch().items()}
     hints = jtf.Hints()
     if impl == "ep" and data > 1:
@@ -185,13 +258,13 @@ def _reference(arch, impl, data=1, model=1):
             lambda p, bb: jtf.loss_fn(p, jc, bb, remat="none", hints=hints),
             has_aux=True))
         (loss, metrics), grads = vg(jax.tree.map(jnp.asarray,
-                                                 _params(arch)), b)
+                                                 _params(arch, ov)), b)
     return float(loss), _np(metrics), _np(grads)
 
 
-def _by_name(arch, tree) -> dict:
+def _by_name(arch, tree, ov=()) -> dict:
     """A params-shaped numpy tree as {port name: float32 numpy}."""
-    cfg = tsr.config(arch)
+    cfg = tsr.config(arch, dict(_shape_ov(ov)))
     from repro_torch.convert import lm_params_from_numpy
     return {k: p.detach().float().numpy() for k, p in
             lm_params_from_numpy(cfg, tree, "cpu").named_parameters()}
@@ -243,12 +316,25 @@ def _step_state(arch, dtype, rms=1e-2, seed=11):
             "step": np.int32(3), "prev_gnorm": np.float32(2.0)}
 
 
+def _dec_tokens(seed=9, n=DEC_PROMPT + DEC_STEPS, ncb=1):
+    shape = (B, n) + ((ncb,) if ncb > 1 else ())
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(
+        np.int32)
+
+
+def _dec_cache(arch, prompt=DEC_PROMPT, steps=DEC_STEPS):
+    """Frontend positions, prompt and steps, rounded up to split over 4."""
+    cfg = tsr.config(arch)
+    F = cfg.frontend.num_positions if cfg.frontend is not None else 0
+    return -(-(F + prompt + steps) // 4) * 4
+
+
 def _jobs(ckpt):
     jobs = []
-    for arch, impl, strategy, mesh in GRADS:
-        jobs.append(dict(kind="grads", model=mesh[1],
-                         cfg=_cfg_kw(arch, impl, strategy),
-                         params=_params(arch),
+    for i, (arch, impl, strategy, mesh, ov) in enumerate(GRADS_ALL):
+        jobs.append(dict(kind="grads", model=mesh[1], case=i,
+                         cfg=_cfg_kw(arch, impl, strategy, ov),
+                         params=_params(arch, _shape_ov(ov)),
                          batch=_batch()))
     for arch, impl, strategy, mesh, pipelined, dtype in STEPS:
         jobs.append(dict(kind="step", model=mesh[1],
@@ -271,6 +357,10 @@ def _jobs(ckpt):
         for cap in (EP_DROP, "no_drop"):
             jobs.append(dict(kind="moe_ep", model=mesh[1], moe=moe, x=x,
                              cfg=dict(arch="olmoe-1b-7b", capacity=cap)))
+    for mesh in EP_FSDP_MESHES:
+        jobs.append(dict(kind="moe_ep", model=mesh[1], moe=moe, x=x,
+                         strategy="fsdp",
+                         cfg=dict(arch="olmoe-1b-7b", capacity=EP_DROP)))
     for mesh, end in (((2, 2), 2), ((4, 1), 3)):
         jobs.append(dict(kind="train", model=mesh[1],
                          kw=dict(seq_len=S, batch=B),
@@ -287,6 +377,26 @@ def _jobs(ckpt):
                              ("recurrentgemma-2b", "gather", (4, 1))):
         jobs.append(dict(kind="storage", model=mesh[1],
                          cfg=_cfg_kw(arch, impl)))
+    for i, (arch, impl, strategy, mesh, ov) in enumerate(DECODE):
+        jobs.append(dict(kind="decode", model=mesh[1], case=i,
+                         cfg=_cfg_kw(arch, impl, strategy, ov),
+                         params=_params(arch, _shape_ov(ov)),
+                         tokens=_dec_tokens(
+                             ncb=tsr.config(arch).num_codebooks),
+                         prompt=DEC_PROMPT, steps=DEC_STEPS,
+                         cache_len=_dec_cache(arch)))
+    arch, impl, strategy, mesh, ov = ROLLING
+    jobs.append(dict(kind="decode", model=mesh[1], case="rolling",
+                     cfg=_cfg_kw(arch, impl, strategy, ov),
+                     params=_params(arch, _shape_ov(ov)),
+                     tokens=_dec_tokens(n=ROLL_STEPS), prompt=0,
+                     steps=ROLL_STEPS, cache_len=ROLL_CACHE))
+    for mesh in SPLITS:
+        jobs.append(dict(kind="splits", model=mesh[1],
+                         cfg=_cfg_kw("qwen3-1.7b", "gather", "2d", HEADS),
+                         params=_params("qwen3-1.7b"),
+                         tokens=_dec_tokens(n=DEC_PROMPT + 1),
+                         cache_len=_dec_cache("qwen3-1.7b")))
     return jobs
 
 
@@ -317,9 +427,15 @@ def run(tmp_path_factory):
     try:
         # the references compile side by side while the ranks start up;
         # the steps' references read the gradients' from the cache
-        keys = sorted({_ref_key(a, i, *m) for a, i, _, m in GRADS})
-        with ThreadPoolExecutor(len(keys)) as pool:
+        keys = sorted({_ref_key(a, i, *m, ov) for a, i, _, m, ov in GRADS_ALL})
+        dec = sorted({(a, _shape_ov(ov), DEC_PROMPT, DEC_STEPS,
+                       _dec_cache(a)) for a, _, _, _, ov in DECODE}
+                     | {(ROLLING[0], (), 0, ROLL_STEPS, ROLL_CACHE)})
+        with ThreadPoolExecutor(len(keys) + len(dec)) as pool:
+            decs = [pool.submit(_reference_decode, *k) for k in dec]
             refs = dict(zip(keys, pool.map(lambda k: _reference(*k), keys)))
+            for w in decs:
+                w.result()
         with ThreadPoolExecutor(len(STEPS) + len(EP_MESHES)) as pool:
             waits = [pool.submit(_reference_step, a, i, *m, pl, dt)
                      for a, i, _, m, pl, dt in STEPS]
@@ -338,11 +454,11 @@ def run(tmp_path_factory):
                 chain=first + [None, None] + last)
 
 
-def _ref_key(arch, impl, data, model):
+def _ref_key(arch, impl, data, model, ov=()):
     """The reference of a case: the vmapped EP body on data x model for
     the expert route over more than one data shard, else unsharded."""
     ep = impl == "ep" and data > 1
-    return (arch, impl, data if ep else 1, model if ep else 1)
+    return (arch, impl, data if ep else 1, model if ep else 1, _shape_ov(ov))
 
 
 def _records(run, kind):
@@ -351,17 +467,23 @@ def _records(run, kind):
             for i, job in enumerate(run["jobs"]) if job["kind"] == kind]
 
 
-@pytest.mark.parametrize("arch,impl,strategy,mesh", GRADS)
+def _case(run, kind, case):
+    """The records of the job of ``kind`` with ``case``."""
+    (_, recs), = [(j, r) for j, r in _records(run, kind)
+                  if j.get("case") == case]
+    return recs
+
+
+@pytest.mark.parametrize("arch,impl,strategy,mesh,ov", [
+    pytest.param(*g, id=_grads_id(i)) for i, g in enumerate(GRADS_ALL)])
 def test_sharded_loss_and_grad_blocks_match_the_reference(run, arch, impl,
-                                                          strategy, mesh):
-    (job, recs), = [(j, r) for j, r in _records(run, "grads")
-                    if j["cfg"]["arch"] == arch
-                    and j["cfg"]["overrides"] == {"moe_impl": impl,
-                                                  "sharding": strategy}
-                    and j["model"] == mesh[1]]
-    key = _ref_key(arch, impl, *mesh)
+                                                          strategy, mesh,
+                                                          ov):
+    recs = _case(run, "grads", GRADS_ALL.index((arch, impl, strategy, mesh,
+                                                ov)))
+    key = _ref_key(arch, impl, *mesh, ov)
     jloss, jmetrics, jgrads = run["refs"][key]
-    want = _by_name(arch, jgrads)
+    want = _by_name(arch, jgrads, ov)
     for rec in recs:
         assert rec["shape"] == {"data": mesh[0], "model": mesh[1]}
         assert abs(rec["loss"] - jloss) <= LOSS_TOL
@@ -430,7 +552,7 @@ def _ep_local_reference(job, data, model):
 def test_moe_ep_matches_the_reference_ep_body(run, mesh, capacity):
     (i, (job, recs)), = [(i, (j, r)) for i, (j, r)
                          in enumerate(_records(run, "moe_ep"))
-                         if j["model"] == mesh[1]
+                         if j["model"] == mesh[1] and "strategy" not in j
                          and j["cfg"]["capacity"] == capacity]
     out, aux = run["ep_refs"][i]
     rows = B // mesh[0]
@@ -448,6 +570,179 @@ def test_moe_ep_matches_the_reference_ep_body(run, mesh, capacity):
                                        rtol=0, atol=1e-5)
     if capacity == EP_DROP:
         assert min(drops) > 0
+
+
+@pytest.mark.parametrize("mesh", EP_FSDP_MESHES)
+def test_moe_ep_under_fsdp_matches_the_reference_ep_body(run, mesh):
+    """The batch split over data and model: each rank's rows of the
+    reference EP body's output (run per data shard, as its ``shard_map``
+    reshards the rows), the shard's loss terms and its drops."""
+    (i, (job, recs)), = [(i, (j, r)) for i, (j, r)
+                         in enumerate(_records(run, "moe_ep"))
+                         if j["model"] == mesh[1]
+                         and j.get("strategy") == "fsdp"]
+    out, aux = run["ep_refs"][i]
+    for rec in recs:
+        rows = _rows(rec, "fsdp")
+        assert rows.stop - rows.start == B // WORLD
+        want = out[rows]
+        assert np.abs(rec["out"] - want).max() <= 1e-5 * np.abs(want).max()
+        for k in ("moe_aux", "moe_z"):
+            assert abs(rec["aux"][k] - aux[k]) <= 1e-5 * abs(aux[k])
+        assert rec["aux"]["moe_dropped"] > 0
+
+
+def _mesh_of(rec):
+    """A mesh of the record's shape at its coordinates (no groups)."""
+    shape, coords = rec["shape"], rec["coords"]
+    rank = 0
+    for a in shape:
+        rank = rank * shape[a] + coords[a]
+    return Mesh(shape, rank)
+
+
+def _rows(rec, strategy):
+    """The batch rows a rank of ``rec`` holds under ``strategy``."""
+    mesh = _mesh_of(rec)
+    axes = fit_batch_axes(mesh, B, strategy)
+    n = B // mesh.count(axes)
+    return slice(mesh.index(axes) * n, (mesh.index(axes) + 1) * n)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_decode(arch, ov, prompt, steps, cache_len):
+    """The JAX package's unsharded prefill of the first ``prompt`` tokens
+    and ``prefill_to_decode_state`` (with no prompt ``init_decode_state``),
+    then ``steps`` decode steps fed the next tokens, jitted: the logits
+    (B, V) of the prefill and of each step, and the last state."""
+    jc = _jcfg(arch, ov)
+    toks = jnp.asarray(_dec_tokens(n=prompt + steps, ncb=jc.num_codebooks))
+
+    def last(lg):   # (B, V) a codebook
+        return ([np.asarray(t[:, -1]) for t in lg] if isinstance(lg, tuple)
+                else np.asarray(lg[:, -1]))
+
+    with _f32():
+        params = jax.tree.map(jnp.asarray, _params(arch, ov))
+        out = []
+        if prompt:
+            batch = {"tokens": toks[:, :prompt]}
+            if jc.frontend is not None:
+                batch["frontend"] = jnp.zeros(
+                    (B, jc.frontend.num_positions, jc.d_model), jnp.bfloat16)
+            lg, st = jax.jit(lambda p, b: jtf.prefill(p, jc, b))(params,
+                                                                 batch)
+            out.append(last(lg))
+            st = j_prefill_to_decode(jc, st, cache_len)
+        else:
+            st = jtf.init_decode_state(jc, B, cache_len)
+        step = jax.jit(lambda p, st, t: jtf.decode_step(p, jc, st, t))
+        for i in range(steps):
+            st, lg = step(params, st, toks[:, prompt + i])
+            out.append(last(lg))
+    return out, _np(st)
+
+
+def _check_decode(rec, arch, strategy, ov, prompt, steps, cache_len):
+    """A rank's logits rows and state blocks against the reference."""
+    want, jstate = _reference_decode(arch, _shape_ov(ov), prompt, steps,
+                                     cache_len)
+    cfg = tsr.config(arch, dict(_shape_ov(ov)))
+    rows = _rows(rec, strategy)
+    assert len(rec["logits"]) == len(want)
+    F = cfg.frontend.num_positions if cfg.frontend is not None else 0
+    for step, (got, w) in enumerate(zip(rec["logits"], want)):
+        for g, c in zip(*((x if isinstance(x, list) else [x])
+                          for x in (got, w))):
+            np.testing.assert_allclose(g[:, 0], c[rows], rtol=0,
+                                       atol=DEC_TOL, err_msg=f"step {step}")
+    assert rec["pos"] == F + prompt + steps
+    # the reference's prefill leaves local layers' caches full length;
+    # the port's decode state holds a ring of the window there
+    whole = convert.decode_state_from_numpy(cfg, jstate, "cpu")
+    mesh = _mesh_of(rec)
+    axes = fit_batch_axes(mesh, B)
+    for layer, (kind, st, got) in enumerate(zip(
+            cfg.layer_kinds(), whole["layers"], rec["state"])):
+        if kind == ATTN_LOCAL and st.k.shape[1] != cfg.window:
+            st = type(st)(*(decode_cache(t[:, :rec["pos"]], rec["pos"],
+                                         cache_len, cfg.window) for t in st))
+        want_st = model_blocks(type(st)(*(comm.own_block(t, 0, mesh, axes)
+                                          for t in st)), mesh)
+        for f, g, w in zip(st._fields, got, want_st):
+            np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=DEC_TOL,
+                                       err_msg=f"layer {layer} {f}")
+
+
+def _decode_id(i):
+    arch, impl, strategy, _, ov = DECODE[i]
+    tag = "-heads" if dict(ov).get("shard_attn_heads") else ""
+    return f"{arch}-{impl}-{strategy}-mesh{i}{tag}" + (
+        "-seq" if "num_heads" in dict(ov) else "")
+
+
+@pytest.mark.parametrize("case", range(len(DECODE)), ids=_decode_id)
+def test_sharded_decode_matches_the_reference(run, case):
+    """A sharded prefill, ``sharding.decode_state`` and DEC_STEPS sharded
+    decode steps: each rank's rows of every step's logits and its
+    STATE_RULES blocks of the last state (the KV caches' sequence and the
+    recurrent states' width over ``model``) against the JAX package's
+    unsharded prefill / ``decode_step`` within tests/test_torch_lm.py's
+    float32 bar."""
+    arch, _, strategy, mesh, ov = DECODE[case]
+    for rec in _case(run, "decode", case):
+        assert rec["shape"] == {"data": mesh[0], "model": mesh[1]}
+        _check_decode(rec, arch, strategy, ov, DEC_PROMPT, DEC_STEPS,
+                      _dec_cache(arch))
+
+
+def test_rolling_cache_wraps_past_the_window(run):
+    """recurrentgemma's local attention from ``sharding.init_decode_state``:
+    a ring of the window's 8 slots, 2 on each of 4 ranks, written by the
+    slot's owner as ``pos % 8`` falls, ROLL_STEPS decode steps (pos wraps
+    past the window) against the reference's own ring."""
+    arch, _, strategy, _, ov = ROLLING
+    cfg = tsr.config(arch)
+    local = cfg.layer_kinds().index(ATTN_LOCAL)
+    for rec in _case(run, "decode", "rolling"):
+        assert rec["state"][local][0].shape[1] == cfg.window // 4
+        _check_decode(rec, arch, strategy, ov, 0, ROLL_STEPS, ROLL_CACHE)
+
+
+@pytest.mark.parametrize("mesh", SPLITS)
+def test_tensor_parallel_splits_heads_kv_heads_ffn_and_vocab(run, mesh):
+    """qwen3 (H 4, KV 2, D 16, d_ff 96, V 512) under "2d" with the heads
+    split: what each rank computes.  On (2, 2) 2 query heads and 1 KV
+    head a rank; on (1, 4) 1 query head and the one KV head it reads
+    (KV does not divide: k and v whole, then selected); the FFN's hidden
+    width and the vocabulary in quarters or halves; a decode step on (1,
+    4), where no weight is split over ``data``, gathers no parameter."""
+    cfg = tsr.config("qwen3-1.7b")
+    m = mesh[1]
+    rows = B // mesh[0]
+    D, d = cfg.head_dim, cfg.d_model
+    (_, recs), = [(j, r) for j, r in _records(run, "splits")
+                  if j["model"] == m]
+    for rec in recs:
+        pre, dec = rec["prefill"], rec["decode"]
+        kv = cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0 else 1
+        assert set(pre["attend"]) == {((rows, S, cfg.num_heads // m, D),
+                                       (rows, S, kv, D))}
+        blocks = dict(pre["block"])
+        assert blocks["blocks.0.ffn.up.w"] == (d, cfg.d_ff // m)
+        assert blocks["blocks.0.ffn.gate.w"] == (d, cfg.d_ff // m)
+        assert blocks["blocks.0.ffn.down.w"] == (cfg.d_ff // m, d)
+        assert blocks["blocks.0.attn.wq.w"] == (d, cfg.num_heads * D // m)
+        assert blocks["blocks.0.attn.wo.w"] == (cfg.num_heads * D // m, d)
+        assert blocks["embed"] == (cfg.vocab_size // m, d)
+        assert set(pre["logits"]) == {(rows, 1, cfg.vocab_size // m)}
+        assert dict(dec["block"])["blocks.0.attn.wk.w"] == (
+            d, cfg.num_kv_heads * D // m)
+        assert dec["attend"] == []      # decode reads its cache block
+        if mesh[0] == 1:
+            assert dec["gathered"] == 0
+        else:
+            assert dec["gathered"] > 0  # blocks gathered over data
 
 
 def test_checkpoint_moves_between_meshes_and_one_device(run):
@@ -501,9 +796,9 @@ def test_a_step_refuses_parameters_placed_for_another_strategy():
 
 
 def test_decode_and_dry_run_under_a_mesh_name_the_next_slice():
+    """The dry run under a mesh is the last slice (its name kept: decode
+    under a mesh is done, above)."""
     cfg = tsr.config("qwen3-1.7b")
     mesh = Mesh({"data": 2, "model": 2})
-    for call in (lambda: steps.make_decode_step(cfg, mesh),
-                 lambda: steps.dryrun_lowerable(cfg, None, None, mesh)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        steps.dryrun_lowerable(cfg, None, None, mesh)

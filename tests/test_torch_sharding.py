@@ -17,6 +17,7 @@ The reference stacks a pattern position's layers for ``lax.scan``: layer
 ``g * len(pattern) + i`` is entry ``[g]`` of ``blocks/scan/i``, and its
 spec is the reference's with the scan's leading None dropped.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import functools
 
 import jax

@@ -10,6 +10,7 @@ gloo alone.
 """
 from __future__ import annotations
 
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import threading
 
 import numpy as np

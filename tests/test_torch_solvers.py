@@ -14,6 +14,7 @@ operators, so the histories are kept to at most 80 iterations; bf16
 storage amplifies a last-bit difference by ~3x per iteration, so its
 history is compared over the first 12.
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import importlib
 import warnings

@@ -10,6 +10,7 @@ without FMA contraction): the vectors must equal the plain versions bit
 for bit, the partials to 1e-10 of their magnitude (another summation
 order).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

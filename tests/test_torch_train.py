@@ -36,6 +36,7 @@ compute, for the ten smoke configs:
 One JAX jit of the loss's value and gradient per arch, shared by (a) and
 (b).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import functools
 import shutil

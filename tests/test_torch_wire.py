@@ -30,6 +30,7 @@ arithmetic lands at 102.9 eps_fp32 under ``fp32`` at 4 ranks, outside
 its own floor of 32, so the p-BiCGStab cells are held to finite
 plateaus and to the reference's history, not to the floor (H13).
 """
+import torch_cores  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -20,10 +20,18 @@ one of these kinds:
 - ``moe_ep``: ``moe_ffn_ep`` on this rank's rows of a numpy batch with
   numpy MoE weights: out, ``moe_aux``, ``moe_z`` and drops, and
   ``moe_ffn`` on the same rows;
-- ``prefill``: a sharded ``make_prefill_step``: this rank's logits and
-  the flash launches;
+- ``prefill``: a sharded ``make_prefill_step``: this rank's logits, the
+  flash launches and the (B*H, S, D) shape of each;
 - ``storage``: the bytes of this rank's stored parameter and moment
-  blocks, and the bytes the specs say it holds.
+  blocks, and the bytes the specs say it holds;
+- ``decode``: a sharded prefill of the first ``prompt`` tokens and
+  ``sharding.decode_state`` (or, with no prompt,
+  ``sharding.init_decode_state``), then ``steps`` sharded decode steps
+  fed the next tokens: this rank's rows of each step's logits and its
+  blocks of the last state;
+- ``splits``: one sharded prefill and one decode step with the shapes
+  recorded that attention, the weight blocks and the logits gather see,
+  and the bytes of the parameter gathers the decode step made.
 
 Each record carries the rank's mesh coordinates.
 """
@@ -130,7 +138,8 @@ def _moe_ep(job, mesh, device):
     cfg = config(**job["cfg"])
     w = {k: torch.from_numpy(v).to(device) for k, v in job["moe"].items()}
     p = MoE(Linear(w["router"]), w["up"], w["down"], w.get("gate"))
-    axes = sharding.fit_batch_axes(mesh, job["x"].shape[0])
+    axes = sharding.fit_batch_axes(mesh, job["x"].shape[0],
+                                   job.get("strategy", "2d"))
     x = sharding.shard_batch({"x": torch.from_numpy(job["x"]).to(device)},
                              mesh, axes)["x"]
     with torch.no_grad():
@@ -145,11 +154,21 @@ def _prefill(job, mesh, device):
     from repro_torch.kernels import ops
     cfg = config(**job["cfg"])
     model = _model(job, cfg, mesh, device)
+    flash, shapes = ops.flash_mha, []
+
+    def rec_flash(q, *a, **kw):       # the (B*H, S, D) the kernel gets
+        shapes.append(tuple(q.shape))
+        return flash(q, *a, **kw)
+
     ops.reset_launch_counts()
-    logits, state = steps.make_prefill_step(cfg, mesh)(
-        model, _t(job["batch"], device))
+    ops.flash_mha = rec_flash
+    try:
+        logits, state = steps.make_prefill_step(cfg, mesh)(
+            model, _t(job["batch"], device))
+    finally:
+        ops.flash_mha = flash
     return dict(logits=_np(logits), launches=ops.launch_counts(),
-                rows=int(logits.shape[0]))
+                rows=int(logits.shape[0]), flash_shapes=shapes)
 
 
 def _storage(job, mesh, device):
@@ -163,8 +182,88 @@ def _storage(job, mesh, device):
     return dict(held=held, plan=plan)
 
 
+def _decode(job, mesh, device):
+    cfg = config(**job["cfg"])
+    model = _model(job, cfg, mesh, device)
+    toks = torch.from_numpy(job["tokens"]).to(device)
+    S, B = job["prompt"], toks.shape[0]
+    logits = []
+    if S:
+        batch = {"tokens": toks[:, :S]}
+        if cfg.frontend is not None:      # the zero stub serve feeds
+            batch["frontend"] = torch.zeros(
+                (B, cfg.frontend.num_positions, cfg.d_model),
+                dtype=torch.bfloat16, device=device)
+        lg, state = steps.make_prefill_step(cfg, mesh)(model, batch)
+        logits.append([_np(t) for t in lg] if isinstance(lg, tuple)
+                      else _np(lg))
+        state = sharding.decode_state(cfg, state, mesh, B, job["cache_len"])
+    else:
+        state = sharding.init_decode_state(cfg, mesh, B, job["cache_len"],
+                                           device)
+    step = steps.make_decode_step(cfg, mesh)
+    for i in range(job["steps"]):
+        state, lg = step(model, state, toks[:, S + i])
+        logits.append([_np(t) for t in lg] if isinstance(lg, tuple)
+                      else _np(lg))
+    return dict(logits=logits, pos=state["pos"],
+                state=[[_np(t) for t in st] for st in state["layers"]])
+
+
+def _splits(job, mesh, device):
+    from repro_torch.distributed import comm
+    from repro_torch.models import attention
+    cfg = config(**job["cfg"])
+    model = _model(job, cfg, mesh, device)
+    names = {id(m): n for n, m in model.named_modules()}
+    seen = {"attend": [], "block": [], "logits": [], "gathered": 0}
+    attend, block = attention.attend, sharding.MeshHints.block
+    logits, gather = sharding.MeshHints.logits, sharding.Placed.gather
+
+    def rec_attend(q, k, v, *a, **kw):
+        seen["attend"].append((tuple(q.shape), tuple(k.shape)))
+        return attend(q, k, v, *a, **kw)
+
+    def rec_block(self, owner, attr, dim):
+        t = block(self, owner, attr, dim)
+        name = f"{names[id(owner)]}.{attr}".lstrip(".")
+        seen["block"].append((name, tuple(t.shape)))
+        return t
+
+    def rec_logits(self, x):
+        seen["logits"].append(tuple(x.shape))
+        return logits(self, x)
+
+    def rec_gather(self, blk, keep=()):
+        b0 = comm.all_gather.bytes
+        out = gather(self, blk, keep)
+        seen["gathered"] += comm.all_gather.bytes - b0
+        return out
+
+    toks = torch.from_numpy(job["tokens"]).to(device)
+    S, B = toks.shape[1] - 1, toks.shape[0]
+    attention.attend = rec_attend
+    sharding.MeshHints.block = rec_block
+    sharding.MeshHints.logits = rec_logits
+    try:
+        _, state = steps.make_prefill_step(cfg, mesh)(
+            model, {"tokens": toks[:, :S]})
+        prefill = {k: seen[k] for k in ("attend", "block", "logits")}
+        state = sharding.decode_state(cfg, state, mesh, B, job["cache_len"])
+        seen.update(attend=[], block=[], logits=[])
+        sharding.Placed.gather = rec_gather
+        steps.make_decode_step(cfg, mesh)(model, state, toks[:, S])
+    finally:
+        attention.attend = attend
+        sharding.MeshHints.block = block
+        sharding.MeshHints.logits = logits
+        sharding.Placed.gather = gather
+    return dict(prefill=prefill, decode=seen)
+
+
 KINDS = {"grads": _grads, "step": _step, "train": _train, "moe_ep": _moe_ep,
-         "prefill": _prefill, "storage": _storage}
+         "prefill": _prefill, "storage": _storage, "decode": _decode,
+         "splits": _splits}
 
 
 def sharded_jobs(rank, world, jobs, device="cpu"):
